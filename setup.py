@@ -8,7 +8,8 @@ setup(
     version="0.1.0",
     description="TPU-native (JAX/XLA/Pallas) wav2letter speech recognition framework",
     packages=find_packages(exclude=("tests",)),
-    package_data={"speechless_tpu.native": ["*.cpp"]},
+    package_data={"speechless_tpu.native": ["*.cpp"],
+                  "speechless_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,74 @@
+"""Build-at-first-use loader for the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ``build/speechless_tpu_torch_kernels/<name>-<hash>.so`` beside the
+package, then loaded with `ctypes`. The file name carries a hash of the source and the
+flags, so an edited kernel is rebuilt and never confused with a stale library. Nothing
+is built or loaded at import: the CPU tests import every module without a CUDA toolkit.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "speechless_tpu_torch_kernels"
+# No --use_fast_math: expf/log1pf must match torch's CUDA logaddexp bit for bit.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point of each source: argument types (pointers and the stream as c_void_p).
+SIGNATURES = {
+    "lm_beam_step": [_P] * 15 + [_I] * 10 + [_P],
+}
+
+_lock = threading.Lock()
+_functions = {}
+builds = {}  # name -> {"seconds": build time (0 when reused), "log": nvcc output, "path"}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for candidate in ((Path(cuda_home) / "bin" / "nvcc") if cuda_home else None,
+                      shutil.which("nvcc"), Path("/usr/local/cuda/bin/nvcc")):
+        if candidate and Path(candidate).exists():
+            return str(candidate)
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def _build(name: str) -> Path:
+    source = SOURCE_DIR / (name + ".cu")
+    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    target = BUILD_DIR / "{}-{}.so".format(name, digest[:16])
+    if target.exists():
+        builds[name] = {"seconds": 0.0, "log": "reused {}".format(target), "path": target}
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    partial = target.with_name("{}.{}.tmp".format(target.name, os.getpid()))
+    start = time.perf_counter()
+    result = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(source)],
+                            capture_output=True, text=True)
+    if result.returncode != 0:
+        raise RuntimeError("nvcc failed to build {}:\n{}{}".format(
+            source, result.stdout, result.stderr))
+    os.replace(partial, target)  # atomic: concurrent builders never load a partial file
+    builds[name] = {"seconds": time.perf_counter() - start,
+                    "log": result.stdout + result.stderr, "path": target}
+    return target
+
+
+def function(name: str):
+    """The ctypes entry point ``name`` of ``csrc/<name>.cu``, built on first use. Its C
+    function returns the ``cudaError_t`` of the launch (0 on success)."""
+    with _lock:
+        if name not in _functions:
+            entry = getattr(ctypes.CDLL(str(_build(name))), name)
+            entry.argtypes = SIGNATURES[name]
+            entry.restype = ctypes.c_int
+            _functions[name] = entry
+        return _functions[name]

@@ -1,0 +1,70 @@
+"""Constants and helpers shared by the prefix beams (port of `speechless_tpu/ops/
+decode_jax.py::backtrace_tokens/_word_bonuses` and the constants of
+`speechless_tpu/ops/decode_pallas.py`).
+
+Prefix hashes are int32 with wraparound (``hash * HASH_MULTIPLIER + (char + 2)``); they
+compare as signed int32, so ``DEAD_KEY = INT32_MAX`` sorts after every live prefix.
+"""
+from typing import Tuple
+
+import torch
+
+NEG_INF = -1e30
+HASH_MULTIPLIER = 16777619    # FNV-ish
+EMPTY_HASH = -2128831035      # 0x811C9DC5 as int32
+DEAD_KEY = 2147483647
+
+
+def next_pow2(value: int) -> int:
+    return 1 << max(0, (value - 1)).bit_length()
+
+
+def backtrace_tokens(parents: torch.Tensor, emit_chars: torch.Tensor, best: torch.Tensor,
+                     counts: torch.Tensor, max_decoded_length: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rebuild each row's winning prefix from per-frame backpointers.
+
+    ``parents``/``emit_chars`` are ``(B, T, W)`` records of (parent beam, emitted char or
+    -1); ``best`` ``(B,)`` the winning final beams; ``counts`` ``(B,)`` their prefix
+    lengths; T must be at least 1. Returns ``tokens (B, max_decoded_length) int32``
+    (-1 padded) and counts."""
+    batch, t_max, _ = parents.shape
+    beam = best.to(torch.int64)
+    path = []
+    for t in range(t_max - 1, -1, -1):
+        index = beam[:, None]
+        path.append(emit_chars[:, t].gather(1, index)[:, 0])
+        beam = parents[:, t].gather(1, index)[:, 0].to(torch.int64)
+    path_chars = torch.stack(path[::-1], dim=1)
+    t_range = torch.arange(t_max, device=parents.device)[None, :]
+    # Front-compact the emitted characters in time order.
+    order = torch.argsort(torch.where(path_chars >= 0, t_range, t_range + t_max), dim=1)
+    packed = path_chars.gather(1, order)
+    out = torch.arange(max_decoded_length, device=parents.device)[None, :]
+    picked = packed.gather(1, torch.clamp(out, max=t_max - 1).expand(batch, -1))
+    counts = counts.to(torch.int32)
+    tokens = torch.where(out < counts[:, None], picked, picked.new_full((), -1))
+    return tokens.to(torch.int32), counts
+
+
+def word_bonuses(word_lm, trie_nodes: torch.Tensor, word_contexts: torch.Tensor,
+                 lm_weight: float, word_count_weight: float,
+                 valid_word_count_weight: float):
+    """Per-beam bonus a space extension would earn now: nothing for an empty word;
+    OOV words score as <unk> with no validity bonus. Returns ``(bonus, pending,
+    normalized word ids)`` over the flat beams of ``trie_nodes``."""
+    from ..lm.device_lm import score_word_device
+
+    pending = trie_nodes != 0
+    completed = torch.where(trie_nodes > 0,
+                            word_lm.node_word[torch.clamp(trie_nodes, min=0).long()],
+                            trie_nodes.new_full((), -1))
+    normalized = torch.where(completed >= 0, completed,
+                             completed.new_full((), word_lm.unk_id))
+    log10_p = score_word_device(word_lm, word_contexts[:, 0], word_contexts[:, 1],
+                                normalized)
+    bonus = torch.where(pending,
+                        lm_weight * log10_p + word_count_weight
+                        + valid_word_count_weight * (completed >= 0),
+                        log10_p.new_zeros(()))
+    return bonus, pending, normalized

@@ -1,0 +1,279 @@
+"""Inference for serving: a `Transcriber` over a wav2letter checkpoint (port of
+`speechless_tpu/serving.py`).
+
+A request runs features -> acoustic model -> log-softmax -> decode on one device, with
+the batch grouped by length bucket as in the JAX package. With ``kenlm_directory`` the
+decode is the word-LM-fused beam on the beam-step kernel (`ops/device_beam.py`);
+without, greedy. ``max_decoded_length`` is the frame count: CTC emits at most one
+grapheme per frame, so nothing is truncated.
+
+Not ported yet (each raises `NotImplementedError` naming its ROADMAP.md item): meshes,
+quantized weights, lexicon-constrained search, ``transcribe_nbest``, sequence-parallel
+long-form decoding and ``align_audio``.
+"""
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from speechless_tpu.text.charsets import (english_frequent_characters,
+                                          german_frequent_characters)
+from speechless_tpu.text.graphemes import CtcGraphemeCodec
+
+from .features.spectrogram import features_batch
+from .models import wav2letter as w2l
+from .ops.decode import greedy_decode
+from .ops.device_beam import beam_search_decode_device
+
+# Feature-frame buckets of the JAX package (`data/batching.py:37`); requests pad to
+# the smallest bucket of samples (frames * 128) that holds them, and past the last
+# bucket to a multiple of 65536 samples, as the JAX Transcriber does.
+DEFAULT_TIME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1280, 1536, 2048, 3072, 4096)
+_FALLBACK_MULTIPLE = 65536
+_NOT_PORTED = "{} is not ported yet (ROADMAP.md, Transcriber routes)"
+# Grapheme sets a model can be served with (the blank is appended after them).
+CHARSETS = {"english": english_frequent_characters, "german": german_frequent_characters}
+
+
+def words_from_frame_tokens(frames: np.ndarray, codec: CtcGraphemeCodec,
+                            blank_index: int, seconds_per_frame: float
+                            ) -> List[Tuple[str, float, float]]:
+    """Word timestamps ``[(word, start_s, end_s), ...]`` from uncollapsed per-frame
+    argmax tokens: each word spans its first to last non-blank emission."""
+    space = codec.allowed_characters.index(" ") \
+        if " " in codec.allowed_characters else -1
+    words: List[Tuple[str, float, float]] = []
+    chars: List[str] = []
+    start_frame = None
+    last_frame = 0
+    previous = -1
+    for f, token in enumerate(np.asarray(frames).tolist()):
+        if token != previous and token != blank_index:
+            if token == space:
+                if chars:
+                    words.append(("".join(chars), start_frame * seconds_per_frame,
+                                  (last_frame + 1) * seconds_per_frame))
+                chars, start_frame = [], None
+            else:
+                chars.append(codec.decode_graphemes([token], merge_repeated=False))
+                if start_frame is None:
+                    start_frame = f
+                last_frame = f
+        previous = token
+    if chars:
+        words.append(("".join(chars), start_frame * seconds_per_frame,
+                      (last_frame + 1) * seconds_per_frame))
+    return words
+
+
+def grouped_padded_batches(audios: Sequence[np.ndarray], bucket_fn, batch_size: int):
+    """Yield ``(indices, wavs, lengths)``: utterances grouped by sample bucket
+    (``bucket_fn(num_samples)``), at most ``batch_size`` per group, zero-padded to
+    ``(len(indices), bucket)`` float32 with int32 lengths; ``indices`` maps rows back.
+    Unlike the JAX package's, a short group is not padded with empty rows: there is no
+    compiled program per batch shape to reuse, so they would be wasted work."""
+    by_bucket: dict = {}
+    for index, audio in enumerate(audios):
+        by_bucket.setdefault(bucket_fn(len(audio)), []).append(index)
+    for bucket, indices in sorted(by_bucket.items()):
+        for group_start in range(0, len(indices), batch_size):
+            group = indices[group_start:group_start + batch_size]
+            wavs = np.zeros((len(group), bucket), dtype=np.float32)
+            lengths = np.zeros(len(group), dtype=np.int32)
+            for row, index in enumerate(group):
+                audio = audios[index]
+                wavs[row, :len(audio)] = audio
+                lengths[row] = len(audio)
+            yield group, wavs, lengths
+
+
+def split_long_audio(audio: np.ndarray, max_segment_s: float = 30.0,
+                     min_silence_s: float = 0.25) -> List[np.ndarray]:
+    """Split long audio into <= ``max_segment_s`` segments, cutting at the quietest
+    window in the last third of each segment."""
+    sample_rate = 16000
+    max_samples = int(max_segment_s * sample_rate)
+    if len(audio) <= max_samples:
+        return [audio]
+    window = int(min_silence_s * sample_rate)
+    segments: List[np.ndarray] = []
+    start = 0
+    while start < len(audio):
+        end = min(start + max_samples, len(audio))
+        if end < len(audio):
+            search_from = start + (2 * (end - start)) // 3
+            tail = np.abs(audio[search_from:end])
+            if len(tail) > window:
+                energies = np.convolve(tail, np.ones(window), mode="valid")
+                cut = search_from + int(np.argmin(energies)) + window // 2
+                if cut > start + window:
+                    end = cut
+        segments.append(audio[start:end])
+        start = end
+    return segments
+
+
+class Transcriber:
+    """Serve transcriptions from wav2letter parameters (the JAX package's layout)."""
+
+    def __init__(self, config: w2l.Wav2LetterConfig, params: w2l.Params,
+                 allowed_characters: List[str], *, device,
+                 sample_buckets: Sequence[int] = tuple(b * 128 for b in DEFAULT_TIME_BUCKETS),
+                 kenlm_directory: Optional[Path] = None,
+                 beam_width: int = 25,
+                 lm_weight: float = 0.8,
+                 word_count_weight: float = 0.0,
+                 valid_word_count_weight: float = 2.3,
+                 prune_classes: Optional[int] = 8,
+                 quantize_weights: bool = False,
+                 int8_compute: bool = False,
+                 lexicon_constrained: bool = False,
+                 mesh=None):
+        """``device``: where the model, the LM tables and every request run.
+        ``kenlm_directory``: serve LM-fused beam transcriptions with the ARPA model in
+        that directory (its tables live on ``device``)."""
+        if mesh is not None:
+            raise NotImplementedError(_NOT_PORTED.format("mesh-sharded serving"))
+        if quantize_weights or int8_compute:
+            raise NotImplementedError(_NOT_PORTED.format("quantized serving"))
+        if lexicon_constrained:
+            raise NotImplementedError(_NOT_PORTED.format("lexicon-constrained search"))
+        self.config = config
+        self.device = torch.device(device)
+        self.model = w2l.build_model(config, params, device=self.device)
+        self.codec = CtcGraphemeCodec(allowed_characters)
+        self.sample_buckets = tuple(sorted(sample_buckets))
+        self.word_lm = None
+        if kenlm_directory is not None:
+            from .lm.device_lm import build_device_word_lm
+            from .lm.ngram import load_language_model
+
+            arpa = load_language_model(Path(kenlm_directory))
+            if arpa is None:
+                raise FileNotFoundError(
+                    "No ARPA language model in {}".format(kenlm_directory))
+            self.word_lm = build_device_word_lm(arpa, allowed_characters).to(self.device)
+        self._decoder = dict(beam_width=beam_width, lm_weight=lm_weight,
+                             word_count_weight=word_count_weight,
+                             valid_word_count_weight=valid_word_count_weight,
+                             prune_classes=prune_classes)
+
+    @staticmethod
+    def from_checkpoint(net_directory: Path, epoch: int, allowed_characters: List[str], *,
+                        device, mel_frequency_count: int = 128,
+                        kenlm_directory: Optional[Path] = None,
+                        **config_kwargs) -> "Transcriber":
+        from .train.checkpoint import load_params
+
+        config = w2l.Wav2LetterConfig(
+            input_size_per_time_step=mel_frequency_count,
+            grapheme_set_size=len(allowed_characters) + 1, **config_kwargs)
+        return Transcriber(config, load_params(net_directory, epoch), allowed_characters,
+                           device=device, kenlm_directory=kenlm_directory)
+
+    @property
+    def blank_index(self) -> int:
+        return self.config.grapheme_set_size - 1
+
+    @property
+    def samples_per_frame(self) -> int:
+        """Input samples per output frame: the 128-sample hop times the stride ratio."""
+        return 128 * self.config.input_to_prediction_length_ratio
+
+    @property
+    def seconds_per_frame(self) -> float:
+        return self.samples_per_frame / 16000.0
+
+    def _bucket(self, num_samples: int) -> int:
+        for bucket in self.sample_buckets:
+            if num_samples <= bucket:
+                return bucket
+        return -(-num_samples // _FALLBACK_MULTIPLE) * _FALLBACK_MULTIPLE
+
+    def _padded(self, audio: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        wavs = np.zeros((1, self._bucket(len(audio))), dtype=np.float32)
+        wavs[0, :len(audio)] = audio
+        return wavs, np.asarray([len(audio)], np.int32)
+
+    def _log_probs(self, wavs: np.ndarray, lengths: np.ndarray):
+        """Features -> model -> log-softmax on the device: ``(log_probs (B, T, C),
+        valid frames (B,))``."""
+        features, frame_counts = features_batch(torch.from_numpy(wavs).to(self.device),
+                                                torch.from_numpy(lengths).to(self.device))
+        log_probs = torch.log_softmax(self.model(features), dim=-1)
+        return log_probs, w2l.prediction_lengths(self.config, frame_counts)
+
+    @torch.inference_mode()
+    def _transcribe_rows(self, wavs: np.ndarray, lengths: np.ndarray
+                         ) -> List[Tuple[str, float]]:
+        log_probs, logit_lengths = self._log_probs(wavs, lengths)
+        # Decode confidence: mean per-frame max posterior over the real frames.
+        in_range = torch.arange(log_probs.shape[1], device=self.device)[None, :] \
+            < logit_lengths[:, None]
+        frame_max = torch.exp(log_probs.max(dim=-1).values)
+        confidence = (torch.where(in_range, frame_max, 0.0).sum(dim=1)
+                      / torch.clamp(logit_lengths, min=1))
+        if self.word_lm is not None:
+            tokens, counts = beam_search_decode_device(
+                log_probs, logit_lengths, blank=self.blank_index, word_lm=self.word_lm,
+                max_decoded_length=log_probs.shape[1], **self._decoder)
+        else:
+            tokens, counts = greedy_decode(log_probs, logit_lengths, self.blank_index)
+        tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
+        return [(self.codec.decode_graphemes(tokens[row, :int(counts[row])].tolist(),
+                                             merge_repeated=False), float(score))
+                for row, score in enumerate(confidence.cpu().numpy())]
+
+    def transcribe_audio(self, audio: np.ndarray) -> str:
+        """Transcribe a mono 16 kHz float32 waveform."""
+        return self.transcribe_audio_with_confidence(audio)[0]
+
+    def transcribe_audio_with_confidence(self, audio: np.ndarray) -> Tuple[str, float]:
+        """``(text, confidence)``; confidence is the mean per-frame max posterior."""
+        return self._transcribe_rows(*self._padded(audio))[0]
+
+    def transcribe_batch(self, audios: Sequence[np.ndarray],
+                         batch_size: int = 16) -> List[Tuple[str, float]]:
+        """Transcribe many waveforms, ``batch_size`` per dispatch within each length
+        bucket. Returns ``(text, confidence)`` per input, in input order."""
+        results: List[Optional[Tuple[str, float]]] = [None] * len(audios)
+        for group, wavs, lengths in grouped_padded_batches(audios, self._bucket,
+                                                           batch_size):
+            for index, result in zip(group, self._transcribe_rows(wavs, lengths)):
+                results[index] = result
+        return results
+
+    @torch.inference_mode()
+    def frame_log_probs(self, audio: np.ndarray) -> np.ndarray:
+        """Per-frame log posteriors ``(frames, classes)`` for ``audio`` (uncollapsed)."""
+        log_probs, counts = self._log_probs(*self._padded(audio))
+        return log_probs[0, :int(counts[0])].cpu().numpy()
+
+    def frame_tokens(self, audio: np.ndarray) -> np.ndarray:
+        """Per-frame argmax grapheme indices (uncollapsed) for ``audio``."""
+        return self.frame_log_probs(audio).argmax(axis=-1)
+
+    def warm_up(self, durations_s: Optional[Sequence[float]] = None) -> None:
+        """Run every sample bucket once (or the given durations) before serving, so
+        the first requests pay no kernel build or allocator growth."""
+        lengths = ([int(d * 16000) for d in durations_s] if durations_s is not None
+                   else list(self.sample_buckets))
+        for length in lengths:
+            self.transcribe_audio(np.zeros(length, np.float32))
+
+    def transcribe_long_audio(self, audio: np.ndarray, max_segment_s: float = 30.0,
+                              min_silence_s: float = 0.25,
+                              sequence_parallel: bool = False, mesh=None) -> str:
+        """Transcribe arbitrarily long audio, segmented at its quietest windows."""
+        if sequence_parallel or mesh is not None:
+            raise NotImplementedError(_NOT_PORTED.format("sequence-parallel long-form"))
+        texts = [self.transcribe_audio(segment) for segment in
+                 split_long_audio(audio, max_segment_s, min_silence_s)]
+        return " ".join(text for text in texts if text)
+
+    def transcribe_nbest(self, audio: np.ndarray, nbest: int = 5):
+        raise NotImplementedError(_NOT_PORTED.format("n-best decoding"))
+
+    def align_audio(self, audio: np.ndarray, transcript: str):
+        raise NotImplementedError(_NOT_PORTED.format("forced alignment"))

@@ -1,0 +1,272 @@
+"""HTTP transcription service with dynamic micro-batching (port of
+`speechless_tpu/serving_http.py` over the port's `serving.Transcriber`).
+
+Threading contract, as in the JAX server: every device dispatch happens on the single
+batcher thread. HTTP handler threads only parse the request, enqueue it, and wait.
+
+Endpoints::
+
+    GET  /healthz                 liveness + model metadata
+    GET  /metrics, /v1/metrics    request/batch counters, latency percentiles
+    POST /v1/transcribe           body: audio/wav bytes, JSON {"pcm": [...],
+                                  "sample_rate": 16000}, or raw little-endian float32
+                                  PCM as application/octet-stream (";rate=<hz>")
+         ?timestamps=1            adds word-level emission timestamps
+
+``?nbest=N`` and the ``/v1/stream`` routes answer 501: n-best decoding and streaming
+sessions are not ported yet (ROADMAP.md).
+"""
+import json
+import logging
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import List, Optional
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+
+from speechless_tpu.utils.microbatch import BatcherSaturated, MicroBatcher, PendingItem
+
+from .features.audio_io import decode_wav_bytes, resample
+from .serving import words_from_frame_tokens
+
+_MAX_BODY_BYTES = 64 * 1024 * 1024  # ~35 min of 16 kHz float32; guards the heap
+
+logger = logging.getLogger(__name__)
+
+
+class RequestError(ValueError):
+    """A client error (HTTP 4xx/501) with a status code."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+
+
+class DynamicBatcher(MicroBatcher):
+    """Collect concurrent requests into micro-batches: everything that arrives within
+    ``max_wait_ms`` of the first queued request (up to ``max_batch``) is served by one
+    ``backend.transcribe_batch`` call; a lone request takes the single-utterance path.
+    Queue, shutdown and error semantics are `speechless_tpu.utils.microbatch`'s."""
+
+    item_noun = "requests"
+
+    def __init__(self, backend, max_batch: int = 16, max_wait_ms: float = 10.0,
+                 max_queue: Optional[int] = None):
+        super().__init__(max_batch=max_batch, max_wait_ms=max_wait_ms,
+                         name="transcribe-batcher", max_queue=max_queue)
+        self.backend = backend
+
+    def submit(self, audio: np.ndarray, want_timestamps: bool = False) -> dict:
+        """Enqueue one request and block until its batch is served."""
+        return super().submit((audio, want_timestamps))
+
+    def _serve(self, batch: List[PendingItem]) -> None:
+        if len(batch) == 1:
+            decoded = [self.backend.transcribe_audio_with_confidence(batch[0].payload[0])]
+        else:
+            decoded = self.backend.transcribe_batch(
+                [pending.payload[0] for pending in batch], batch_size=self.max_batch)
+        for pending, (text, confidence) in zip(batch, decoded):
+            audio, want_timestamps = pending.payload
+            result = {"text": text, "confidence": confidence}
+            if want_timestamps:
+                words = words_from_frame_tokens(
+                    self.backend.frame_tokens(audio), self.backend.codec,
+                    self.backend.blank_index, self.backend.seconds_per_frame)
+                result["words"] = [{"word": word, "start_s": round(start, 4),
+                                    "end_s": round(end, 4)} for word, start, end in words]
+            pending.result = result
+
+
+def _parse_audio(content_type: str, body: bytes) -> np.ndarray:
+    """Decode a request body to a mono 16 kHz float32 waveform (wav, JSON PCM, or raw
+    float32 octet-stream with an optional ``; rate=<hz>`` parameter)."""
+    kind = (content_type or "").split(";")[0].strip().lower()
+    if kind == "application/octet-stream":
+        if not body or len(body) % 4:
+            raise RequestError(400, "octet-stream body must be non-empty raw "
+                                    "little-endian float32 PCM")
+        rate = 16000
+        for param in (content_type or "").split(";")[1:]:
+            name, _, value = param.strip().partition("=")
+            if name.lower() == "rate":
+                try:
+                    rate = int(value)
+                except ValueError:
+                    raise RequestError(400, "rate parameter must be an integer")
+        if rate <= 0:
+            raise RequestError(400, "rate parameter must be positive")
+        audio = np.frombuffer(body, dtype="<f4")
+        if not np.isfinite(audio[:: max(1, audio.size // 64)]).all():
+            # Spot-check only: NaN samples would poison the shared batch's features.
+            raise RequestError(400, "PCM contains non-finite samples")
+        return resample(audio, rate, 16000)
+    if kind in ("audio/wav", "audio/x-wav", "audio/wave"):
+        try:
+            audio, rate = decode_wav_bytes(body)
+        except Exception as error:
+            raise RequestError(400, "invalid wav payload: {}".format(error))
+        return resample(audio, rate, 16000)
+    if kind in ("application/json", ""):
+        try:
+            payload = json.loads(body.decode("utf-8"))
+        except (UnicodeDecodeError, json.JSONDecodeError) as error:
+            raise RequestError(400, "invalid JSON body: {}".format(error))
+        if not isinstance(payload, dict) or "pcm" not in payload:
+            raise RequestError(400, 'JSON body must be {"pcm": [...]} '
+                                    '(+ optional "sample_rate")')
+        try:
+            audio = np.asarray(payload["pcm"], dtype=np.float32)
+        except (TypeError, ValueError) as error:
+            raise RequestError(400, "pcm must be a flat float list: {}".format(error))
+        if audio.ndim != 1 or audio.size == 0:
+            raise RequestError(400, "pcm must be a non-empty 1-D float list")
+        rate = int(payload.get("sample_rate", 16000))
+        if rate <= 0:
+            raise RequestError(400, "sample_rate must be positive")
+        return resample(audio, rate, 16000)
+    raise RequestError(415, "unsupported Content-Type {!r}; send audio/wav, "
+                            "application/json, or application/octet-stream "
+                            "(raw float32 PCM)".format(content_type))
+
+
+class TranscriptionServer:
+    """A threaded HTTP server over a `serving.Transcriber`. ``port=0`` binds an
+    ephemeral port (``server.port`` reports it)."""
+
+    def __init__(self, backend, host: str = "127.0.0.1", port: int = 8000,
+                 max_batch: int = 16, max_wait_ms: float = 10.0,
+                 max_queue: Optional[int] = None):
+        self.backend = backend
+        # Bounded backlog (default 8 dispatches deep): past it the server sheds load
+        # with 503 + Retry-After. 0 disables shedding (unbounded queue).
+        if max_queue is None:
+            max_queue = 8 * max_batch
+        self.batcher = DynamicBatcher(backend, max_batch=max_batch,
+                                      max_wait_ms=max_wait_ms,
+                                      max_queue=max_queue or None)
+        self.started_at = time.time()
+        self.httpd = ThreadingHTTPServer((host, port), self._handler_class())
+        self.httpd.daemon_threads = True
+        self._serve_thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self.httpd.server_address[1]
+
+    def start(self) -> None:
+        """Start serving in a background thread (tests / embedding)."""
+        self.batcher.start()
+        self._serve_thread = threading.Thread(target=self.httpd.serve_forever,
+                                              daemon=True, name="transcribe-http")
+        self._serve_thread.start()
+
+    def serve_forever(self) -> None:
+        """Serve on the calling thread (the CLI path) until interrupted."""
+        self.batcher.start()
+        logger.info("serving on http://%s:%d (max_batch=%d, max_wait_ms=%s)",
+                    self.httpd.server_address[0], self.port, self.batcher.max_batch,
+                    self.batcher.max_wait_ms)
+        try:
+            self.httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self.stop()
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.batcher.stop()
+
+    def _health(self) -> dict:
+        return {
+            "status": "ok",
+            "uptime_s": round(time.time() - self.started_at, 1),
+            "charset_size": len(self.backend.codec.allowed_characters),
+            "sample_buckets": list(self.backend.sample_buckets),
+            "max_batch": self.batcher.max_batch,
+            "device": str(self.backend.device),
+        }
+
+    def _handler_class(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, format, *args):
+                logger.debug("http %s %s", self.address_string(), format % args)
+
+            def _reply(self, status: int, payload: dict,
+                       headers: Optional[dict] = None) -> None:
+                body = json.dumps(payload).encode("utf-8")
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                for name, value in (headers or {}).items():
+                    self.send_header(name, value)
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path = urlparse(self.path).path
+                if path == "/healthz":
+                    self._reply(200, server._health())
+                elif path in ("/metrics", "/v1/metrics"):
+                    self._reply(200, server.batcher.metrics())
+                else:
+                    self._reply(404, {"error": "unknown path {}".format(path)})
+
+            def _read_body(self) -> bytes:
+                length = int(self.headers.get("Content-Length", 0) or 0)
+                if length <= 0:
+                    raise RequestError(411, "Content-Length required")
+                if length > _MAX_BODY_BYTES:
+                    raise RequestError(413, "body exceeds {} bytes".format(_MAX_BODY_BYTES))
+                return self.rfile.read(length)
+
+            def _drain_body(self) -> None:
+                """Discard an unused body: on a keep-alive connection its bytes would be
+                parsed as the next request line."""
+                length = int(self.headers.get("Content-Length", 0) or 0)
+                while length > 0:
+                    read = self.rfile.read(min(length, 1 << 20))
+                    if not read:
+                        break
+                    length -= len(read)
+
+            def do_POST(self):
+                parsed = urlparse(self.path)
+                try:
+                    if parsed.path == "/v1/transcribe":
+                        audio = _parse_audio(self.headers.get("Content-Type", ""),
+                                             self._read_body())
+                        query = parse_qs(parsed.query)
+                        if query.get("nbest", ["1"])[0] not in ("", "1"):
+                            raise RequestError(501, "n-best decoding is not ported yet "
+                                                    "(ROADMAP.md, Transcriber routes)")
+                        want_timestamps = query.get("timestamps", ["0"])[0] in (
+                            "1", "true", "yes")
+                        self._reply(200, server.batcher.submit(audio, want_timestamps))
+                    elif parsed.path == "/v1/stream" or parsed.path.startswith("/v1/stream/"):
+                        self._drain_body()
+                        raise RequestError(501, "streaming sessions are not ported yet "
+                                                "(ROADMAP.md, streaming)")
+                    else:
+                        self._drain_body()
+                        self._reply(404, {"error": "unknown path {}".format(parsed.path)})
+                except RequestError as error:
+                    self._reply(error.status, {"error": str(error)})
+                except BatcherSaturated as error:
+                    self._reply(503, {"error": str(error)},
+                                headers={"Retry-After": str(
+                                    max(1, int(round(error.retry_after_s))))})
+                except Exception as error:  # noqa: BLE001 — a serving loop must not die
+                    logger.exception("request failed")
+                    self._reply(500, {"error": "{}: {}".format(type(error).__name__,
+                                                                error)})
+
+        return Handler

@@ -1,0 +1,77 @@
+"""The port (`speechless_tpu_torch`) never imports jax: a fresh interpreter imports every
+module of the package, serves a small LM-fused transcription through the HTTP server on
+the CPU, and checks ``sys.modules`` afterwards (the machines with a GPU have no jax)."""
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys, tempfile, urllib.request
+from pathlib import Path
+
+import numpy as np
+
+import speechless_tpu_torch
+for module in pkgutil.walk_packages(speechless_tpu_torch.__path__, "speechless_tpu_torch."):
+    importlib.import_module(module.name)
+
+from speechless_tpu.text.charsets import english_frequent_characters as alphabet
+from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
+from speechless_tpu_torch.models import wav2letter as w2l
+from speechless_tpu_torch.serving import Transcriber
+from speechless_tpu_torch.serving_http import TranscriptionServer
+
+layers = (w2l.ConvSpec("striding_conv", 8, 48, 2),
+          w2l.ConvSpec("output_conv", len(alphabet) + 1, 1, 1, "linear"))
+config = w2l.Wav2LetterConfig(128, len(alphabet) + 1, layers=layers)
+with tempfile.TemporaryDirectory() as lm_directory:
+    build_kenlm_directory(["the cat sat", "a dog ran"], Path(lm_directory), alphabet)
+    transcriber = Transcriber(config, w2l.init_params(config, seed=0), alphabet,
+                              device="cpu", kenlm_directory=lm_directory, beam_width=4,
+                              sample_buckets=(16384,))
+server = TranscriptionServer(transcriber, port=0)
+server.start()
+try:
+    audio = np.random.default_rng(0).normal(size=8000).astype(np.float32) * 0.1
+    request = urllib.request.Request(
+        "http://127.0.0.1:{}/v1/transcribe".format(server.port),
+        data=json.dumps({"pcm": audio.tolist()}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(request, timeout=120) as response:
+        assert response.status == 200
+        assert json.loads(response.read())["text"] == transcriber.transcribe_audio(audio)
+finally:
+    server.stop()
+print("JAX-FREE" if "jax" not in sys.modules else "JAX-IMPORTED")
+"""
+
+
+ALLOWED_FROM_JAX_PACKAGE = {"speechless_tpu.text.graphemes", "speechless_tpu.text.charsets",
+                            "speechless_tpu.utils.microbatch"}
+
+
+def test_port_imports_only_the_jax_free_host_modules():
+    """Of `speechless_tpu` the port may import only three jax-free modules."""
+    import ast
+
+    sources = sorted((REPO / "speechless_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text(encoding="utf8"))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib"), (path, name)
+                if name.split(".")[0] == "speechless_tpu":
+                    assert name in ALLOWED_FROM_JAX_PACKAGE, (path, name)
+
+
+def test_port_serves_without_importing_jax():
+    result = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                            text=True, timeout=300, cwd=str(REPO))
+    assert result.stdout.strip().endswith("JAX-FREE"), (result.stdout, result.stderr[-3000:])

@@ -1,0 +1,286 @@
+"""The port's serving slice end to end on the CPU: `speechless_tpu_torch.serving.
+Transcriber` against the JAX package's `Transcriber` (same weights, same word LM, same
+audio), and the port's HTTP server (`serving_http.TranscriptionServer`).
+
+Tolerances: log-probs atol 1e-4 (fp32 features and convolutions summed in another
+order; the output layer is scaled up so frames are peaky); transcripts exactly equal;
+confidences atol 1e-4.
+"""
+import io
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from speechless_tpu.models import wav2letter as jax_w2l
+from speechless_tpu.serving import Transcriber as JaxTranscriber
+from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
+from speechless_tpu_torch.models import wav2letter as w2l
+from speechless_tpu_torch.serving import Transcriber, words_from_frame_tokens
+from speechless_tpu_torch.serving_http import TranscriptionServer, _parse_audio
+
+torch.backends.cudnn.allow_tf32 = False
+
+ALPHABET = list("abcdefghijklmnopqrstuvwxyz '")
+TEXTS = ["the cat sat on the mat", "the cat ran to the dog", "a dog sat on a log",
+         "the dog ran to the cat", "it's the cat on the mat", "a cat and a dog ran"]
+LAYERS = (w2l.ConvSpec("striding_conv", 16, 48, 2),
+          w2l.ConvSpec("inner_conv_1", 16, 7, 1),
+          w2l.ConvSpec("big_conv_1", 24, 32, 1),
+          w2l.ConvSpec("big_conv_2", 24, 1, 1),
+          w2l.ConvSpec("output_conv", len(ALPHABET) + 1, 1, 1, "linear"))
+BUCKETS = (16384,)
+
+
+def _audio(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    tones = sum(0.2 * np.sin(2 * np.pi * f * t) for f in rng.uniform(100, 3000, 3))
+    return (tones + 0.05 * rng.normal(size=t.size)).astype(np.float32)
+
+
+AUDIOS = [_audio(s, i) for i, s in enumerate((1.0, 0.6, 0.85, 0.3, 1.02))]
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    lm_directory = tmp_path_factory.mktemp("kenlm")
+    build_kenlm_directory(TEXTS, lm_directory, allowed_characters=ALPHABET, order=3)
+    config = w2l.Wav2LetterConfig(128, len(ALPHABET) + 1, layers=LAYERS)
+    params = w2l.init_params(config, seed=11)
+    params[-1]["w"] = params[-1]["w"] * 10.0  # peaky frames
+    return config, params, lm_directory
+
+
+@pytest.fixture(scope="module")
+def port_lm(setup):
+    config, params, lm_directory = setup
+    return Transcriber(config, params, ALPHABET, device="cpu", kenlm_directory=lm_directory,
+                       beam_width=8, sample_buckets=BUCKETS)
+
+
+@pytest.fixture(scope="module")
+def server(port_lm):
+    srv = TranscriptionServer(port_lm, port=0, max_batch=4, max_wait_ms=30.0)
+    srv.start()
+    yield srv
+    srv.stop()
+
+
+def _jax_transcriber(setup, kenlm):
+    config, params, lm_directory = setup
+    jax_config = jax_w2l.Wav2LetterConfig(
+        128, len(ALPHABET) + 1, layers=tuple(
+            jax_w2l.ConvSpec(s.name, s.filters, s.kernel_size, s.stride, s.activation,
+                             False) for s in LAYERS))
+    return JaxTranscriber(jax_config, [{k: jnp.asarray(v) for k, v in p.items()}
+                                       for p in params], ALPHABET,
+                          kenlm_directory=lm_directory if kenlm else None, beam_width=8,
+                          sample_buckets=BUCKETS)
+
+
+@pytest.mark.parametrize("kenlm", [True, False], ids=["lm_beam", "greedy"])
+def test_transcripts_match_jax_transcriber(setup, port_lm, kenlm):
+    config, params, _ = setup
+    ours = port_lm if kenlm else Transcriber(config, params, ALPHABET, device="cpu",
+                                             sample_buckets=BUCKETS)
+    theirs = _jax_transcriber(setup, kenlm)
+    want = theirs.transcribe_batch(AUDIOS, batch_size=8)
+    got = ours.transcribe_batch(AUDIOS, batch_size=8)
+    assert [text for text, _ in got] == [text for text, _ in want]
+    assert any(len(text) > 3 for text, _ in got)
+    np.testing.assert_allclose([c for _, c in got], [c for _, c in want], atol=1e-4)
+    if kenlm:
+        # The single-utterance route: the port's against the JAX batch's transcript
+        # (the JAX single route is the same program at batch 1, compiled once more).
+        for audio, (text, _) in zip(AUDIOS[:2], want):
+            np.testing.assert_allclose(ours.frame_log_probs(audio),
+                                       theirs.frame_log_probs(audio), atol=1e-4, rtol=0)
+            assert ours.transcribe_audio(audio) == text
+
+
+def _request(port, path, data=None, content_type="application/json"):
+    request = urllib.request.Request("http://127.0.0.1:{}{}".format(port, path),
+                                     data=data)
+    if data is not None:
+        request.add_header("Content-Type", content_type)
+    try:
+        with urllib.request.urlopen(request, timeout=300) as response:
+            return response.status, json.loads(response.read())
+    except urllib.error.HTTPError as error:
+        return error.code, json.loads(error.read())
+
+
+def _pcm_body(audio, sample_rate=16000):
+    return json.dumps({"pcm": audio.tolist(), "sample_rate": sample_rate}).encode()
+
+
+def test_http_transcribe_matches_direct_calls(server, port_lm):
+    results = [None] * 4
+
+    def send(index):
+        if index == 3:
+            results[index] = _request(server.port, "/v1/transcribe",
+                                      AUDIOS[index].astype("<f4").tobytes(),
+                                      "application/octet-stream; rate=16000")
+        else:
+            results[index] = _request(server.port, "/v1/transcribe",
+                                      _pcm_body(AUDIOS[index]))
+
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(4)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=300)
+    direct = port_lm.transcribe_batch(AUDIOS[:4])
+    for (status, payload), (text, confidence) in zip(results, direct):
+        assert status == 200
+        assert payload["text"] == text
+        assert payload["confidence"] == pytest.approx(confidence, abs=1e-5)
+    status, metrics = _request(server.port, "/metrics")
+    assert status == 200 and metrics["requests"] >= 4
+
+
+def test_http_wav_body_and_timestamps(server, port_lm):
+    import scipy.io.wavfile as wavfile
+
+    buffer = io.BytesIO()
+    wavfile.write(buffer, 8000, (AUDIOS[0][::2] * 32767).astype(np.int16))
+    status, payload = _request(server.port, "/v1/transcribe", buffer.getvalue(),
+                               "audio/wav")
+    assert status == 200 and isinstance(payload["text"], str)
+    status, payload = _request(server.port, "/v1/transcribe?timestamps=1",
+                               _pcm_body(AUDIOS[0]))
+    assert status == 200
+    want = words_from_frame_tokens(port_lm.frame_tokens(AUDIOS[0]), port_lm.codec,
+                                   port_lm.blank_index, port_lm.seconds_per_frame)
+    assert [w["word"] for w in payload["words"]] == [w for w, _, _ in want]
+    assert all(w["end_s"] > w["start_s"] for w in payload["words"])
+
+
+def test_http_status_codes(server):
+    status, health = _request(server.port, "/healthz")
+    assert status == 200 and health["sample_buckets"] == list(BUCKETS)
+    assert _request(server.port, "/v1/metrics")[0] == 200
+    assert _request(server.port, "/nope")[0] == 404
+    status, payload = _request(server.port, "/v1/transcribe?nbest=3", _pcm_body(AUDIOS[1]))
+    assert status == 501 and "ROADMAP.md" in payload["error"]
+    assert _request(server.port, "/v1/stream", b"{}")[0] == 501
+    assert _request(server.port, "/v1/transcribe", b"not json")[0] == 400
+    assert _request(server.port, "/v1/transcribe", b"\x00", "text/plain")[0] == 415
+
+
+def test_parse_audio_resamples_octet_stream():
+    audio = np.linspace(-0.5, 0.5, 800, dtype=np.float32)
+    out = _parse_audio("application/octet-stream; rate=8000", audio.astype("<f4").tobytes())
+    assert out.dtype == np.float32 and out.shape == (1600,)
+
+
+class _Pattern(torch.nn.Module):
+    """Peaky logits cycling through the alphabet: char, blank, char, ... per frame."""
+
+    def forward(self, features):
+        frames = torch.arange(features.shape[1])
+        symbol = torch.where(frames % 2 == 0, (frames // 2) % len(ALPHABET), len(ALPHABET))
+        logits = torch.full((features.shape[0], features.shape[1], len(ALPHABET) + 1), -8.0)
+        logits[:, frames, symbol] = 8.0
+        return logits
+
+
+@pytest.mark.parametrize("kenlm", [True, False], ids=["lm_beam", "greedy"])
+def test_long_transcripts_are_not_truncated(setup, kenlm):
+    """A transcript longer than 256 graphemes comes back whole on both decode routes:
+    ``max_decoded_length`` is the frame count, not the old default of 256."""
+    _, params, lm_directory = setup
+    config = w2l.Wav2LetterConfig(128, len(ALPHABET) + 1, layers=(
+        w2l.ConvSpec("output_conv", len(ALPHABET) + 1, 1, 1, "linear"),))
+    transcriber = Transcriber(config, [{"w": np.zeros((1, 128, 29), np.float32),
+                                        "b": np.zeros(29, np.float32)}], ALPHABET,
+                              device="cpu", kenlm_directory=lm_directory if kenlm else None,
+                              beam_width=4)
+    transcriber.model = _Pattern()
+    audio = np.zeros(int(4.5 * 16000), np.float32)
+    frames = 1 + len(audio) // 128
+    want = "".join(ALPHABET[(f // 2) % len(ALPHABET)] for f in range(0, frames, 2))
+    text = transcriber.transcribe_audio(audio)
+    assert len(want) > 256
+    assert text == want
+
+
+def test_unported_options_raise(setup, port_lm):
+    config, params, _ = setup
+    for option in (dict(mesh=object()), dict(quantize_weights=True),
+                   dict(lexicon_constrained=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            Transcriber(config, params, ALPHABET, device="cpu", **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port_lm.transcribe_nbest(AUDIOS[0], 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port_lm.transcribe_long_audio(AUDIOS[0], sequence_parallel=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port_lm.align_audio(AUDIOS[0], "a cat")
+
+
+def test_cli_serves_a_full_width_checkpoint(setup, tmp_path):
+    """``python -m speechless_tpu_torch serve`` on the CPU answers like a direct call."""
+    import queue
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _, _, lm_directory = setup
+    config = w2l.Wav2LetterConfig(128, len(ALPHABET) + 1)
+    params = w2l.init_params(config, seed=2)
+    params[-1]["w"] = params[-1]["w"] * 8.0  # peaky frames
+    checkpoint = tmp_path / "weights-epoch1.npz"
+    np.savez(checkpoint, **{"layer{}.{}".format(i, key): value
+                            for i, layer in enumerate(params)
+                            for key, value in layer.items()})
+    process = subprocess.Popen(
+        [sys.executable, "-m", "speechless_tpu_torch", "serve", "--checkpoint",
+         str(checkpoint), "--kenlm", str(lm_directory), "--device", "cpu", "--port", "0",
+         "--no-warm-up"], cwd=str(Path(__file__).resolve().parent.parent),
+        stderr=subprocess.PIPE, text=True)
+    lines = queue.Queue()
+
+    def read_log():
+        for log_line in process.stderr:
+            lines.put(log_line)
+        lines.put(None)  # the server exited
+
+    threading.Thread(target=read_log, daemon=True).start()
+    try:
+        line = ""
+        while "serving on http://" not in line:
+            line = lines.get(timeout=120)
+            assert line is not None, "the server exited before it bound its port"
+        port = int(line.rsplit(":", 1)[1].split()[0])
+        status, payload = _request(port, "/v1/transcribe", _pcm_body(AUDIOS[0]))
+    finally:
+        process.send_signal(signal.SIGINT)
+        try:
+            process.wait(timeout=60)
+        finally:
+            process.kill()
+    direct = Transcriber(config, params, ALPHABET, device="cpu",
+                         kenlm_directory=lm_directory).transcribe_audio(AUDIOS[0])
+    assert status == 200 and payload["text"] == direct and direct
+
+
+def test_long_audio_segments_like_jax(port_lm):
+    from speechless_tpu.serving import split_long_audio as jax_split_long_audio
+    from speechless_tpu_torch.serving import split_long_audio
+
+    audio = np.concatenate([AUDIOS[0], np.zeros(3000, np.float32), AUDIOS[2]])
+    segments = split_long_audio(audio, max_segment_s=1.0)
+    assert [len(s) for s in segments] \
+        == [len(s) for s in jax_split_long_audio(audio, max_segment_s=1.0)]
+    assert len(segments) > 1
+    assert port_lm.transcribe_long_audio(audio, max_segment_s=1.0) == " ".join(
+        text for text in map(port_lm.transcribe_audio, segments) if text)
