@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port's LM-fused serving path on one NVIDIA GPU.
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: LM-fused serving and training.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Builds the beam-step kernel from ``speechless_tpu_torch/csrc/`` with nvcc for sm_90a,
-then:
+Builds every kernel of ``speechless_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
+source, all started together) and prints ptxas's registers and spills, then:
 
-* phase A: `lm_step` (the kernel) against `lm_step_reference` (plain PyTorch) on the
+* phase A: `lm_step` (kernel K4) against `lm_step_reference` (plain PyTorch) on the
   same CUDA tensors at the serving shapes (16 rows, r=32, k=8, 29 classes): integer
   outputs equal, float outputs bitwise equal or within 1e-6; both timed with CUDA
   events. The same check, bitwise, at other lane counts (16 to 1024 candidates per
@@ -22,9 +22,27 @@ then:
   log-probs must match the same model on the CPU (the path runs in fp32 with TF32 off
   whatever the process-wide flags say) and its transcripts the plain-step beam. Prints
   per-request latency and the `transcribe_batch` rate at 16 x 8 s.
+* phase C (training): the CTC kernels K1 (`ctc_alpha`) and K2 (`ctc_beta`) against
+  `alpha_reference`/`beta_reference` on the same CUDA tensors at the bench's shapes
+  (B=64, T=513, U=192, 29 classes, seeded lengths with edge rows: 1 frame with an empty
+  label, 1 frame with one label, adjacent repeats, an infeasible row) and at U=600,
+  T=1401 (1201 states, over 1024): alpha/beta within 1e-5 on each row's valid region
+  (scaled by max(1, |value|)), the CTC loss within 1e-5 relative and its gradient
+  within 1e-5, and `torch.nn.functional.ctc_loss` as a second oracle on the feasible
+  rows; times of K1, K2, the plain versions and `F.ctc_loss`. Then
+  `make_multi_wav_step` trains the full-width model in bf16 on `bench.py`'s batch (64 x
+  131,072 samples, 192 labels, k=10 steps a call; one warm-up call, three timed): every
+  step loss finite, the last call's mean loss below the first step's, each CTC kernel
+  launched exactly 40 times; prints ms per step, utterances/s, MFU against 989 TFLOP/s
+  bf16 and peak memory. Last, one fp32 step (TF32 off) at full width on a 2 x 2 s batch
+  on the card against the same step on the CPU (loss and parameter deltas), and the
+  same step with TF32 forced on, which must fail those limits.
 * with ``--profile`` only: the split of one 16 x 8 s `transcribe_batch` into features,
   model and beam, single-request latencies, and the device's busy share and kernel
-  counts from one `torch.profiler` trace, written to ``chiprun_out/profile.json``.
+  counts from one `torch.profiler` trace (``chiprun_out/profile.json``); and the split of
+  one train step into features, forward, CTC forward, backward and Adam (also with
+  cuDNN's autotuner on), and the device's busy share of one k-step call
+  (``chiprun_out/profile_train.json``).
 
 Any failed check exits non-zero before the result is printed. The last two lines are
 the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -49,6 +67,10 @@ TOLERANCE = 1e-6   # float outputs of kernel vs plain step: bitwise, or within t
 # differs by ~2e-6 at full width and the same path in TF32 by ~1.2e-3 (and decodes
 # other text), so this limit tells them apart.
 FP32_TOLERANCE = 1e-4
+# One fp32 train step on the card vs the CPU (phase C): loss, relative, and parameter
+# deltas, relative L2 per tensor. The same step with TF32 on must exceed one of them.
+FP32_LOSS_RTOL = 1e-5
+FP32_DELTA_RTOL = 1e-2
 
 
 def check(condition: bool, message: str) -> None:
@@ -165,6 +187,13 @@ def phase_a(device, blank, space_index, word_lm):
            torch.cuda.current_stream().cuda_stream)
     entry = _kernels.function("lm_beam_step")
     ms = cuda_ms(lambda: check(entry(*raw) == 0, "raw kernel launch failed"), 2000)
+    # Least time: inputs read and outputs written once; operations counted as the
+    # compare-exchanges of the two bitonic sorts (n log n (log n + 1) / 4 each) and the
+    # n log n merge steps of each of the 16 rows of 512 lanes.
+    lanes, stages = 512, 9
+    operations = 16 * (2 * lanes * stages * (stages + 1) / 4 + lanes * stages)
+    bound_ms, bound_by = bound(sum(t.numel() * t.element_size() for t in inputs + outputs),
+                               operations)
     wrapper_ms = cuda_ms(lambda: decode_lm.lm_step(*inputs, **static), 500)
     plain_ms = cuda_ms(lambda: decode_lm.lm_step_reference(*inputs, **static), 20)
     print("phase A step: kernel == plain over 8 seeded states at b=16 r=32 k=8 C=29 "
@@ -196,7 +225,8 @@ def phase_a(device, blank, space_index, word_lm):
     print("phase A decode: beam_search_decode_lm 16 x 513 frames, W=25, word LM: tokens "
           "identical on both routes ({} tokens); wall {:.3f} s kernel, {:.3f} s plain".format(
               int(routes["kernel"][1].sum()), routes["kernel"][2], routes["plain"][2]))
-    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_b(device, lm_directory):
@@ -396,6 +426,412 @@ def phase_profile(transcriber, batch, short_audio, out_path: Path) -> None:
         {key: value for key, value in numbers.items() if key != "top_device_ops_ms"})))
 
 
+# Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, fp32 outside the
+# tensor cores, bf16 tensor cores (dense). Used for the least time a kernel could take.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+
+
+def bound(bytes_moved: float, operations: float):
+    """(least ms, what bounds it): the larger of bytes over the memory rate and
+    operations over the fp32 rate."""
+    byte_ms, op_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, operations / FP32_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+# ---- phase C: training -------------------------------------------------------------
+BENCH_BATCH, BENCH_SAMPLES, BENCH_LABELS, BENCH_STEPS = 64, 131072, 192, 10
+CTC_LOSS_RTOL = 1e-5   # kernel vs plain CTC loss, relative
+CTC_ABS_TOL = 1e-5     # kernel vs plain gradient, and alpha/beta (scaled, see below)
+# vs torch.nn.functional.ctc_loss, another algorithm: loss relative; gradient absolute,
+# since occupancies exp(alpha + beta - logZ) of log-space values near 3T carry ~T ulps.
+ORACLE_LOSS_RTOL, ORACLE_GRAD_ATOL = 1e-4, 1e-3
+
+
+def ctc_case(rng, batch, t_max, u_max, classes, device):
+    """Seeded log-probs and -1-padded labels. Edge rows: 0 has 1 frame and an empty
+    label, 1 has 1 frame and 1 label, 2 is all adjacent repeats, 3 is infeasible (one
+    frame fewer than its labels and repeats need), 4 is as long as the bench's rows;
+    the rest are random feasible rows."""
+    import torch
+
+    blank = classes - 1
+    label_lengths = rng.integers(u_max // 2, u_max + 1, batch).astype(np.int32)
+    labels = np.full((batch, u_max), -1, np.int32)
+    for row, count in enumerate(label_lengths):
+        labels[row, :count] = rng.integers(0, blank, count)
+    label_lengths[0], labels[0] = 0, -1
+    label_lengths[1], labels[1], labels[1, 0] = 1, -1, 3
+    label_lengths[2], labels[2] = u_max, np.repeat(rng.integers(0, blank, u_max), 2)[:u_max]
+    repeats = ((labels[:, 1:] == labels[:, :-1]) & (labels[:, 1:] >= 0)).sum(1)
+    needed = np.minimum(label_lengths + repeats, t_max - 1)
+    lengths = rng.integers(needed, t_max).astype(np.int32)
+    lengths[0] = lengths[1] = 1
+    lengths[3] = needed[3] - 1
+    lengths[4] = t_max - 1
+    logits = torch.tensor(rng.normal(size=(batch, t_max, classes)) * 2, dtype=torch.float32)
+    feasible = (label_lengths + repeats <= lengths) & (lengths > 0)
+    return (torch.log_softmax(logits, -1).to(device),
+            *(torch.from_numpy(x).to(device) for x in (lengths, labels, label_lengths)),
+            feasible)
+
+
+def check_ctc_kernels(rng, batch, t_max, u_max, classes, device, timed: bool):
+    """K1/K2 against `alpha_reference`/`beta_reference`, the loss and gradient of
+    `ctc_kernels.ctc_loss` against `ctc.ctc_loss`, and both against `F.ctc_loss` on the
+    feasible rows; with ``timed``, CUDA-event times of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechless_tpu_torch.ops import ctc, ctc_kernels
+
+    log_probs, lengths, labels, label_lengths, feasible = ctc_case(
+        rng, batch, t_max, u_max, classes, device)
+    blank = classes - 1
+    extended, skip = ctc.extended_labels(labels, blank)
+    s_counts = (2 * label_lengths + 1).to(torch.int32)
+    args = (log_probs, lengths, extended, skip, s_counts)
+    t_index = torch.arange(t_max, device=device)[:, None, None]
+    live = torch.arange(extended.shape[1], device=device)[None, None, :] < s_counts[None, :, None]
+    result = {"S": extended.shape[1]}
+    # alpha is checked on t < max(length, 1) (alpha_0 is always written), beta on
+    # t < length, both on the live states. Their magnitude reaches ~3 * T here, where
+    # one fp32 ulp is ~1e-4, so the error is scaled by max(1, |plain|).
+    for name, kernel, plain, valid in (
+            ("alpha", ctc_kernels.ctc_alpha, ctc.alpha_reference,
+             live & (t_index < lengths.clamp(min=1)[None, :, None])),
+            ("beta", ctc_kernels.ctc_beta, ctc.beta_reference,
+             live & (t_index < lengths[None, :, None]))):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()[valid]
+        scaled = float((diff / want.abs()[valid].clamp(min=1.0)).max())
+        result[name + "_abs_err"], result[name + "_scaled_err"] = float(diff.max()), scaled
+        check(bool(torch.isfinite(got[valid]).all()), name + " kernel: non-finite values")
+        check(scaled <= CTC_ABS_TOL, "{} kernel vs plain at S={}: scaled error {}".format(
+            name, extended.shape[1], scaled))
+
+    weights = torch.linspace(0.5, 2.0, batch, device=device)
+    losses, grads = {}, {}
+    for name, loss_fn in (("kernel", ctc_kernels.ctc_loss), ("plain", ctc.ctc_loss)):
+        x = log_probs.clone().requires_grad_()
+        loss = loss_fn(x, lengths, labels, label_lengths, blank)
+        (loss * weights).sum().backward()
+        losses[name], grads[name] = loss.detach(), x.grad
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(grads["kernel"]).all()), "kernel CTC gradient not finite")
+    result["loss_rel_err"] = float(((losses["kernel"] - losses["plain"]).abs()
+                                    / losses["plain"].abs()).max())
+    result["grad_abs_err"] = float((grads["kernel"] - grads["plain"]).abs().max())
+    check(result["loss_rel_err"] <= CTC_LOSS_RTOL, "CTC loss kernel vs plain: {}".format(
+        result["loss_rel_err"]))
+    check(result["grad_abs_err"] <= CTC_ABS_TOL, "CTC gradient kernel vs plain: {}".format(
+        result["grad_abs_err"]))
+
+    # Second oracle: F.ctc_loss (blank C-1) on the feasible rows. Its gradient is
+    # d/d(logits) of a log-softmax input, softmax - occupancy: ours plus exp(log_probs).
+    rows = torch.from_numpy(np.flatnonzero(feasible)).to(device)
+    lp_rows = log_probs[rows].transpose(0, 1).contiguous().requires_grad_()
+    oracle = F.ctc_loss(lp_rows, labels[rows].clamp(min=0).long(), lengths[rows].long(),
+                        label_lengths[rows].long(), blank=blank, reduction="none")
+    (oracle * weights[rows]).sum().backward()
+    frames = (torch.arange(t_max, device=device)[None, :] < lengths[rows][:, None])[..., None]
+    ours = (grads["kernel"][rows] + torch.exp(log_probs[rows]) * weights[rows][:, None, None])
+    result["oracle_loss_rel_err"] = float(((losses["kernel"][rows] - oracle.detach()).abs()
+                                           / oracle.detach().abs()).max())
+    result["oracle_grad_abs_err"] = float(
+        torch.where(frames, ours - lp_rows.grad.transpose(0, 1), 0.0).abs().max())
+    check(result["oracle_loss_rel_err"] <= ORACLE_LOSS_RTOL and
+          result["oracle_grad_abs_err"] <= ORACLE_GRAD_ATOL,
+          "CTC vs F.ctc_loss: loss {} grad {}".format(result["oracle_loss_rel_err"],
+                                                      result["oracle_grad_abs_err"]))
+    result["max_abs_err"] = max(result["alpha_abs_err"], result["beta_abs_err"],
+                                result["grad_abs_err"])
+    print("phase C CTC B={} T={} U={} S={} ({} feasible rows): kernel vs plain alpha "
+          "abs {:.3g} scaled {:.3g}, beta abs {:.3g} scaled {:.3g}, loss rel {:.3g}, grad "
+          "abs {:.3g}; vs F.ctc_loss loss rel {:.3g}, grad abs {:.3g}".format(
+              batch, t_max, u_max, extended.shape[1], len(rows), result["alpha_abs_err"],
+              result["alpha_scaled_err"], result["beta_abs_err"], result["beta_scaled_err"],
+              result["loss_rel_err"], result["grad_abs_err"], result["oracle_loss_rel_err"],
+              result["oracle_grad_abs_err"]))
+    if not timed:
+        return result
+
+    def fwd_bwd(loss_fn):
+        x = log_probs.clone().requires_grad_()
+        loss_fn(x, lengths, labels, label_lengths, blank).sum().backward()
+
+    lp_tbc = log_probs.transpose(0, 1).contiguous()
+    library = (lp_tbc, labels.clamp(min=0).long(), lengths.long(), label_lengths.long())
+
+    def library_fwd_bwd():
+        x = lp_tbc.clone().requires_grad_()
+        F.ctc_loss(x, *library[1:], blank=blank, reduction="none",
+                   zero_infinity=True).sum().backward()
+
+    result.update(
+        alpha_ms=cuda_ms(lambda: ctc_kernels.ctc_alpha(*args), 50),
+        beta_ms=cuda_ms(lambda: ctc_kernels.ctc_beta(*args), 50),
+        alpha_plain_ms=cuda_ms(lambda: ctc.alpha_reference(*args), 3),
+        beta_plain_ms=cuda_ms(lambda: ctc.beta_reference(*args), 3),
+        loss_kernel_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(ctc_kernels.ctc_loss), 20),
+        loss_plain_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(ctc.ctc_loss), 3),
+        library_fwd_ms=cuda_ms(lambda: F.ctc_loss(*library, blank=blank, reduction="none",
+                                                  zero_infinity=True), 20),
+        library_fwd_bwd_ms=cuda_ms(library_fwd_bwd, 20))
+    result["library_bwd_ms"] = result["library_fwd_bwd_ms"] - result["library_fwd_ms"]
+    # Least time: each input read once (log-probs, labels, skip, lengths) and the
+    # (T, B, S) fp32 output written once; ~14 fp32 operations per state and step
+    # (3 max, 4 subtract/add, 3 exp, 1 log, 3 add).
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    out_bytes = t_max * batch * extended.shape[1] * 4
+    result["bound_ms"], result["bound_by"] = bound(in_bytes + out_bytes,
+                                                   14.0 * t_max * batch * extended.shape[1])
+    print("phase C CTC times at B={} T={} S={}: K1 {:.4f} ms, K2 {:.4f} ms per launch "
+          "(bound {:.4f} ms by {}); plain alpha {:.2f} ms, beta {:.2f} ms; loss fwd+bwd "
+          "kernel {:.3f} ms, plain {:.2f} ms, F.ctc_loss {:.3f} ms (fwd {:.3f})".format(
+              batch, t_max, extended.shape[1], result["alpha_ms"], result["beta_ms"],
+              result["bound_ms"], result["bound_by"], result["alpha_plain_ms"],
+              result["beta_plain_ms"], result["loss_kernel_fwd_bwd_ms"],
+              result["loss_plain_fwd_bwd_ms"], result["library_fwd_bwd_ms"],
+              result["library_fwd_ms"]))
+    return result
+
+
+def bench_wav_batch(rng, config, steps, device):
+    """`bench.py`'s batch: 64 x 131,072 samples of seeded noise with 192 random labels a
+    row, one batch repeated over the steps axis."""
+    import torch
+
+    from speechless_tpu_torch.train import trainer
+
+    wavs = torch.tensor(rng.normal(size=(1, BENCH_BATCH, BENCH_SAMPLES)) * 0.1,
+                        dtype=torch.float32, device=device)
+    labels = torch.tensor(rng.integers(0, config.grapheme_set_size - 1,
+                                       (1, BENCH_BATCH, BENCH_LABELS)),
+                          dtype=torch.int32, device=device)
+    full = lambda value: torch.full((steps, BENCH_BATCH), value, dtype=torch.int32,
+                                    device=device)
+    return trainer.WavBatch(wavs.expand(steps, -1, -1), full(BENCH_SAMPLES),
+                            labels.expand(steps, -1, -1), full(BENCH_LABELS))
+
+
+def precision_check(device):
+    """One fp32 step of the full-width model on a 2 x 2 s batch on the card against the
+    same step on the CPU: loss and parameter deltas. The same step with TF32 forced on
+    must fail the limits, which shows they can tell fp32 from TF32."""
+    import contextlib
+
+    import torch
+
+    from speechless_tpu_torch.features import spectrogram
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.ops import ctc
+    from speechless_tpu_torch.train import trainer
+
+    config = w2l.Wav2LetterConfig(128, 29)
+    params = w2l.init_params(config, SEED + 2)
+    rng = np.random.default_rng(SEED + 2)
+    t = np.arange(32000) / 16000.0
+    wavs = np.stack([0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.normal(size=t.size)
+                     for f in (440.0, 1234.0)]).astype(np.float32)[None]
+    labels = rng.integers(0, 28, (1, 2, 24)).astype(np.int32)
+    batch = trainer.WavBatch(wavs, np.full((1, 2), 32000, np.int32), labels,
+                             np.full((1, 2), 24, np.int32))
+
+    def one_step(where, tf32: bool):
+        optimizer = trainer.make_optimizer(1e-4)
+        state = trainer.init_train_state(config, optimizer, params=params, device=where)
+        if tf32:
+            @contextlib.contextmanager
+            def tf32_on():
+                saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+                try:
+                    yield
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+            patched = [(module, module.ieee_fp32)
+                       for module in (trainer, w2l, spectrogram, ctc)]
+            for module, _ in patched:
+                module.ieee_fp32 = tf32_on
+        try:
+            state, metrics = trainer.make_multi_wav_step(config, optimizer, device=where)(
+                state, batch)
+        finally:
+            if tf32:
+                for module, original in patched:
+                    module.ieee_fp32 = original
+        return float(metrics["loss"]), state.params
+
+    cpu_loss, cpu_params = one_step("cpu", False)
+    numbers = {}
+    for name, tf32 in (("fp32", False), ("tf32", True)):
+        loss, card_params = one_step(device, tf32)
+        delta_err = max(
+            float(np.linalg.norm((c[k] - p[k]) - (g[k] - p[k])) / np.linalg.norm(c[k] - p[k]))
+            for c, g, p in zip(cpu_params, card_params, params) for k in ("w", "b")
+            if np.linalg.norm(c[k] - p[k]) > 0)
+        numbers[name] = (abs(loss - cpu_loss) / abs(cpu_loss), delta_err)
+    print("phase C precision, one full-width step on 2 x 2 s, card vs CPU: fp32 loss rel "
+          "{:.3g}, parameter-delta rel L2 {:.3g}; with TF32 on: loss rel {:.3g}, delta rel "
+          "L2 {:.3g} (limits {} and {})".format(*numbers["fp32"], *numbers["tf32"],
+                                                FP32_LOSS_RTOL, FP32_DELTA_RTOL))
+    check(numbers["fp32"][0] <= FP32_LOSS_RTOL and numbers["fp32"][1] <= FP32_DELTA_RTOL,
+          "fp32 train step on the card differs from the CPU: {}".format(numbers["fp32"]))
+    check(numbers["tf32"][0] > FP32_LOSS_RTOL or numbers["tf32"][1] > FP32_DELTA_RTOL,
+          "the TF32 step passes the fp32 limits: they cannot tell them apart")
+    return numbers
+
+
+def phase_c(device, profile: bool, out_path: Path):
+    """The training slice: K1/K2 checks and times, `make_multi_wav_step` at full width
+    in bf16 (k=10 steps a call, one warm-up call and three timed), and the precision
+    check. Returns the kernels' numbers and the train phase's launch counts."""
+    import torch
+
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.ops import ctc_kernels
+    from speechless_tpu_torch.train import trainer
+
+    rng = np.random.default_rng(SEED + 3)
+    frames = (BENCH_SAMPLES // 128 + 2) // 2  # logits per row: 1025 feature frames / 2
+    ctc_bench = check_ctc_kernels(rng, BENCH_BATCH, frames, BENCH_LABELS, 29, device, True)
+    ctc_long = check_ctc_kernels(rng, 16, 1401, 600, 29, device, False)
+    check(ctc_long["S"] > 1024, "the long CTC check must exceed 1024 states")
+
+    config = w2l.Wav2LetterConfig(128, 29, compute_dtype=torch.bfloat16)
+    optimizer = trainer.make_optimizer(1e-4)
+    state = trainer.init_train_state(config, optimizer, params=w2l.init_params(config, SEED),
+                                     device=device)
+    batch = bench_wav_batch(rng, config, BENCH_STEPS, device)
+    multi_step = trainer.make_multi_wav_step(config, optimizer, device=device)
+    ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, metrics = multi_step(state, batch)
+    first = metrics["step_losses"].tolist()
+    warm_up_s = time.perf_counter() - start
+    calls, losses = 3, []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        state, metrics = multi_step(state, batch)
+        losses.append(metrics["step_losses"])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = {"ctc_alpha": ctc_kernels.ctc_alpha.launches,
+                "ctc_beta": ctc_kernels.ctc_beta.launches}
+    losses = torch.stack(losses).cpu().numpy()
+    check(np.isfinite(first).all() and np.isfinite(losses).all(), "non-finite step loss")
+    check(float(losses[-1].mean()) < first[0], "the last call's mean loss {} is not below "
+          "the first step's {}".format(float(losses[-1].mean()), first[0]))
+    expected = (calls + 1) * BENCH_STEPS
+    check(launches == {"ctc_alpha": expected, "ctc_beta": expected},
+          "CTC kernel launches in {} train steps: {}".format(expected, launches))
+    steps = calls * BENCH_STEPS
+    utterances_per_s = BENCH_BATCH * steps / elapsed
+    flops = w2l.conv_flops_per_example(config, BENCH_SAMPLES // 128 + 1) * utterances_per_s
+    train = {"ms_per_step": elapsed / steps * 1e3, "utterances_per_s": utterances_per_s,
+             "mfu": flops / BF16_FLOPS_PER_S, "peak_memory_gb":
+                 torch.cuda.max_memory_allocated() / 1e9, "warm_up_call_s": warm_up_s,
+             "first_step_loss": first[0], "last_call_mean_loss": float(losses[-1].mean())}
+    print("phase C train: make_multi_wav_step, full-width wav2letter in bf16, B={} x {} "
+          "samples, {} labels, k={}: {:.2f} ms per step, {:.1f} utterances/s, MFU {:.4f} "
+          "of 989 TFLOP/s bf16, peak memory {:.2f} GB; loss {:.2f} (first step) -> {:.2f} "
+          "(last call's mean); warm-up call {:.2f} s; ctc_alpha/ctc_beta launches {}/{}"
+          .format(BENCH_BATCH, BENCH_SAMPLES, BENCH_LABELS, BENCH_STEPS,
+                  train["ms_per_step"], utterances_per_s, train["mfu"],
+                  train["peak_memory_gb"], first[0], train["last_call_mean_loss"],
+                  warm_up_s, launches["ctc_alpha"], launches["ctc_beta"]))
+    precision_check(device)
+    if profile:
+        profile_train_step(config, state, batch, multi_step, out_path)
+    return {"ctc": ctc_bench, "ctc_long": ctc_long, "train": train, "launches": launches}
+
+
+def profile_train_step(config, state, batch, multi_step, out_path: Path) -> None:
+    """One train step split into features, forward, CTC forward, backward and Adam
+    (CUDA events, mean of 5 steps), and the device's busy share of one k-step call
+    from a `torch.profiler` trace. Writes ``out_path``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = ("features", "forward", "ctc_forward", "backward", "adam")
+    numbers = {"step_split_ms": split_train_step(config, state, batch, parts)}
+    # The same split with cuDNN's autotuner on (off by default; the port does not turn
+    # it on): how much of the step the default convolution algorithms leave.
+    torch.backends.cudnn.benchmark = True
+    try:
+        numbers["step_split_ms_cudnn_benchmark"] = split_train_step(config, state, batch,
+                                                                    parts)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    multi_step(state, batch)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - start
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        multi_step(state, batch)
+        torch.cuda.synchronize()
+    per_name = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            count_us = per_name.setdefault(event.name, [0, 0.0])
+            count_us[0] += 1
+            count_us[1] += event.time_range.elapsed_us()
+    busy_s = sum(us for _, us in per_name.values()) / 1e6
+    top = sorted(per_name.items(), key=lambda item: -item[1][1])
+    numbers.update({"k_step_call_s": call_s, "device_busy_s": busy_s,
+                    "device_idle_share": 1.0 - busy_s / call_s,
+                    "device_ops_per_call": sum(count for count, _ in per_name.values()),
+                    "top_device_ops_ms": [[name[:72], count, us / 1e3]
+                                          for name, (count, us) in top[:15]]})
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(numbers, indent=1))
+    print("profile train (written to {}): {}".format(out_path, json.dumps(
+        {key: value for key, value in numbers.items() if key != "top_device_ops_ms"})))
+
+
+def split_train_step(config, state, batch, parts, runs: int = 5):
+    """Mean CUDA-event milliseconds of each part of one train step over ``runs`` steps
+    (after one warm-up step)."""
+    import torch
+
+    from speechless_tpu_torch.features.spectrogram import features_batch
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.ops.ctc_kernels import ctc_loss_from_logits
+    from speechless_tpu_torch.precision import ieee_fp32
+
+    totals = dict.fromkeys(parts, 0.0)
+    for run in range(runs + 1):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
+        micro = type(batch)(*(field[0] for field in batch))
+        with ieee_fp32():
+            events[0].record()
+            features, counts = features_batch(micro.wavs, micro.wav_lengths)
+            events[1].record()
+            logits = state.model(features)
+            events[2].record()
+            lengths = w2l.prediction_lengths(config, counts).to(torch.int32)
+            loss = ctc_loss_from_logits(logits, lengths, micro.labels, micro.label_lengths,
+                                        config.grapheme_set_size - 1).mean()
+            events[3].record()
+            loss.backward()
+            events[4].record()
+            state.opt_state.step()
+            events[5].record()
+        torch.cuda.synchronize()
+        if run:  # the first run warms up
+            for i, part in enumerate(parts):
+                totals[part] += events[i].elapsed_time(events[i + 1]) / runs
+    return totals
+
+
 def main() -> None:
     import argparse
 
@@ -403,8 +839,9 @@ def main() -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also split transcribe_batch's time into its layers and "
-                             "trace one batch (writes chiprun_out/profile.json)")
+                        help="also split transcribe_batch's and a train step's time into "
+                             "their layers and trace one batch and one k-step call "
+                             "(writes chiprun_out/profile.json and profile_train.json)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -428,14 +865,16 @@ def main() -> None:
         torch.backends.cudnn.allow_tf32))
     device = torch.device("cuda:0")
 
-    _kernels.function("lm_beam_step")
-    build = _kernels.builds["lm_beam_step"]
-    print("kernel build: nvcc {} {} in {:.2f} s -> {}".format(
-        " ".join(_kernels.NVCC_FLAGS), "speechless_tpu_torch/csrc/lm_beam_step.cu",
-        build["seconds"], Path(build["path"]).name))
-    for line in build["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print("  ptxas: " + line.strip())
+    start = time.perf_counter()
+    _kernels.build_all()  # one nvcc per source, all started together
+    print("kernel builds: nvcc {}, {:.2f} s for all".format(" ".join(_kernels.NVCC_FLAGS),
+                                                            time.perf_counter() - start))
+    for name, build in _kernels.builds.items():
+        print("  speechless_tpu_torch/csrc/{}.cu in {:.2f} s -> {}".format(
+            name, build["seconds"], Path(build["path"]).name))
+        for line in build["log"].splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print("    ptxas: " + line.strip())
 
     alphabet = CHARSETS["english"]
     with tempfile.TemporaryDirectory() as lm_directory:
@@ -450,14 +889,36 @@ def main() -> None:
         if args.profile:
             phase_profile(transcriber, batch, short_audio,
                           ROOT / "chiprun_out" / "profile.json")
-    check("jax" not in sys.modules, "the port imported jax")
+    train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
+    check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "speechless_tpu")],
+          "the port imported jax or the JAX package")
 
+    ctc = train["ctc"]
     print(json.dumps({"kernels": [{
         "name": "lm_beam_step", "route": "cuda",
         "source": "speechless_tpu_torch/csrc/lm_beam_step.cu",
         "replaces": "speechless_tpu/ops/decode_pallas_lm.py:124",
         "launches": launches, "max_abs_err": step["max_abs_err"], "ms": step["ms"],
-        "plain_ms": step["plain_ms"]}]}))
+        "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+        "bound_by": step["bound_by"], "library_ms": None}, {
+        "name": "ctc_alpha", "route": "cuda",
+        "source": "speechless_tpu_torch/csrc/ctc_alpha.cu",
+        "replaces": "speechless_tpu/ops/ctc_pallas.py:45",
+        "launches": train["launches"]["ctc_alpha"],
+        "max_abs_err": max(ctc["alpha_abs_err"], train["ctc_long"]["alpha_abs_err"]),
+        "ms": ctc["alpha_ms"], "plain_ms": ctc["alpha_plain_ms"],
+        "bound_ms": ctc["bound_ms"], "bound_by": ctc["bound_by"],
+        "library_ms": ctc["library_fwd_ms"]}, {
+        "name": "ctc_beta", "route": "cuda",
+        "source": "speechless_tpu_torch/csrc/ctc_beta.cu",
+        "replaces": "speechless_tpu/ops/ctc_pallas.py:70",
+        "launches": train["launches"]["ctc_beta"],
+        "max_abs_err": max(ctc["beta_abs_err"], ctc["grad_abs_err"],
+                           train["ctc_long"]["beta_abs_err"],
+                           train["ctc_long"]["grad_abs_err"]),
+        "ms": ctc["beta_ms"], "plain_ms": ctc["beta_plain_ms"],
+        "bound_ms": ctc["bound_ms"], "bound_by": ctc["bound_by"],
+        "library_ms": ctc["library_bwd_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,15 +4,19 @@
 Geometry matches the JAX package's mel-input model: a striding conv (250, k=48,
 stride 2), 7 inner convs (250, k=7), big_conv_1 (2000, k=32), big_conv_2 (2000, k=1) and
 a linear output conv (grapheme_set_size, k=1), ReLU between them. Every conv is
-SAME-padded by XLA's rule. Compute is IEEE fp32, the serving default: the forward
-turns TF32 off itself (`precision.ieee_fp32`).
+SAME-padded by XLA's rule. Compute is IEEE fp32 by default, the serving path: the
+forward turns TF32 off itself (`precision.ieee_fp32`). With ``compute_dtype=bfloat16``
+(the training path on the card) the parameters stay fp32 and are cast inside the
+forward, so gradients reach the fp32 parameters; each conv runs in bf16 and adds its
+bias in bf16 after the conv, as `jax.lax.conv_general_dilated` and the JAX ``x + b`` do,
+and the logits come back in fp32.
 
 The public layout stays the JAX one — ``(batch, time, channels)`` in and out — and the
 weight bridge (`params_from_jax` / `params_to_jax`) moves the JAX package's
 ``[{"w": (K, Cin, Cout), "b": (Cout,)}, ...]`` parameter list to and from this module's
 state (`nn.Conv1d` weights are ``(Cout, Cin, K)``). The raw-wave frontend, other
-activations and the training features of the JAX model (dropout, remat, int8 compute,
-tensor-parallel constraints) are not ported yet.
+activations, dropout, remat, int8 compute and tensor-parallel constraints of the JAX
+model are not ported yet (ROADMAP.md, item 3).
 """
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
@@ -41,10 +45,12 @@ class ConvSpec:
 
 @dataclass(frozen=True)
 class Wav2LetterConfig:
-    """Architecture of one model instance (``layers`` overrides the default stack)."""
+    """Architecture and compute type of one model instance (``layers`` overrides the
+    default stack; ``compute_dtype`` is float32 or bfloat16)."""
     input_size_per_time_step: int
     grapheme_set_size: int
     layers: Tuple[ConvSpec, ...] = field(default=None)
+    compute_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
         if self.layers is None:
@@ -97,12 +103,18 @@ class Wav2Letter(nn.Module):
         self.layers = nn.ModuleList(convs)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        x = inputs.to(torch.float32).transpose(1, 2)
+        dtype = self.config.compute_dtype
+        x = inputs.to(dtype).transpose(1, 2)
         with ieee_fp32():
             for spec, conv in zip(self.config.layers, self.layers):
                 x = F.pad(x, same_padding(x.shape[2], spec.kernel_size, spec.stride))
-                x = _activate(conv(x), spec.activation)
-        return x.transpose(1, 2)
+                if dtype == torch.float32:
+                    x = conv(x)
+                else:
+                    x = (F.conv1d(x, conv.weight.to(dtype), None, spec.stride)
+                         + conv.bias.to(dtype)[:, None])
+                x = _activate(x, spec.activation)
+        return x.to(torch.float32).transpose(1, 2)
 
 
 def init_params(config: Wav2LetterConfig, seed: int) -> Params:
@@ -156,3 +168,23 @@ def prediction_lengths(config: Wav2LetterConfig,
                        input_lengths: torch.Tensor) -> torch.Tensor:
     """Valid output frames per example: ``input_length // stride_ratio``."""
     return input_lengths // config.input_to_prediction_length_ratio
+
+
+def trainable_mask(config: Wav2LetterConfig, frozen_layer_count: int) -> List[bool]:
+    """Per-layer trainability flags: the first ``frozen_layer_count`` layers are frozen."""
+    return [i >= frozen_layer_count for i in range(len(config.layers))]
+
+
+def conv_flops_per_example(config: Wav2LetterConfig, input_frames: int,
+                           train: bool = True) -> float:
+    """Analytic conv FLOPs for one example, the MFU numerator (bias, activations and the
+    features are left out): ``2 * T_out * K * C_in * C_out`` per layer, times 3 for
+    training (the input-gradient and weight-gradient convs cost one forward each)."""
+    flops = 0.0
+    frames = input_frames
+    in_channels = config.input_size_per_time_step
+    for spec in config.layers:
+        frames = (frames + spec.stride - 1) // spec.stride  # SAME padding
+        flops += 2.0 * frames * spec.kernel_size * in_channels * spec.filters
+        in_channels = spec.filters
+    return flops * (3.0 if train else 1.0)

@@ -25,6 +25,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point of each source: argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
     "lm_beam_step": [_P] * 15 + [_I] * 10 + [_P],
+    "ctc_alpha": [_P] * 6 + [_I] * 4 + [_P],
+    "ctc_beta": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -41,25 +43,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def _build(name: str) -> Path:
+def _target(name: str) -> Path:
     source = SOURCE_DIR / (name + ".cu")
     digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    target = BUILD_DIR / "{}-{}.so".format(name, digest[:16])
-    if target.exists():
-        builds[name] = {"seconds": 0.0, "log": "reused {}".format(target), "path": target}
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    partial = target.with_name("{}.{}.tmp".format(target.name, os.getpid()))
-    start = time.perf_counter()
-    result = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(source)],
-                            capture_output=True, text=True)
-    if result.returncode != 0:
-        raise RuntimeError("nvcc failed to build {}:\n{}{}".format(
-            source, result.stdout, result.stderr))
-    os.replace(partial, target)  # atomic: concurrent builders never load a partial file
-    builds[name] = {"seconds": time.perf_counter() - start,
-                    "log": result.stdout + result.stderr, "path": target}
-    return target
+    return BUILD_DIR / "{}-{}.so".format(name, digest[:16])
+
+
+def _build_many(names) -> None:
+    """Build every missing library of ``names``: one nvcc per source, all started
+    together. Raises if any build fails."""
+    started = {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            builds[name] = {"seconds": 0.0, "log": "reused {}".format(target), "path": target}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        partial = target.with_name("{}.{}.tmp".format(target.name, os.getpid()))
+        command = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(SOURCE_DIR / (name + ".cu"))]
+        started[name] = (target, partial, time.perf_counter(),
+                         subprocess.Popen(command, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (target, partial, start, process) in started.items():
+        log = process.communicate()[0]
+        if process.returncode != 0:
+            failures.append("nvcc failed to build {}:\n{}".format(name + ".cu", log))
+            continue
+        os.replace(partial, target)  # atomic: concurrent builders never load a partial file
+        builds[name] = {"seconds": time.perf_counter() - start, "log": log, "path": target}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+def build_all() -> None:
+    """Build (or find) every kernel's library in parallel, before the first call needs
+    them."""
+    with _lock:
+        _build_many(list(SIGNATURES))
 
 
 def function(name: str):
@@ -67,7 +88,8 @@ def function(name: str):
     function returns the ``cudaError_t`` of the launch (0 on success)."""
     with _lock:
         if name not in _functions:
-            entry = getattr(ctypes.CDLL(str(_build(name))), name)
+            _build_many([name])
+            entry = getattr(ctypes.CDLL(str(builds[name]["path"])), name)
             entry.argtypes = SIGNATURES[name]
             entry.restype = ctypes.c_int
             _functions[name] = entry

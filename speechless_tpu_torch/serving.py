@@ -17,14 +17,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from speechless_tpu.text.charsets import (english_frequent_characters,
-                                          german_frequent_characters)
-from speechless_tpu.text.graphemes import CtcGraphemeCodec
-
 from .features.spectrogram import features_batch
 from .models import wav2letter as w2l
 from .ops.decode import greedy_decode
 from .ops.device_beam import beam_search_decode_device
+from .text.charsets import english_frequent_characters, german_frequent_characters
+from .text.graphemes import CtcGraphemeCodec
 
 # Feature-frame buckets of the JAX package (`data/batching.py:37`); requests pad to
 # the smallest bucket of samples (frames * 128) that holds them, and past the last

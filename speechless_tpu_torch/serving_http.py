@@ -26,10 +26,9 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from speechless_tpu.utils.microbatch import BatcherSaturated, MicroBatcher, PendingItem
-
 from .features.audio_io import decode_wav_bytes, resample
 from .serving import words_from_frame_tokens
+from .utils.microbatch import BatcherSaturated, MicroBatcher, PendingItem
 
 _MAX_BODY_BYTES = 64 * 1024 * 1024  # ~35 min of 16 kHz float32; guards the heap
 
@@ -48,7 +47,7 @@ class DynamicBatcher(MicroBatcher):
     """Collect concurrent requests into micro-batches: everything that arrives within
     ``max_wait_ms`` of the first queued request (up to ``max_batch``) is served by one
     ``backend.transcribe_batch`` call; a lone request takes the single-utterance path.
-    Queue, shutdown and error semantics are `speechless_tpu.utils.microbatch`'s."""
+    Queue, shutdown and error semantics are `utils.microbatch`'s."""
 
     item_noun = "requests"
 

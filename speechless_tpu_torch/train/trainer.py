@@ -1,0 +1,413 @@
+"""The CTC training step (port of `speechless_tpu/train/trainer.py`).
+
+* loss: the batch mean of per-utterance CTC NLL on the logits, with the JAX package's
+  infeasible-label guard (a label needing more frames than the utterance has scores 0);
+  the CTC runs on the CUDA kernels K1/K2 for CUDA tensors and on the plain recursions
+  for CPU tensors (`ops/ctc_kernels.py`), so no CUDA tensor reaches the plain version;
+* optimizer: `torch.optim.Adam` with optax's defaults (b1 0.9, b2 0.999, eps 1e-8),
+  optional global-norm clipping, frozen layers (no gradient, no moments, exactly zero
+  updates), k-step gradient accumulation (`optax.MultiSteps`: the running mean of k
+  micro-batch gradients, then one update) and warmup/cosine schedules keyed to the
+  update count, in the order the JAX package chains them;
+* steps: `make_train_step` (features in), `make_wav_train_step` (raw audio in, features
+  on the device) and `make_multi_wav_step` (k updates per call with no host sync
+  between them), plus `make_eval_step`.
+
+PyTorch runs eagerly, so a "step" is a Python function over a mutable `TrainState`: it
+updates the model and optimizer in place and returns the same state, where the JAX step
+returns a new one. Every step runs with TF32 off (`precision.ieee_fp32`): fp32 training
+is IEEE fp32 in the forward and the backward, and bf16 training is bf16 either way.
+Only the ``"ctc"`` criterion is ported; ASG, SpecAugment, dropout and remat are queued
+in ROADMAP.md.
+"""
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..features.spectrogram import features_batch
+from ..models import wav2letter as w2l
+from ..ops.ctc_kernels import ctc_loss_from_logits
+from ..precision import ieee_fp32
+
+DEFAULT_DEVICE = "cuda:0"
+
+
+class Batch(NamedTuple):
+    """One statically shaped training batch (padded within a length bucket)."""
+    inputs: torch.Tensor          # (B, T, F) float32 features
+    input_lengths: torch.Tensor   # (B,) int32 valid frame counts
+    labels: torch.Tensor          # (B, U) int32, -1 padded
+    label_lengths: torch.Tensor   # (B,) int32
+
+
+class WavBatch(NamedTuple):
+    """A raw-audio batch for the features-on-device path; `make_multi_wav_step` takes
+    the same fields with a leading steps axis."""
+    wavs: torch.Tensor            # (B, samples) float32 zero-padded 16 kHz audio
+    wav_lengths: torch.Tensor     # (B,) int32 true sample counts
+    labels: torch.Tensor          # (B, U) int32, -1 padded
+    label_lengths: torch.Tensor   # (B,) int32
+
+
+# --------------------------------------------------------------------------------------
+# Learning-rate schedules (optax's formulas, evaluated on the host per update)
+# --------------------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class WarmupSchedule:
+    """optax's ``join_schedules([linear 0 -> peak over warmup_steps, then cosine decay to
+    end_value over decay_steps - warmup_steps | constant peak])``."""
+    peak: float
+    warmup_steps: int
+    decay_steps: Optional[int] = None   # None: hold the peak after the warmup
+    end_value: float = 0.0
+
+    def __call__(self, count: int) -> float:
+        if count < self.warmup_steps:  # optax's linear_schedule from 0 to the peak
+            return (0.0 - self.peak) * (1.0 - count / self.warmup_steps) + self.peak
+        if self.decay_steps is None:
+            return self.peak
+        steps = self.decay_steps - self.warmup_steps
+        alpha = 0.0 if self.peak == 0.0 else self.end_value / self.peak
+        done = min(count - self.warmup_steps, steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * done / steps))
+        return self.peak * ((1.0 - alpha) * cosine + alpha)
+
+
+LearningRate = Union[float, Callable[[int], float]]
+
+
+def make_lr_schedule(base_learning_rate: float = 1e-4, warmup_steps: int = 0,
+                     decay: Optional[str] = None, decay_steps: Optional[int] = None,
+                     end_value_fraction: float = 0.01) -> LearningRate:
+    """The plain float without warmup and decay, else a schedule of the update count:
+    a linear warmup from 0 over ``warmup_steps``, then the peak held (``decay=None``) or
+    a cosine decay to ``end_value_fraction * base`` at ``decay_steps`` total updates."""
+    if not warmup_steps and decay is None:
+        return base_learning_rate
+    if decay == "cosine":
+        if not decay_steps:
+            raise ValueError("decay_steps (total steps incl. warmup) is required "
+                             "for cosine decay")
+        if decay_steps <= warmup_steps:
+            raise ValueError("cosine decay needs decay_steps > warmup_steps")
+        return WarmupSchedule(base_learning_rate, warmup_steps, decay_steps,
+                              base_learning_rate * end_value_fraction)
+    if decay is None:
+        return WarmupSchedule(base_learning_rate, warmup_steps)
+    raise ValueError("unknown decay {!r}; expected 'cosine' or None".format(decay))
+
+
+# --------------------------------------------------------------------------------------
+# Optimizer
+# --------------------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Optimizer:
+    """Adam with optax's defaults and the JAX package's options (see `make_optimizer`).
+    `init` binds it to a model's parameters."""
+    learning_rate: LearningRate = 1e-4
+    trainable: Optional[Tuple[bool, ...]] = None
+    gradient_clip_norm: Optional[float] = None
+    accumulate_steps: int = 1
+
+    def init(self, model: w2l.Wav2Letter) -> "OptimizerState":
+        return OptimizerState(self, model)
+
+
+def make_optimizer(learning_rate: LearningRate = 1e-4,
+                   trainable: Optional[Sequence[bool]] = None,
+                   gradient_clip_norm: Optional[float] = None,
+                   accumulate_steps: Optional[int] = None) -> Optimizer:
+    """Adam with an optional per-layer freezing mask, global-norm clipping of the
+    (accumulated) gradient over the trainable layers, and k-step accumulation: one
+    update per ``accumulate_steps`` micro-batches from their mean gradient, so that k
+    equal micro-batches step like one k-times-larger batch. ``learning_rate`` is a
+    float or a `make_lr_schedule` schedule, which advances once per real update."""
+    if accumulate_steps is not None and accumulate_steps < 1:
+        raise ValueError("accumulate_steps must be >= 1, got {}".format(accumulate_steps))
+    return Optimizer(learning_rate, None if trainable is None else tuple(trainable),
+                     gradient_clip_norm, accumulate_steps or 1)
+
+
+class OptimizerState:
+    """The optimizer bound to one model: a `torch.optim.Adam` over the trainable
+    layers' parameters, the update count, and the accumulation buffers.
+
+    `step` consumes the ``.grad`` of the trainable parameters (frozen layers get
+    ``requires_grad=False``, so the backward computes no gradient for them). `leaves`
+    and `load_leaves` give the state as the leaves of the JAX package's optax state, in
+    ``jax.tree_util.tree_leaves`` order, so either package resumes the other's run.
+    """
+
+    def __init__(self, spec: Optimizer, model: w2l.Wav2Letter):
+        self.spec = spec
+        self.layers = list(model.layers)
+        self.trainable = list(spec.trainable or [True] * len(self.layers))
+        if len(self.trainable) != len(self.layers):
+            raise ValueError("trainable has {} flags for {} layers".format(
+                len(self.trainable), len(self.layers)))
+        for conv, flag in zip(self.layers, self.trainable):
+            conv.weight.requires_grad_(flag)
+            conv.bias.requires_grad_(flag)
+        self.params = [p for conv, flag in zip(self.layers, self.trainable) if flag
+                       for p in (conv.weight, conv.bias)]
+        self.adam = torch.optim.Adam(self.params, lr=self._learning_rate(0),
+                                     betas=(0.9, 0.999), eps=1e-8)
+        self.updates = 0     # optax's Adam count: real updates so far
+        self.mini_step = 0   # micro-batches accumulated toward the next update
+        self.accumulated = ([torch.zeros_like(p) for p in self.params]
+                            if spec.accumulate_steps > 1 else None)
+
+    def _learning_rate(self, count: int) -> float:
+        rate = self.spec.learning_rate
+        return float(rate(count)) if callable(rate) else float(rate)
+
+    def step(self) -> None:
+        """Accumulate the current gradients, and on every k-th call apply one update."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.accumulated is not None:
+            for acc, grad in zip(self.accumulated, grads):  # optax's running mean
+                acc.add_((grad - acc) / (self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < self.spec.accumulate_steps:
+                self._clear_grads()
+                return
+            self.mini_step = 0
+            grads = self.accumulated
+        clip = self.spec.gradient_clip_norm
+        if clip is not None:  # optax.clip_by_global_norm, without a host sync
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            grads = [torch.where(norm < clip, g, g / norm * clip) for g in grads]
+        for param, grad in zip(self.params, grads):
+            param.grad = grad
+        for group in self.adam.param_groups:
+            group["lr"] = self._learning_rate(self.updates)
+        self.adam.step()
+        self.updates += 1
+        if self.accumulated is not None:
+            for acc in self.accumulated:
+                acc.zero_()
+        self._clear_grads()
+
+    def _clear_grads(self) -> None:
+        for param in self.params:
+            param.grad = None
+
+    # ---- the optax state as leaves ------------------------------------------------
+    def _param_pairs(self, trainable_only: bool):
+        """(conv, trainable) in optax's leaf order: each layer's ``b`` before its ``w``."""
+        return [(conv, flag) for conv, flag in zip(self.layers, self.trainable)
+                if flag or not trainable_only]
+
+    @staticmethod
+    def _to_jax(tensor: torch.Tensor, is_weight: bool) -> np.ndarray:
+        array = tensor.detach().to("cpu", torch.float32).numpy()
+        return np.ascontiguousarray(array.transpose(2, 1, 0)) if is_weight else array.copy()
+
+    @staticmethod
+    def _from_jax(array: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+        array = np.asarray(array, np.float32)
+        if like.dim() == 3:
+            array = array.transpose(2, 1, 0)
+        if array.shape != tuple(like.shape):
+            raise ValueError("optimizer leaf of shape {} for a parameter of shape {}".format(
+                array.shape, tuple(like.shape)))
+        return torch.from_numpy(np.ascontiguousarray(array)).to(like.device)
+
+    def _moments(self, key: str) -> List[np.ndarray]:
+        leaves = []
+        for conv, _ in self._param_pairs(trainable_only=True):
+            for param, is_weight in ((conv.bias, False), (conv.weight, True)):
+                state = self.adam.state.get(param)
+                value = state[key] if state else torch.zeros_like(param)
+                leaves.append(self._to_jax(value, is_weight))
+        return leaves
+
+    def leaves(self) -> List[np.ndarray]:
+        """The JAX package's optax state leaves for `make_optimizer` with the same
+        options: ``[count, mu..., nu...(, schedule count)]`` over the trainable layers,
+        inside ``[mini_step, gradient_step, ..., accumulated gradients]`` when
+        accumulating (frozen layers' accumulators are zeros: no update reads them)."""
+        count = np.asarray(self.updates, np.int32)
+        inner = [count] + self._moments("exp_avg") + self._moments("exp_avg_sq")
+        if callable(self.spec.learning_rate):
+            inner.append(count)
+        if self.accumulated is None:
+            return inner
+        accumulated = dict(zip(self.params, self.accumulated))
+        acc = []
+        for conv, _ in self._param_pairs(trainable_only=False):
+            for param, is_weight in ((conv.bias, False), (conv.weight, True)):
+                acc.append(self._to_jax(accumulated.get(param, torch.zeros_like(param)),
+                                        is_weight))
+        return [np.asarray(self.mini_step, np.int32), count] + inner + acc
+
+    def load_leaves(self, leaves: Sequence[np.ndarray]) -> None:
+        """Inverse of `leaves`. Raises if the count of leaves does not fit the options."""
+        leaves = list(leaves)
+        expected = len(self.leaves())
+        if len(leaves) != expected:
+            raise ValueError("checkpoint optimizer state has {} leaves; these optimizer "
+                             "options expect {}".format(len(leaves), expected))
+        if self.accumulated is not None:
+            self.mini_step = int(leaves[0])
+            acc_leaves = leaves[len(leaves) - 2 * len(self.layers):]
+            leaves = leaves[2:len(leaves) - 2 * len(self.layers)]
+            accumulated = dict(zip(self.params, self.accumulated))
+            pairs = iter(acc_leaves)
+            for conv in self.layers:
+                for param in (conv.bias, conv.weight):
+                    value = next(pairs)
+                    if param in accumulated:
+                        accumulated[param].copy_(self._from_jax(value, param))
+        self.updates = int(leaves[0])
+        moments = len(self.params)
+        mu, nu = leaves[1:1 + moments], leaves[1 + moments:1 + 2 * moments]
+        ordered = [param for conv, _ in self._param_pairs(trainable_only=True)
+                   for param in (conv.bias, conv.weight)]
+        self.adam.state.clear()
+        if self.updates > 0:
+            for param, m, v in zip(ordered, mu, nu):
+                self.adam.state[param] = {
+                    "step": torch.tensor(float(self.updates), dtype=torch.float32),
+                    "exp_avg": self._from_jax(m, param),
+                    "exp_avg_sq": self._from_jax(v, param)}
+
+
+# --------------------------------------------------------------------------------------
+# State and steps
+# --------------------------------------------------------------------------------------
+
+@dataclass
+class TrainState:
+    """The model (fp32 parameters on the device), its optimizer state and the step."""
+    step: int
+    model: w2l.Wav2Letter
+    opt_state: OptimizerState
+
+    @property
+    def params(self) -> w2l.Params:
+        """The parameters in the JAX package's layout (numpy)."""
+        return w2l.params_to_jax(self.model)
+
+
+def init_train_state(config: w2l.Wav2LetterConfig, optimizer: Optimizer, seed: int = 0,
+                     params: Optional[w2l.Params] = None,
+                     device=DEFAULT_DEVICE) -> TrainState:
+    """A fresh state on ``device``: ``params`` (JAX layout) or `w2l.init_params(seed)`."""
+    if params is None:
+        params = w2l.init_params(config, seed)
+    model = w2l.build_model(config, params, device=device).train()
+    return TrainState(step=0, model=model, opt_state=optimizer.init(model))
+
+
+def _batch_to(batch, device) -> tuple:
+    return type(batch)(*(torch.as_tensor(field).to(device) for field in batch))
+
+
+def _check_criterion(criterion: str) -> None:
+    if criterion in ("asg", "asg_trainable"):
+        raise NotImplementedError("criterion {!r} is not ported yet (ROADMAP.md, item "
+                                  "13)".format(criterion))
+    if criterion != "ctc":
+        raise ValueError("Unknown criterion: {}".format(criterion))
+
+
+def loss_fn(config: w2l.Wav2LetterConfig, model: w2l.Wav2Letter, batch: Batch,
+            criterion: str = "ctc") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CTC loss over the batch, and the per-example losses. Examples whose label
+    needs more frames than they have (length plus adjacent repeats > frames) admit no
+    alignment and score 0, as in the JAX package."""
+    _check_criterion(criterion)
+    logits = model(batch.inputs)
+    logit_lengths = w2l.prediction_lengths(config, batch.input_lengths).to(torch.int32)
+    labels, label_lengths = batch.labels, batch.label_lengths
+    per_example = ctc_loss_from_logits(logits, logit_lengths, labels, label_lengths,
+                                       config.grapheme_set_size - 1)
+    repeats = ((labels[:, 1:] == labels[:, :-1]) & (labels[:, 1:] >= 0)).sum(dim=1)
+    feasible = label_lengths + repeats <= logit_lengths
+    per_example = torch.where(feasible, per_example, 0.0)
+    return per_example.mean(), per_example
+
+
+def _update(config, criterion, state: TrainState, batch: Batch):
+    with ieee_fp32():
+        loss, per_example = loss_fn(config, state.model, batch, criterion)
+        loss.backward()
+        state.opt_state.step()
+    state.step += 1
+    return loss.detach(), per_example.detach()
+
+
+def _wav_features(batch: WavBatch) -> Batch:
+    features, frame_counts = features_batch(batch.wavs, batch.wav_lengths)
+    return Batch(features, frame_counts, batch.labels, batch.label_lengths)
+
+
+def make_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+                    criterion: str = "ctc", device=DEFAULT_DEVICE):
+    """``(state, Batch) -> (state, {"loss", "per_example_loss"})``: one update on
+    ``device`` (the batch is moved there; the state must be there already)."""
+    del optimizer  # bound into the state by `init_train_state`
+
+    def train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
+        loss, per_example = _update(config, criterion, state, _batch_to(batch, device))
+        return state, {"loss": loss, "per_example_loss": per_example}
+
+    return train_step
+
+
+def make_wav_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+                        criterion: str = "ctc", device=DEFAULT_DEVICE):
+    """``(state, WavBatch) -> (state, metrics)``: features on the device, then one
+    update, as `make_train_step`."""
+    del optimizer
+
+    def train_step(state: TrainState, batch: WavBatch) -> Tuple[TrainState, Dict]:
+        features = _wav_features(_batch_to(batch, device))
+        loss, per_example = _update(config, criterion, state, features)
+        return state, {"loss": loss, "per_example_loss": per_example}
+
+    return train_step
+
+
+def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+                        criterion: str = "ctc", device=DEFAULT_DEVICE):
+    """``(state, stacked WavBatch) -> (state, {"loss": mean, "step_losses": (k,)})``:
+    k fused updates (features, forward, CTC, backward, Adam), one per row of the
+    leading steps axis, with no host sync between them; the losses stay on the
+    device."""
+    del optimizer
+
+    def multi_step(state: TrainState, stacked: WavBatch) -> Tuple[TrainState, Dict]:
+        stacked = _batch_to(stacked, device)
+        losses = []
+        for index in range(stacked.wavs.shape[0]):
+            micro = WavBatch(*(field[index] for field in stacked))
+            losses.append(_update(config, criterion, state, _wav_features(micro))[0])
+        losses = torch.stack(losses)
+        return state, {"loss": losses.mean(), "step_losses": losses}
+
+    return multi_step
+
+
+def make_eval_step(config: w2l.Wav2LetterConfig, criterion: str = "ctc"):
+    """``(model, Batch) -> (log_probs, logit_lengths, per_example_loss)`` with no
+    gradient, on the device the model and batch lie on."""
+    _check_criterion(criterion)
+
+    def eval_step(model: w2l.Wav2Letter, batch: Batch):
+        with torch.no_grad(), ieee_fp32():
+            logits = model(batch.inputs)
+            logit_lengths = w2l.prediction_lengths(config, batch.input_lengths).to(
+                torch.int32)
+            per_example = ctc_loss_from_logits(logits, logit_lengths, batch.labels,
+                                               batch.label_lengths,
+                                               config.grapheme_set_size - 1)
+            return torch.log_softmax(logits, dim=-1), logit_lengths, per_example
+
+    return eval_step
