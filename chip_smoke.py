@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: LM-fused serving and training.
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: LM-fused serving, streaming
+sessions and training.
 
     python3 chip_smoke.py [--profile]
 
@@ -37,6 +38,28 @@ source, all started together) and prints ptxas's registers and spills, then:
   bf16 and peak memory. Last, one fp32 step (TF32 off) at full width on a 2 x 2 s batch
   on the card against the same step on the CPU (loss and parameter deltas), and the
   same step with TF32 forced on, which must fail those limits.
+* phase D (streaming, on phase B's transcriber and LM): the stitch-and-rank kernel
+  (`stream_stitch`) against `stitch_reference` on the same CUDA tensors at N=16 streams,
+  F=32 (and 25) frames, r=32 lanes, max_len=512, with count-0 streams, streams near
+  capacity and dead lanes, and once past the kernel's shared-memory staging (F=128,
+  r=64): every output equal, scores bitwise; timed with CUDA events.
+  Then `KernelBeamStreamDecoder` (W=25, word LM) takes 16 serving-shape streams of 513
+  frames by `feed_batch` in 32-frame pieces, on the kernels and on the plain steps:
+  tokens identical, scores within 1e-6 relative, and equal to the offline
+  `beam_search_decode_lm` over the same frames; a synchronized run splits a piece round
+  into the K4 frame loop, the stitch and the LM glue, and one more runs on the kernels
+  while another thread decodes offline (the same results; the time per round when two
+  host-bound beam loops share the interpreter). Last, 8 concurrent HTTP stream
+  sessions on the card (6 ``beam``, 1 ``beam_pipelined``, 1 greedy with
+  ``final_decode``), each fed 8 s in 0.5 s chunks and finished: every reply 200, each
+  beam final equal to a plain-step replay of the rows its beam consumed, the two-pass
+  final equal to the offline transcript, and both kernels launched during the run;
+  driven twice (cold: the first windows of each batch size and length; warm: a new
+  server in the same process, the run whose launches are reported). Prints feed
+  latency p50/p95 (greedy, beam), the slowest feeds and batcher dispatches, when each
+  finish ran, and the launches. With
+  ``--profile``, one piece round under `torch.profiler`
+  (``chiprun_out/profile_stream.json``).
 * with ``--profile`` only: the split of one 16 x 8 s `transcribe_batch` into features,
   model and beam, single-request latencies, and the device's busy share and kernel
   counts from one `torch.profiler` trace (``chiprun_out/profile.json``); and the split of
@@ -346,7 +369,7 @@ def phase_b(device, lm_directory):
     print("phase B transcribe_batch 16 x 8 s: {:.3f} s per batch, {:.2f} utterances/s, "
           "{:.1f} x realtime".format(elapsed / runs, 16 * runs / elapsed,
                                      16 * 8.0 * runs / elapsed))
-    return launches, transcriber, batch, audios[0]
+    return launches, transcriber, batch, audios[0], audio
 
 
 def phase_profile(transcriber, batch, short_audio, out_path: Path) -> None:
@@ -832,6 +855,460 @@ def split_train_step(config, state, batch, parts, runs: int = 5):
     return totals
 
 
+# ---- phase D: streaming ------------------------------------------------------------
+# The streaming decoder's serving shapes: 16 streams, 32-frame pieces, W=25 in r=32
+# lanes, a 512-grapheme token buffer (`serving_streaming.beam_decoder_for`'s defaults).
+STREAM_N, STREAM_CF, STREAM_MAX_LEN, STREAM_FRAMES = 16, 32, 512, 513
+SCORE_RTOL = 1e-6     # kernel vs plain-step stream decoder scores, relative
+HTTP_SESSIONS = ("beam",) * 6 + ("beam_pipelined", "greedy_final")
+HTTP_SECONDS, HTTP_CHUNK_S = 8.0, 0.5
+
+
+def stitch_case(rng, streams, frames, lanes, max_len, classes, device):
+    """Seeded stitch inputs: valid backpointers (parents in [0, lanes), 60 % of the
+    chars -1), 20 % dead lanes (length 0, score NEG_INF), streams 0-1 with count 0
+    (identity pointers, no chars), streams 2-3 entering near capacity, and exit lengths
+    that are each lane's entry length plus its emissions, as the beam step gives."""
+    import torch
+
+    parents = rng.integers(0, lanes, (streams, frames, lanes)).astype(np.int32)
+    chars = rng.integers(0, classes - 1, (streams, frames, lanes)).astype(np.int32)
+    chars[rng.random(chars.shape) < 0.6] = -1
+    parents[:2], chars[:2] = np.arange(lanes, dtype=np.int32), -1
+    prev_len = rng.integers(0, max_len - frames + 1, (streams, lanes)).astype(np.int32)
+    prev_len[2:4] = max_len - frames - rng.integers(0, 3, (2, lanes))
+    tokens = rng.integers(0, classes - 1, (streams, lanes, max_len)).astype(np.int32)
+    tokens[np.arange(max_len)[None, None, :] >= prev_len[..., None]] = -1
+    lane, emitted = np.tile(np.arange(lanes), (streams, 1)), np.zeros((streams, lanes), int)
+    for t in range(frames - 1, -1, -1):
+        emitted += np.take_along_axis(chars[:, t], lane, 1) >= 0
+        lane = np.take_along_axis(parents[:, t], lane, 1)
+    new_len = (np.take_along_axis(prev_len, lane, 1) + emitted).astype(np.int32)
+    final = rng.normal(-50.0, 10.0, (streams, lanes)).astype(np.float32)
+    dead = rng.random((streams, lanes)) < 0.2
+    dead[:, 0] = False
+    new_len[dead], final[dead] = 0, -1e30
+    return [torch.from_numpy(x).to(device)
+            for x in (parents, chars, tokens, prev_len, new_len, final)]
+
+
+def stitch_bytes(parents, prev_len, outputs) -> int:
+    """The bytes the stitch must move for this run's inputs: of each stream, the
+    backpointers (parent and char) of the lanes its walks pass through, each frame's
+    live set read once; the entry lengths and entry-buffer prefixes
+    ``tokens[a][:prev_len[a]]`` of its distinct ancestor lanes ``a``; every exit length
+    and score; and every output written once."""
+    parents, prev_len = parents.cpu().numpy(), prev_len.cpu().numpy()
+    streams, frames, lanes = parents.shape
+    words = 2 * streams * lanes  # new_len and final
+    for n in range(streams):
+        live = np.arange(lanes)
+        for t in range(frames - 1, -1, -1):
+            words += 2 * live.size  # parents[n, t, b] and chars[n, t, b]
+            live = np.unique(parents[n, t, live])
+        words += live.size + int(prev_len[n, live].sum())
+    return 4 * words + sum(t.numel() * t.element_size() for t in outputs)
+
+
+def serving_posteriors(rng, streams, frames, classes, blank):
+    """Peaky-but-noisy log posteriors of the serving shape (phase A's)."""
+    import torch
+
+    targets = rng.integers(0, classes - 1, (streams, frames))
+    targets[rng.random((streams, frames)) < 0.5] = blank
+    logits = rng.normal(size=(streams, frames, classes)) * 1.5
+    logits[np.arange(streams)[:, None], np.arange(frames)[None, :], targets] += 6.0
+    return torch.log_softmax(torch.tensor(logits, dtype=torch.float32), -1).numpy()
+
+
+def check_stitch_kernel(rng, device, classes):
+    """`stream_stitch` (CUDA) against `stitch_reference` on the same CUDA tensors at the
+    serving shape: every output equal, scores bitwise. CUDA-event times of the raw
+    kernel, the wrapper and the plain version, and the least time by bytes."""
+    import torch
+
+    from speechless_tpu_torch.ops import _kernels
+    from speechless_tpu_torch.ops.decode_incremental_kernel import (stitch_reference,
+                                                                    stream_stitch)
+
+    lanes = 32
+    max_abs_err = 0.0
+    # Four cases at the serving shape (F=32 and 25), and one whose backpointers (F=128,
+    # r=64: 64 KB) exceed the 47 KB the kernel stages, so it reads them from device
+    # memory instead.
+    shapes = [(STREAM_N, STREAM_CF - 7 * (trial % 2), lanes) for trial in range(4)]
+    for trial, (streams, frames, width) in enumerate(shapes + [(4, 128, 64)]):
+        args = stitch_case(rng, streams, frames, width, STREAM_MAX_LEN, classes, device)
+        kernel, plain = stream_stitch(*args), stitch_reference(*args)
+        torch.cuda.synchronize()
+        for name, got, want in zip(("rows", "best rows", "scalars"), kernel, plain):
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  "stitch trial {}: {} differ".format(trial, name))
+        max_abs_err = max(max_abs_err, float((kernel[2] - plain[2]).abs().max()))
+    stream_stitch.launches = 0
+    args = stitch_case(rng, STREAM_N, STREAM_CF, lanes, STREAM_MAX_LEN, classes, device)
+    outputs = [torch.empty_like(args[2]),
+               torch.empty((STREAM_N, STREAM_MAX_LEN), dtype=torch.int32, device=device),
+               torch.empty((STREAM_N, 3), dtype=torch.float32, device=device)]
+    raw = (*(t.data_ptr() for t in args + outputs), STREAM_N, STREAM_CF, lanes,
+           STREAM_MAX_LEN, torch.cuda.current_stream().cuda_stream)
+    entry = _kernels.function("stream_stitch")
+    ms = cuda_ms(lambda: check(entry(*raw) == 0, "raw stitch launch failed"), 2000)
+    wrapper_ms = cuda_ms(lambda: stream_stitch(*args), 500)
+    plain_ms = cuda_ms(lambda: stitch_reference(*args), 20)
+    for got, want in zip(outputs, stitch_reference(*args)):
+        check(torch.equal(got, want), "raw stitch launches disagree with the plain version")
+    # Least time: what this run's data needs read once (`stitch_bytes`) and each output
+    # written once; the kernel's arithmetic (a few integer operations per backpointer
+    # and per output word) is negligible beside its bytes.
+    moved = stitch_bytes(args[0], args[3], outputs)
+    bound_ms, bound_by = bound(moved, 0.0)
+    print("phase D stitch: kernel == plain (rows, best rows, scalars bitwise) over 4 "
+          "seeded cases at N={} F={}/{} r={} max_len={} (count-0 streams, streams near "
+          "capacity, dead lanes) and one unstaged case at N=4 F=128 r=64; kernel {:.5f} "
+          "ms per launch on the device, wrapper "
+          "{:.5f} ms per call, plain {:.4f} ms, bound {:.6f} ms ({}: {} bytes needed of "
+          "the {} in the tensors)".format(
+              STREAM_N, STREAM_CF, STREAM_CF - 7, lanes, STREAM_MAX_LEN, ms, wrapper_ms,
+              plain_ms, bound_ms, bound_by, moved,
+              sum(t.numel() * t.element_size() for t in args + outputs)))
+    return {"max_abs_err": max_abs_err, "ms": ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_stream_decoder(rng, device, blank, word_lm, profile_path=None):
+    """`KernelBeamStreamDecoder` with the word LM on the card: 16 serving-shape streams
+    of 513 frames fed by `feed_batch` in 32-frame pieces, once on the kernels and once
+    on the plain steps (tokens equal, scores within SCORE_RTOL), and against the offline
+    `beam_search_decode_lm` over the same frames (chunked equals offline). A third run
+    synchronizes around every kernel call to split a piece round into the K4 frame
+    loop, the stitch and the rest (the LM glue between frames, packing, stacking); a
+    fourth runs on the kernels while another thread decodes offline (same results,
+    its time per round)."""
+    import torch
+
+    from speechless_tpu_torch.ops import decode_lm
+    from speechless_tpu_torch.ops.decode_incremental_kernel import (
+        KernelBeamStreamDecoder, stitch_reference, stream_stitch)
+
+    classes = blank + 1
+    log_probs = serving_posteriors(rng, STREAM_N, STREAM_FRAMES, classes, blank)
+    spent = {"k4": 0.0, "stitch": 0.0}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - start
+            return out
+        return run
+
+    routes, rounds = {}, -(-STREAM_FRAMES // STREAM_CF)
+
+    def stream_all(step, stitch):
+        decoder = KernelBeamStreamDecoder(
+            blank=blank, beam_width=25, max_decoded_length=STREAM_MAX_LEN,
+            chunk_frames=STREAM_CF, word_lm=word_lm, prune_classes=8, device=device,
+            step=step, stitch=stitch)
+        states = [decoder.init_state() for _ in range(STREAM_N)]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for p in range(rounds):
+            piece = [row[p * STREAM_CF:(p + 1) * STREAM_CF] for row in log_probs]
+            results = decoder.feed_batch(states, piece)
+            states = [state for state, _ in results]
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - start
+
+    for name, step, stitch in (
+            ("warm-up", decode_lm.lm_step, stream_stitch),
+            ("kernel", decode_lm.lm_step, stream_stitch),
+            ("plain", decode_lm.lm_step_reference, stitch_reference),
+            ("split", timed(decode_lm.lm_step, "k4"), timed(stream_stitch, "stitch"))):
+        routes[name] = stream_all(step, stitch)
+
+    # The same run on the kernels while another thread decodes one stream offline
+    # (another host-bound beam loop, as a two-pass final is in the HTTP run): both loops
+    # issue hundreds of small torch calls per frame and share one interpreter lock.
+    stop = threading.Event()
+
+    def offline_loop():
+        one = torch.from_numpy(log_probs[:1]).to(device)
+        while not stop.is_set():
+            decode_lm.beam_search_decode_lm(
+                one, torch.full((1,), STREAM_FRAMES, device=device), blank, word_lm,
+                beam_width=25, max_decoded_length=STREAM_MAX_LEN, prune_classes=8)
+
+    rival = threading.Thread(target=offline_loop)
+    rival.start()
+    try:
+        routes["contended"] = stream_all(decode_lm.lm_step, stream_stitch)
+    finally:
+        stop.set()
+        rival.join(timeout=600)
+    check(not rival.is_alive(), "the offline decode thread did not stop")
+    for (_, got), (_, want) in zip(routes["contended"][0], routes["kernel"][0]):
+        check(np.array_equal(got.tokens, want.tokens) and got.score == want.score,
+              "stream decoder: a concurrent offline decode changed the results")
+    for (got_state, got), (_, want) in zip(routes["kernel"][0], routes["plain"][0]):
+        check(np.array_equal(got.tokens, want.tokens), "stream decoder: kernel and plain "
+              "tokens differ")
+        check(abs(got.score - want.score) <= SCORE_RTOL * abs(want.score),
+              "stream decoder: scores {} vs {}".format(got.score, want.score))
+        check(got_state.committed.size == 0, "a stream rolled over; offline would differ")
+    tokens, counts = decode_lm.beam_search_decode_lm(
+        torch.from_numpy(log_probs).to(device),
+        torch.full((STREAM_N,), STREAM_FRAMES, device=device), blank, word_lm,
+        beam_width=25, max_decoded_length=STREAM_MAX_LEN, prune_classes=8)
+    tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
+    for row, (_, got) in enumerate(routes["kernel"][0]):
+        check(np.array_equal(got.tokens, tokens[row, :counts[row]]),
+              "stream {}: chunked and offline tokens differ".format(row))
+    if profile_path is not None:
+        profile_piece_round(log_probs, blank, word_lm, device, profile_path)
+    piece_ms = {name: seconds / rounds * 1e3 for name, (_, seconds) in routes.items()}
+    split = {"k4_loop_ms": spent["k4"] / rounds * 1e3,
+             "stitch_ms": spent["stitch"] / rounds * 1e3}
+    split["lm_glue_ms"] = piece_ms["split"] - split["k4_loop_ms"] - split["stitch_ms"]
+    print("phase D decoder: {} streams x {} frames, W=25, word LM, {}-frame pieces by "
+          "feed_batch: kernel and plain tokens identical ({} tokens), scores within {}, "
+          "and equal to the offline beam_search_decode_lm; {:.2f} ms per piece round on "
+          "the kernels ({:.2f} ms with an offline decode in another thread), {:.2f} ms on "
+          "the plain steps; synchronized split of a round ({:.2f} ms): K4 frame loop "
+          "{:.2f} ms, stitch {:.3f} ms, LM glue and the rest {:.2f} ms".format(
+              STREAM_N, STREAM_FRAMES, STREAM_CF, int(counts.sum()), SCORE_RTOL,
+              piece_ms["kernel"], piece_ms["contended"], piece_ms["plain"],
+              piece_ms["split"], split["k4_loop_ms"], split["stitch_ms"],
+              split["lm_glue_ms"]))
+    return dict(piece_ms, **split)
+
+
+def profile_piece_round(log_probs, blank, word_lm, device, out_path: Path) -> None:
+    """One 16-stream, 32-frame piece round on the kernels under `torch.profiler` (only
+    with ``--profile``): the device's busy share and its kernels. Writes ``out_path``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechless_tpu_torch.ops.decode_incremental_kernel import KernelBeamStreamDecoder
+
+    decoder = KernelBeamStreamDecoder(blank=blank, beam_width=25,
+                                      max_decoded_length=STREAM_MAX_LEN,
+                                      chunk_frames=STREAM_CF, word_lm=word_lm,
+                                      prune_classes=8, device=device)
+    states = [decoder.init_state() for _ in range(STREAM_N)]
+    first = [row[:STREAM_CF] for row in log_probs]
+    states = [state for state, _ in decoder.feed_batch(states, first)]
+    second = [row[STREAM_CF:2 * STREAM_CF] for row in log_probs]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decoder.feed_batch(states, second)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    per_name = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            count_us = per_name.setdefault(event.name, [0, 0.0])
+            count_us[0] += 1
+            count_us[1] += event.time_range.elapsed_us()
+    busy_s = sum(us for _, us in per_name.values()) / 1e6
+    top = sorted(per_name.items(), key=lambda item: -item[1][1])
+    numbers = {"piece_round_wall_s_traced": wall_s, "device_busy_s": busy_s,
+               "device_idle_share": 1.0 - busy_s / wall_s,
+               "device_ops_per_round": sum(count for count, _ in per_name.values()),
+               "top_device_ops_ms": [[name[:72], count, us / 1e3]
+                                     for name, (count, us) in top[:12]]}
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(numbers, indent=1))
+    print("profile stream piece round (written to {}): {}".format(out_path, json.dumps(
+        {key: value for key, value in numbers.items() if key != "top_device_ops_ms"})))
+
+
+def http_request(port: int, path: str, body: bytes = b"",
+                 content_type: str = "application/json"):
+    request = urllib.request.Request("http://127.0.0.1:{}{}".format(port, path),
+                                     data=body, method="POST")
+    request.add_header("Content-Type", content_type)
+    start = time.perf_counter()
+    with urllib.request.urlopen(request, timeout=600) as response:
+        return response.status, json.loads(response.read()), time.perf_counter() - start
+
+
+def phase_d_http(transcriber, make_audio, label):
+    """Eight concurrent `/v1/stream` sessions on the card: 6 beam, 1 beam_pipelined and
+    1 greedy with final_decode, each fed 8 s in 0.5 s chunks, then finished. Every reply
+    must be 200; each beam session's final must equal a replay of the rows its beam
+    consumed through the plain-step decoder, and the two-pass final the offline
+    transcript. Returns the launch counts of this run and the feed latencies."""
+    import torch
+
+    from speechless_tpu_torch.ops import decode_lm
+    from speechless_tpu_torch.ops.decode_incremental_kernel import (
+        KernelBeamStreamDecoder, stitch_reference, stream_stitch)
+    from speechless_tpu_torch.serving_http import TranscriptionServer
+
+    audios = [make_audio(HTTP_SECONDS) for _ in HTTP_SESSIONS]
+    chunk = int(HTTP_CHUNK_S * 16000)
+    server = TranscriptionServer(transcriber, port=0, max_batch=16, max_wait_ms=20.0)
+    server.start()
+    consumed, finals, latencies = {}, {}, {"greedy": [], "beam": []}
+    statuses, finishes = [], []  # finishes: (mode, start s, seconds)
+    try:
+        sessions = []
+        for mode in HTTP_SESSIONS:
+            body = ({"partial_decode": "greedy", "final_decode": True}
+                    if mode == "greedy_final" else {"partial_decode": mode})
+            status, payload, _ = http_request(server.port, "/v1/stream",
+                                              json.dumps(body).encode())
+            statuses.append(status)
+            sid = payload["session"]
+            sessions.append(sid)
+            if mode == "greedy_final":
+                continue
+            # Record the rows each advance consumes (the beam_advance_fn seam).
+            stream = server.streams._sessions[sid].stream
+            log = consumed.setdefault(sid, [])
+            seam = "_beam_submit" if mode == "beam_pipelined" else "_beam_advance"
+            original = getattr(stream, seam)
+
+            def recording(state, rows, original=original, log=log):
+                log.append(np.array(rows, copy=True))
+                return original(state, rows)
+
+            setattr(stream, seam, recording)
+
+        def run(index):
+            sid, audio = sessions[index], audios[index]
+            kind = "greedy" if HTTP_SESSIONS[index] == "greedy_final" else "beam"
+            for feed, start in enumerate(range(0, len(audio), chunk)):
+                status, _, seconds = http_request(
+                    server.port, "/v1/stream/" + sid,
+                    audio[start:start + chunk].astype("<f4").tobytes(),
+                    "application/octet-stream")
+                statuses.append(status)
+                latencies[kind].append((seconds, feed))
+            began = time.perf_counter()
+            status, payload, seconds = http_request(server.port,
+                                                    "/v1/stream/{}/finish".format(sid))
+            statuses.append(status)
+            finals[sid] = payload
+            finishes.append((HTTP_SESSIONS[index], round(began - origin, 3),
+                             round(seconds, 4)))
+
+        # Every dispatch of the three stream batchers: (start s, seconds, batch size,
+        # work: audio samples of the windows, or frames of the advances).
+        dispatches = {}
+        origin = time.perf_counter()
+        for name, batcher in (("window", server.streams.batcher),
+                              ("posterior", server.streams.posterior_batcher),
+                              ("advance", server.streams.beam_batcher)):
+            def logged(batch, serve=batcher._serve, log=dispatches.setdefault(name, [])):
+                start = time.perf_counter()
+                try:
+                    serve(batch)
+                finally:
+                    log.append((round(start - origin, 3),
+                                round(time.perf_counter() - start, 4), len(batch),
+                                sum(len(item.payload[1]) if isinstance(item.payload, tuple)
+                                    else len(item.payload) for item in batch)))
+            batcher._serve = logged
+        decode_lm.lm_step.launches = stream_stitch.launches = 0
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(sessions))]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=900)
+        launches = {"lm_beam_step": decode_lm.lm_step.launches,
+                    "stream_stitch": stream_stitch.launches}
+        advance_metrics = server.streams.beam_batcher.metrics()
+        served = server.streams.beam_batcher.decoder
+    finally:
+        server.stop()
+    check(len(finals) == len(sessions), "a stream session did not finish")
+    check(all(status == 200 for status in statuses), "stream replies: {}".format(
+        sorted(set(statuses))))
+    check(launches["lm_beam_step"] > 0 and launches["stream_stitch"] > 0,
+          "the stream sessions launched the kernels {}".format(launches))
+
+    # Replay every beam session's consumed rows, advance by advance, through the
+    # plain-step decoder (the sessions together by feed_batch: exact per stream).
+    plain = KernelBeamStreamDecoder(
+        blank=served.blank, beam_width=served.beam_width,
+        max_decoded_length=served.max_decoded_length, chunk_frames=served.chunk_frames,
+        word_lm=served.word_lm, lm_weight=served.lm_weight,
+        word_count_weight=served.word_count_weight,
+        valid_word_count_weight=served.valid_word_count_weight,
+        prune_classes=served.prune_classes, device=served.device,
+        step=decode_lm.lm_step_reference, stitch=stitch_reference)
+    beam_sids = list(consumed)
+    states = [plain.init_state() for _ in beam_sids]
+    results = [None] * len(beam_sids)
+    empty = np.zeros((0, transcriber.blank_index + 1), np.float32)
+    for advance in range(max(len(consumed[sid]) for sid in beam_sids)):
+        rows = [consumed[sid][advance] if advance < len(consumed[sid]) else empty
+                for sid in beam_sids]
+        for i, (state, result) in enumerate(plain.feed_batch(states, rows)):
+            states[i] = state
+            if advance < len(consumed[beam_sids[i]]):
+                results[i] = result
+    for sid, result in zip(beam_sids, results):
+        replay = transcriber.codec.decode_graphemes(result.tokens.tolist(),
+                                                    merge_repeated=False)
+        check(finals[sid]["text"] == replay, "session {}: final {!r} != plain replay "
+              "{!r}".format(sid, finals[sid]["text"], replay))
+    two_pass = sessions[HTTP_SESSIONS.index("greedy_final")]
+    offline = transcriber.transcribe_audio(audios[HTTP_SESSIONS.index("greedy_final")])
+    check(finals[two_pass]["text"] == offline, "two-pass final {!r} != offline {!r}".format(
+        finals[two_pass]["text"], offline))
+    torch.cuda.synchronize()
+    numbers = {"launches": launches, "advances": advance_metrics["advances"],
+               "advance_batches": advance_metrics["batches"],
+               "frames_consumed": sum(len(r) for sid in beam_sids for r in consumed[sid])}
+    for kind, values in latencies.items():
+        values = sorted(values)
+        numbers[kind + "_feed_p50_s"] = values[len(values) // 2][0]
+        numbers[kind + "_feed_p95_s"] = values[min(len(values) - 1,
+                                                   int(len(values) * 0.95))][0]
+        numbers[kind + "_slowest_feeds"] = [[round(s, 4), f] for s, f in values[-4:]]
+    numbers["slowest_dispatches"] = {name: sorted(log, key=lambda d: -d[1])[:3]
+                                     for name, log in dispatches.items()}
+    numbers["finishes"] = sorted(finishes, key=lambda f: f[1])
+    print("phase D HTTP ({} pass): {} sessions (6 beam, 1 beam_pipelined, 1 greedy + "
+          "final_decode) x {} feeds of {} s on {}: every reply 200; the 7 beam finals "
+          "equal their plain-step replays ({} frames), the two-pass final the offline "
+          "transcript; {} advances in {} batches; feed latency greedy p50 {:.4f} s p95 "
+          "{:.4f} s, beam p50 {:.4f} s p95 {:.4f} s; slowest [s, feed index] greedy {} "
+          "beam {}; launches lm_beam_step {} stream_stitch {}; finals: {}".format(
+              label, len(sessions), int(HTTP_SECONDS / HTTP_CHUNK_S), HTTP_CHUNK_S,
+              transcriber.device, numbers["frames_consumed"], numbers["advances"],
+              numbers["advance_batches"], numbers["greedy_feed_p50_s"],
+              numbers["greedy_feed_p95_s"], numbers["beam_feed_p50_s"],
+              numbers["beam_feed_p95_s"], numbers["greedy_slowest_feeds"],
+              numbers["beam_slowest_feeds"], launches["lm_beam_step"],
+              launches["stream_stitch"], [finals[sid]["text"][:24] for sid in sessions]))
+    print("phase D HTTP ({} pass) slowest dispatches [start s, seconds, batch, work]: {}; "
+          "finishes [mode, start s, seconds]: {}".format(
+              label, numbers["slowest_dispatches"], numbers["finishes"]))
+    return numbers
+
+
+def phase_d(device, transcriber, make_audio, profile_path=None):
+    """The streaming slice: the stitch kernel, the stream decoder on the kernels, and
+    the HTTP stream sessions, twice: on a fresh server (the first windows of each batch
+    size and length meet cold convolution shapes) and again on a new server in the same
+    process (warm). The second pass is the main path whose launches are reported."""
+    rng = np.random.default_rng(SEED + 4)
+    blank = transcriber.blank_index
+    stitch = check_stitch_kernel(rng, device, blank + 1)
+    decoder = check_stream_decoder(rng, device, blank, transcriber.word_lm, profile_path)
+    cold = phase_d_http(transcriber, make_audio, "cold")
+    http = phase_d_http(transcriber, make_audio, "warm")
+    return {"stitch": stitch, "decoder": decoder, "http": http, "http_cold": cold}
+
+
 def main() -> None:
     import argparse
 
@@ -840,8 +1317,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also split transcribe_batch's and a train step's time into "
-                             "their layers and trace one batch and one k-step call "
-                             "(writes chiprun_out/profile.json and profile_train.json)")
+                             "their layers and trace one batch, one stream piece round and "
+                             "one k-step call (writes chiprun_out/profile.json, "
+                             "profile_stream.json and profile_train.json)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -885,10 +1363,14 @@ def main() -> None:
         print("word LM: {} sentences of README.md, {} trie nodes, {} unigrams".format(
             len(sentences), word_lm.trie.shape[0], word_lm.uni_logp.shape[0]))
         step = phase_a(device, len(alphabet), alphabet.index(" "), word_lm)
-        launches, transcriber, batch, short_audio = phase_b(device, Path(lm_directory))
+        launches, transcriber, batch, short_audio, make_audio = phase_b(
+            device, Path(lm_directory))
         if args.profile:
             phase_profile(transcriber, batch, short_audio,
                           ROOT / "chiprun_out" / "profile.json")
+        streaming = phase_d(device, transcriber, make_audio,
+                            ROOT / "chiprun_out" / "profile_stream.json"
+                            if args.profile else None)
     train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "speechless_tpu")],
           "the port imported jax or the JAX package")
@@ -918,7 +1400,15 @@ def main() -> None:
                            train["ctc_long"]["grad_abs_err"]),
         "ms": ctc["beta_ms"], "plain_ms": ctc["beta_plain_ms"],
         "bound_ms": ctc["bound_ms"], "bound_by": ctc["bound_by"],
-        "library_ms": ctc["library_bwd_ms"]}]}))
+        "library_ms": ctc["library_bwd_ms"]}, {
+        "name": "stream_stitch", "route": "cuda",
+        "source": "speechless_tpu_torch/csrc/stream_stitch.cu",
+        "replaces": "speechless_tpu/ops/decode_incremental_pallas.py:78",
+        "launches": streaming["http"]["launches"]["stream_stitch"],
+        "max_abs_err": streaming["stitch"]["max_abs_err"], "ms": streaming["stitch"]["ms"],
+        "plain_ms": streaming["stitch"]["plain_ms"],
+        "bound_ms": streaming["stitch"]["bound_ms"],
+        "bound_by": streaming["stitch"]["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
     python -m speechless_tpu_torch serve --checkpoint nets/run/weights-epoch9.npz \\
         --kenlm kenlm/english --device cuda:0 --port 8000
 
-serves the port's HTTP transcription API (`serving_http.py`) from a checkpoint written
-by either package (``layer{i}.{w,b}`` entries).
+serves the port's HTTP transcription API (`serving_http.py`: ``/v1/transcribe`` and the
+``/v1/stream`` session routes) from a checkpoint written by either package
+(``layer{i}.{w,b}`` entries).
 """
 import argparse
 import logging
@@ -42,7 +43,17 @@ def main(argv=None) -> None:
     p_serve.add_argument("--no-warm-up", action="store_true",
                          help="skip running every length bucket once before binding")
     p_serve.add_argument("--device", default="cuda:0", help="torch device to serve on")
+    p_serve.add_argument("--device-streams", action="store_true",
+                         help="device-resident streaming sessions (not ported yet)")
+    p_serve.add_argument("--beam-mode", choices=("posterior", "resident"),
+                         default="posterior",
+                         help="'resident' keeps the beam carry in the device pool (not "
+                              "ported yet)")
     args = parser.parse_args(argv)
+    # Refused before any weights load or warm-up runs.
+    if args.device_streams or args.beam_mode == "resident":
+        p_serve.error("--device-streams and --beam-mode resident (device-resident "
+                     "streaming sessions) are not ported yet (ROADMAP.md, item 11)")
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     characters = CHARSETS[args.charset]

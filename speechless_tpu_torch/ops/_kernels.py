@@ -27,6 +27,7 @@ SIGNATURES = {
     "lm_beam_step": [_P] * 15 + [_I] * 10 + [_P],
     "ctc_alpha": [_P] * 6 + [_I] * 4 + [_P],
     "ctc_beta": [_P] * 6 + [_I] * 4 + [_P],
+    "stream_stitch": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

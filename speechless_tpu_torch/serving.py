@@ -252,6 +252,35 @@ class Transcriber:
         """Per-frame argmax grapheme indices (uncollapsed) for ``audio``."""
         return self.frame_log_probs(audio).argmax(axis=-1)
 
+    @torch.inference_mode()
+    def frame_log_probs_batch(self, audios: Sequence[np.ndarray],
+                              batch_size: int = 16) -> List[np.ndarray]:
+        """Per-frame log posteriors for many windows, ``batch_size`` per dispatch within
+        each length bucket (the multi-stream streaming path), grouped as
+        `transcribe_batch` groups. One trimmed ``(frames, classes)`` array per input, in
+        input order."""
+        results: List[Optional[np.ndarray]] = [None] * len(audios)
+        for group, wavs, lengths in grouped_padded_batches(audios, self._bucket,
+                                                           batch_size):
+            log_probs, counts = self._log_probs(wavs, lengths)
+            log_probs, counts = log_probs.cpu().numpy(), counts.cpu().numpy()
+            for row, index in enumerate(group):
+                results[index] = log_probs[row, :int(counts[row])]
+        return results
+
+    def frame_tokens_batch(self, audios: Sequence[np.ndarray],
+                           batch_size: int = 16) -> List[np.ndarray]:
+        """Uncollapsed per-frame argmax tokens for many windows in batched dispatches;
+        one trimmed frame array per input, in input order."""
+        return [log_probs.argmax(axis=-1)
+                for log_probs in self.frame_log_probs_batch(audios, batch_size)]
+
+    @property
+    def supports_posteriors(self) -> bool:
+        """This backend serves per-frame posteriors (the predicate the streaming pools
+        ask before opening beam-partial sessions)."""
+        return True
+
     def warm_up(self, durations_s: Optional[Sequence[float]] = None) -> None:
         """Run every sample bucket once (or the given durations) before serving, so
         the first requests pay no kernel build or allocator growth."""

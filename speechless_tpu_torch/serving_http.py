@@ -6,15 +6,24 @@ batcher thread. HTTP handler threads only parse the request, enqueue it, and wai
 
 Endpoints::
 
-    GET  /healthz                 liveness + model metadata
-    GET  /metrics, /v1/metrics    request/batch counters, latency percentiles
+    GET  /healthz                 liveness + model metadata + open streaming sessions
+    GET  /metrics, /v1/metrics    request/batch counters, latency percentiles (the
+                                  "streaming" block: the window batcher's)
     POST /v1/transcribe           body: audio/wav bytes, JSON {"pcm": [...],
                                   "sample_rate": 16000}, or raw little-endian float32
                                   PCM as application/octet-stream (";rate=<hz>")
          ?timestamps=1            adds word-level emission timestamps
+    POST /v1/stream               open a streaming session; optional JSON body
+                                  {"partial_decode": "greedy"|"beam"|"beam_pipelined",
+                                  "final_decode": bool} -> {"session": id}
+    POST /v1/stream/<id>          feed one audio chunk (same bodies as /v1/transcribe)
+                                  -> {"partial", "text", "final_up_to_s", "words"}
+    POST /v1/stream/<id>/finish   flush and close -> {"text", "live_text", "words",
+                                  "final_up_to_s"}
 
-``?nbest=N`` and the ``/v1/stream`` routes answer 501: n-best decoding and streaming
-sessions are not ported yet (ROADMAP.md).
+Streaming sessions run on `serving_streaming.StreamingSessionPool`: 400 for a bad body
+or mode, 404 for an unknown session, 501 for a mode the backend cannot serve.
+``?nbest=N`` answers 501: n-best decoding is not ported yet (ROADMAP.md).
 """
 import json
 import logging
@@ -28,6 +37,7 @@ import numpy as np
 
 from .features.audio_io import decode_wav_bytes, resample
 from .serving import words_from_frame_tokens
+from .serving_streaming import StreamingSessionPool, UnknownSessionError
 from .utils.microbatch import BatcherSaturated, MicroBatcher, PendingItem
 
 _MAX_BODY_BYTES = 64 * 1024 * 1024  # ~35 min of 16 kHz float32; guards the heap
@@ -133,10 +143,12 @@ def _parse_audio(content_type: str, body: bytes) -> np.ndarray:
 
 class TranscriptionServer:
     """A threaded HTTP server over a `serving.Transcriber`. ``port=0`` binds an
-    ephemeral port (``server.port`` reports it)."""
+    ephemeral port (``server.port`` reports it). ``stream_window_s`` and
+    ``stream_margin_s`` configure the streaming sessions' `StreamingSessionPool`."""
 
     def __init__(self, backend, host: str = "127.0.0.1", port: int = 8000,
                  max_batch: int = 16, max_wait_ms: float = 10.0,
+                 stream_window_s: float = 8.0, stream_margin_s: float = 2.0,
                  max_queue: Optional[int] = None):
         self.backend = backend
         # Bounded backlog (default 8 dispatches deep): past it the server sheds load
@@ -146,6 +158,9 @@ class TranscriptionServer:
         self.batcher = DynamicBatcher(backend, max_batch=max_batch,
                                       max_wait_ms=max_wait_ms,
                                       max_queue=max_queue or None)
+        self.streams = StreamingSessionPool(backend, window_s=stream_window_s,
+                                            margin_s=stream_margin_s,
+                                            max_batch=max_batch, max_wait_ms=max_wait_ms)
         self.started_at = time.time()
         self.httpd = ThreadingHTTPServer((host, port), self._handler_class())
         self.httpd.daemon_threads = True
@@ -158,6 +173,7 @@ class TranscriptionServer:
     def start(self) -> None:
         """Start serving in a background thread (tests / embedding)."""
         self.batcher.start()
+        self.streams.start()
         self._serve_thread = threading.Thread(target=self.httpd.serve_forever,
                                               daemon=True, name="transcribe-http")
         self._serve_thread.start()
@@ -165,6 +181,7 @@ class TranscriptionServer:
     def serve_forever(self) -> None:
         """Serve on the calling thread (the CLI path) until interrupted."""
         self.batcher.start()
+        self.streams.start()
         logger.info("serving on http://%s:%d (max_batch=%d, max_wait_ms=%s)",
                     self.httpd.server_address[0], self.port, self.batcher.max_batch,
                     self.batcher.max_wait_ms)
@@ -179,6 +196,7 @@ class TranscriptionServer:
         self.httpd.shutdown()
         self.httpd.server_close()
         self.batcher.stop()
+        self.streams.stop()
 
     def _health(self) -> dict:
         return {
@@ -188,6 +206,7 @@ class TranscriptionServer:
             "sample_buckets": list(self.backend.sample_buckets),
             "max_batch": self.batcher.max_batch,
             "device": str(self.backend.device),
+            "streaming_sessions": self.streams.session_count,
         }
 
     def _handler_class(self):
@@ -215,7 +234,9 @@ class TranscriptionServer:
                 if path == "/healthz":
                     self._reply(200, server._health())
                 elif path in ("/metrics", "/v1/metrics"):
-                    self._reply(200, server.batcher.metrics())
+                    metrics = server.batcher.metrics()
+                    metrics["streaming"] = server.streams.batcher.metrics()
+                    self._reply(200, metrics)
                 else:
                     self._reply(404, {"error": "unknown path {}".format(path)})
 
@@ -250,10 +271,10 @@ class TranscriptionServer:
                         want_timestamps = query.get("timestamps", ["0"])[0] in (
                             "1", "true", "yes")
                         self._reply(200, server.batcher.submit(audio, want_timestamps))
-                    elif parsed.path == "/v1/stream" or parsed.path.startswith("/v1/stream/"):
-                        self._drain_body()
-                        raise RequestError(501, "streaming sessions are not ported yet "
-                                                "(ROADMAP.md, streaming)")
+                    elif parsed.path == "/v1/stream":
+                        self._stream_create()
+                    elif parsed.path.startswith("/v1/stream/"):
+                        self._stream_post(parsed.path[len("/v1/stream/"):])
                     else:
                         self._drain_body()
                         self._reply(404, {"error": "unknown path {}".format(parsed.path)})
@@ -263,9 +284,53 @@ class TranscriptionServer:
                     self._reply(503, {"error": str(error)},
                                 headers={"Retry-After": str(
                                     max(1, int(round(error.retry_after_s))))})
+                except UnknownSessionError as error:
+                    # Raised only by the session lookups; any other KeyError is a
+                    # server fault and answers 500 below.
+                    self._reply(404, {"error": str(error)})
                 except Exception as error:  # noqa: BLE001 — a serving loop must not die
                     logger.exception("request failed")
                     self._reply(500, {"error": "{}: {}".format(type(error).__name__,
                                                                 error)})
+
+            def _stream_create(self) -> None:
+                """Open a session. The body is optional (a bare POST opens a greedy
+                session); when present it is a JSON object."""
+                has_body = int(self.headers.get("Content-Length", 0) or 0) > 0
+                body = self._read_body() if has_body else b""
+                final_decode, partial_decode = False, "greedy"
+                if body.strip():
+                    try:
+                        options = json.loads(body)
+                        final_decode = bool(options.get("final_decode", False))
+                        partial_decode = str(options.get("partial_decode", "greedy"))
+                    except (ValueError, AttributeError):
+                        raise RequestError(400, "body must be empty or a JSON object")
+                if partial_decode not in ("greedy", "beam", "beam_pipelined"):
+                    raise RequestError(400, "partial_decode must be 'greedy', 'beam', or "
+                                            "'beam_pipelined'")
+                try:
+                    session = server.streams.create(final_decode=final_decode,
+                                                    partial_decode=partial_decode)
+                except (ValueError, NotImplementedError) as error:
+                    raise RequestError(501, str(error))  # a mode the backend lacks
+                self._reply(200, {"session": session})
+
+            def _stream_post(self, tail: str) -> None:
+                if tail.endswith("/finish"):
+                    self._drain_body()
+                    self._reply(200, server.streams.finish_with_state(
+                        tail[:-len("/finish")]))
+                    return
+                # Feed one chunk; the whole reply comes from one locked call, since a
+                # second lookup could 404 after a concurrent finish or reap.
+                audio = _parse_audio(self.headers.get("Content-Type", ""),
+                                     self._read_body())
+                try:
+                    state = server.streams.feed_with_state(tail, audio)
+                except ValueError as error:  # a window call the backend lacks
+                    raise RequestError(501, str(error))
+                state["final_up_to_s"] = round(state["final_up_to_s"], 3)
+                self._reply(200, state)
 
         return Handler

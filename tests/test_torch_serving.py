@@ -170,7 +170,8 @@ def test_http_status_codes(server):
     assert _request(server.port, "/nope")[0] == 404
     status, payload = _request(server.port, "/v1/transcribe?nbest=3", _pcm_body(AUDIOS[1]))
     assert status == 501 and "ROADMAP.md" in payload["error"]
-    assert _request(server.port, "/v1/stream", b"{}")[0] == 501
+    status, payload = _request(server.port, "/v1/stream", b"{}")  # a greedy session
+    assert status == 200 and payload["session"]
     assert _request(server.port, "/v1/transcribe", b"not json")[0] == 400
     assert _request(server.port, "/v1/transcribe", b"\x00", "text/plain")[0] == 415
 
