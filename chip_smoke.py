@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: LM-fused serving, streaming
-sessions and training.
+sessions, offline decoding on every beam route, and training.
 
     python3 chip_smoke.py [--profile]
 
@@ -60,6 +60,18 @@ source, all started together) and prints ptxas's registers and spills, then:
   finish ran, and the launches. With
   ``--profile``, one piece round under `torch.profiler`
   (``chiprun_out/profile_stream.json``).
+* phase E (offline decoding, on phase B's transcriber and LM): the whole-utterance
+  beam kernel K3 (`prefix_beam`) against `prefix_beam_reference` on the same CUDA
+  tensors, every output equal and pb/pnb bitwise, on (a) the served log-probs of 16 x
+  8 s with skip_blank_log_prob = log(0.999), (b) a seeded batch whose every other frame
+  is blank-confident with ragged lengths from 1 to 513, skip on and off, and (c) W = 4,
+  8, 16 with k = 3, 5, 8 and W = 40 (32 to 1024 candidate lanes); kernel times by CUDA
+  events, the one plain run's time, the fast path's share and the least time. Then K3
+  without skipping against the K4 frame-loop beam (tokens equal), the router's skip
+  route (one K3 launch, the plain version's tokens), ``POST /v1/transcribe?nbest=5``
+  against a direct `transcribe_nbest`, a lexicon-constrained `Transcriber` on 16 x 8 s
+  (every word in the LM's vocabulary), the plain batched beam twice on the card
+  (bitwise) and on the card against the CPU (tokens equal).
 * with ``--profile`` only: the split of one 16 x 8 s `transcribe_batch` into features,
   model and beam, single-request latencies, and the device's busy share and kernel
   counts from one `torch.profiler` trace (``chiprun_out/profile.json``); and the split of
@@ -72,6 +84,7 @@ the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 Needs one CUDA device; exits non-zero without one.
 """
 import json
+import math
 import re
 import subprocess
 import sys
@@ -252,6 +265,16 @@ def phase_a(device, blank, space_index, word_lm):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def serving_params(config):
+    """The serving model's seeded weights, the output layer scaled for peaky frames
+    (a decisive argmax and real words from random weights)."""
+    from speechless_tpu_torch.models import wav2letter as w2l
+
+    params = w2l.init_params(config, SEED)
+    params[-1]["w"] = params[-1]["w"] * 8.0
+    return params
+
+
 def phase_b(device, lm_directory):
     """The serving path through the HTTP server, then the batch rate at 16 x 8 s."""
     import torch
@@ -265,8 +288,7 @@ def phase_b(device, lm_directory):
     alphabet = CHARSETS["english"]
     config = w2l.Wav2LetterConfig(input_size_per_time_step=128,
                                   grapheme_set_size=len(alphabet) + 1)
-    params = w2l.init_params(config, SEED)
-    params[-1]["w"] = params[-1]["w"] * 8.0  # peaky frames: decisive argmax, real words
+    params = serving_params(config)
     transcriber = Transcriber(config, params, alphabet, device=device,
                               kenlm_directory=lm_directory)
     rng = np.random.default_rng(SEED + 1)
@@ -1309,6 +1331,237 @@ def phase_d(device, transcriber, make_audio, profile_path=None):
     return {"stitch": stitch, "decoder": decoder, "http": http, "http_cold": cold}
 
 
+# ---- phase E: offline decoding -----------------------------------------------------
+SKIP_BLANK = math.log(0.999)  # the fast-path threshold of decode_pallas.py's docstring
+NBEST = 5
+
+
+def e_case(rng, batch, frames, classes, blank, lengths, confident_every=None):
+    """Seeded peaky-but-noisy log posteriors (phase A's) with the given row lengths;
+    with ``confident_every``, every such frame's blank is near-certain."""
+    import torch
+
+    log_probs = serving_posteriors(rng, batch, frames, classes, blank)
+    if confident_every:
+        logits = log_probs.copy()
+        logits[:, ::confident_every, blank] += 30.0
+        log_probs = torch.log_softmax(torch.from_numpy(logits), -1).numpy()
+    return log_probs, np.asarray(lengths, np.int32)
+
+
+def check_prefix_beam(name, log_probs, lengths, blank, beam_width, k, skip, device,
+                      iterations):
+    """K3 (`prefix_beam`) against `prefix_beam_reference` on the same CUDA tensors:
+    parents, chars and lengths equal, pb/pnb bitwise. Times the wrapper (CUDA events,
+    mean of ``iterations`` launches) and the one plain run; the fast path's share of
+    the active frames; the least time from the bytes and operations this run needs."""
+    import torch
+
+    from speechless_tpu_torch.ops.beam_common import next_pow2
+    from speechless_tpu_torch.ops.decode_lm import pack_frames
+    from speechless_tpu_torch.ops.decode_whole import (_threshold, prefix_beam,
+                                                       prefix_beam_reference)
+
+    log_probs = torch.as_tensor(log_probs, device=device)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    batch, t_max, classes = log_probs.shape
+    frames = pack_frames(log_probs, k)
+    static = dict(k=k, blank=blank, beam_width=beam_width, max_decoded_length=t_max,
+                  skip_blank_log_prob=skip)
+    got = prefix_beam(frames, lengths, **static)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = prefix_beam_reference(frames, lengths, **static)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    for label, g, w in zip("parents chars pb pnb len".split(), got, want):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              "prefix_beam {}: {} differs from the plain version".format(name, label))
+    timed = []
+    ms = cuda_ms(lambda: timed.append(prefix_beam(frames, lengths, **static)), iterations)
+    for g, w in zip(timed[-1], want):
+        check(torch.equal(g, w), "timed prefix_beam launches disagree with the plain version")
+    n_pad = next_pow2((k + 1) * got[0].shape[2])  # the kernel's lanes, for the report
+    active = torch.arange(t_max, device=device)[None, :] < lengths[:, None].long()
+    fast = active & (log_probs[..., blank] > _threshold(skip))
+    active_frames, fast_frames = int(active.sum()), int(fast.sum())
+    # Least time: the active frames' packed rows and the lengths read once, every output
+    # written once. Operations: what the function needs, not this kernel's padded
+    # network: per full-update row-frame a comparison sort of the (k + 1) W live
+    # candidates (n log2 n) and a segmented log-sum-exp over them (~4 n); per fast-path
+    # row-frame ~4 per beam.
+    live = (k + 1) * beam_width
+    per_full = live * math.log2(live) + 4 * live
+    moved = (active_frames * frames.shape[2] * 4 + lengths.numel() * 4
+             + sum(t.numel() * t.element_size() for t in got))
+    bound_ms, bound_by = bound(moved, (active_frames - fast_frames) * per_full
+                               + fast_frames * beam_width * 4)
+    result = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "bytes": moved, "fast_share": fast_frames / max(active_frames, 1),
+              "n_pad": n_pad, "max_abs_err": max(float((g - w).abs().max())
+                                                 for g, w in zip(got[2:4], want[2:4]))}
+    print("phase E prefix_beam {}: B={} T={} C={} W={} k={} ({} lanes) skip={}: kernel == "
+          "plain (parents, chars, len equal; pb, pnb bitwise); fast path {:.1%} of {} "
+          "active frames; kernel {:.4f} ms per launch, plain {:.1f} ms, bound {:.6f} ms "
+          "({}: {} bytes)".format(name, batch, t_max, classes, beam_width, k, n_pad,
+                                  "off" if skip is None else round(skip, 6),
+                                  result["fast_share"], active_frames, ms, plain_ms,
+                                  bound_ms, bound_by, moved))
+    return result, got
+
+
+def phase_e(device, transcriber, batch, lm_directory, vocabulary):
+    """Offline decoding on the card: K3 against its plain version in cases (a) to (c), K3
+    with skipping off against the K4 frame-loop beam, the router's skip route launching
+    K3 once, and the plain batched beam (n-best over HTTP, lexicon-constrained batches,
+    repeatability, the card against the CPU)."""
+    import torch
+
+    from speechless_tpu_torch.ops.beam_common import backtrace_tokens
+    from speechless_tpu_torch.ops.decode_beam import beam_search_decode, beam_search_nbest
+    from speechless_tpu_torch.ops.decode_lm import beam_search_decode_frames
+    from speechless_tpu_torch.ops.decode_whole import beam_search_decode_whole, prefix_beam
+    from speechless_tpu_torch.ops.device_beam import beam_search_decode_device
+    from speechless_tpu_torch.serving import Transcriber, grouped_padded_batches
+    from speechless_tpu_torch.serving_http import TranscriptionServer
+
+    rng = np.random.default_rng(SEED + 5)
+    blank = transcriber.blank_index
+    classes = blank + 1
+    # (a) the full-width model's posteriors of 16 x 8 s.
+    _, wavs, lengths = next(grouped_padded_batches(batch, transcriber._bucket, 16))
+    with torch.inference_mode():
+        served, frames = transcriber._log_probs(wavs, lengths)
+    served, frames = served.clone(), frames.clone()
+    cases = {}
+    cases["a"], full = check_prefix_beam("(a) served 16 x 8 s", served, frames, blank, 25,
+                                         8, SKIP_BLANK, device, 20)
+    # (b) every other frame blank-confident, ragged lengths from 1 to 513.
+    ragged = np.concatenate([[1, 2], np.linspace(37, 513, 14).round()]).astype(np.int32)
+    peaky, peaky_lengths = e_case(rng, 16, 513, classes, blank, ragged, confident_every=2)
+    for skip, label in ((SKIP_BLANK, "b_skip"), (None, "b_exact")):
+        cases[label], _ = check_prefix_beam("(b) peaky ragged", peaky, peaky_lengths, blank,
+                                            25, 8, skip, device, 20)
+    # (c) other widths: 32 to 1024 candidate lanes.
+    for width in (4, 8, 16, 40):
+        for k in ((3, 5, 8) if width != 40 else (8,)):
+            log_probs, lens = e_case(rng, 5, 60, classes, blank, [60, 41, 17, 1, 60],
+                                     confident_every=3)
+            cases["c_{}_{}".format(width, k)], _ = check_prefix_beam(
+                "(c)", log_probs, lens, blank, width, k, SKIP_BLANK if k != 5 else None,
+                device, 50)
+    lanes = sorted({case["n_pad"] for case in cases.values()})
+    check(lanes[0] == 32 and lanes[-1] == 1024, "the K3 cases cover lanes {}".format(lanes))
+
+    # K3 with skipping off is the K4 frame-loop beam (JAX's claim for both no-LM routes).
+    options = dict(beam_width=25, max_decoded_length=served.shape[1], prune_classes=8)
+    whole = beam_search_decode_whole(served, frames, blank, **options)
+    loop = beam_search_decode_frames(served, frames, blank, **options)
+    check(torch.equal(whole[0], loop[0]) and torch.equal(whole[1], loop[1]),
+          "K3 without skipping and the K4 frame-loop beam differ")
+
+    # The router's skip route: one K3 launch, the plain version's tokens.
+    prefix_beam.launches = 0
+    tokens, counts = beam_search_decode_device(served, frames, blank,
+                                               skip_blank_log_prob=SKIP_BLANK, **options)
+    torch.cuda.synchronize()
+    launches = prefix_beam.launches
+    check(launches == 1, "the router's skip route launched K3 {} times".format(launches))
+    parents, chars, pb, pnb, lens = full
+    best = torch.logaddexp(pb, pnb).argmax(dim=1)
+    plain = backtrace_tokens(parents, chars, best, lens.gather(1, best[:, None])[:, 0],
+                             served.shape[1])
+    check(torch.equal(tokens, plain[0]) and torch.equal(counts, plain[1]),
+          "the router's skip route and the plain K3 give other tokens")
+    # The no-LM routes end to end on (a) (synchronized host clock, mean of 3 after one).
+    def wall_s(fn, runs=3):
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) / runs
+
+    routes = {
+        "k3_skip_s": wall_s(lambda: beam_search_decode_whole(
+            served, frames, blank, skip_blank_log_prob=SKIP_BLANK, **options)),
+        "k3_exact_s": wall_s(lambda: beam_search_decode_whole(served, frames, blank,
+                                                              **options)),
+        "k4_loop_s": wall_s(lambda: beam_search_decode_frames(served, frames, blank,
+                                                              **options)),
+        "plain_beam_s": wall_s(lambda: beam_search_decode(served, frames, blank, **options),
+                               runs=1)}
+    print("phase E: K3 without skipping == the K4 frame-loop beam ({} tokens); the "
+          "router's skip route launched K3 {} time, tokens == the plain version's; no-LM "
+          "decode of (a), wall per call: K3 {:.4f} s with skipping, {:.4f} s without, the "
+          "K4 frame loop {:.4f} s, the plain batched beam {:.4f} s".format(
+              int(whole[1].sum()), launches, routes["k3_skip_s"], routes["k3_exact_s"],
+              routes["k4_loop_s"], routes["plain_beam_s"]))
+
+    # The plain batched beam: n-best over HTTP, against a direct call.
+    audio = batch[0]
+    want = transcriber.transcribe_nbest(audio, NBEST)
+    server = TranscriptionServer(transcriber, port=0, max_batch=16, max_wait_ms=20.0)
+    server.start()
+    try:
+        body = json.dumps({"pcm": audio.tolist(), "sample_rate": 16000}).encode()
+        seconds = []
+        for _ in range(3):
+            status, payload, elapsed = http_request(
+                server.port, "/v1/transcribe?nbest={}".format(NBEST), body)
+            seconds.append(elapsed)
+    finally:
+        server.stop()
+    check(status == 200, "?nbest={} answered {}".format(NBEST, status))
+    check([(h["text"], h["score"]) for h in payload["hypotheses"]]
+          == [(text, round(score, 4)) for text, score in want],
+          "?nbest={} {} != direct {}".format(NBEST, payload["hypotheses"], want))
+    check(len(want) > 1, "n-best returned {} hypotheses".format(len(want)))
+    # A lexicon-constrained transcriber with the same LM: every completed word is in
+    # the vocabulary, the trailing one a prefix of a vocabulary word.
+    lexicon = Transcriber(transcriber.config, serving_params(transcriber.config),
+                          transcriber.codec.allowed_characters, device=device,
+                          kenlm_directory=lm_directory, lexicon_constrained=True)
+    lexicon.transcribe_batch(batch[:2])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    texts = lexicon.transcribe_batch(batch)
+    lexicon_s = time.perf_counter() - start
+    words = [text.split(" ") for text, _ in texts]
+    check(all(w in vocabulary for row in words for w in row[:-1] if w)
+          and all(any(v.startswith(row[-1]) for v in vocabulary) for row in words),
+          "a lexicon-constrained transcript left the vocabulary: {}".format(texts))
+    check(any(len(row) > 1 for row in words), "no lexicon transcript completed a word")
+    # Repeatability on the card, and the card against the CPU on the peaky batch.
+    nbest_runs = [beam_search_nbest(served, frames, blank, NBEST,
+                                    word_lm=transcriber.word_lm, lm_weight=0.8, **options)
+                  for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*nbest_runs)),
+          "two runs of the plain beam on the card differ")
+    lexicon_options = dict(beam_width=25, max_decoded_length=513, prune_classes=8,
+                           lm_weight=0.8, lexicon_constrained=True)
+    on_card = beam_search_decode(torch.from_numpy(peaky).to(device),
+                                 torch.from_numpy(peaky_lengths).to(device), blank,
+                                 word_lm=transcriber.word_lm, **lexicon_options)
+    on_cpu = beam_search_decode(torch.from_numpy(peaky), torch.from_numpy(peaky_lengths),
+                                blank, word_lm=transcriber.word_lm.to("cpu"),
+                                **lexicon_options)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
+          "the plain beam's tokens on the card and on the CPU differ")
+    numbers = {"nbest_request_s": sorted(seconds)[1], "lexicon_batch_s": lexicon_s}
+    print("phase E plain beam: ?nbest={} answered 200 with the direct call's {} "
+          "hypotheses (request {:.3f} s, median of 3); lexicon transcribe_batch 16 x 8 s "
+          "{:.3f} s, every word in the LM's vocabulary ({} words); n-best twice on the "
+          "card bitwise equal; the lexicon beam on the peaky batch equal on card and CPU "
+          "({} tokens)".format(NBEST, len(want), numbers["nbest_request_s"], lexicon_s,
+                               sum(len(row) for row in words), int(on_cpu[1].sum())))
+    numbers.update(routes, cases=cases, launches=launches)
+    return numbers
+
+
 def main() -> None:
     import argparse
 
@@ -1371,6 +1624,8 @@ def main() -> None:
         streaming = phase_d(device, transcriber, make_audio,
                             ROOT / "chiprun_out" / "profile_stream.json"
                             if args.profile else None)
+        offline = phase_e(device, transcriber, batch, Path(lm_directory),
+                          {word for sentence in sentences for word in sentence.split()})
     train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "speechless_tpu")],
           "the port imported jax or the JAX package")
@@ -1408,7 +1663,15 @@ def main() -> None:
         "max_abs_err": streaming["stitch"]["max_abs_err"], "ms": streaming["stitch"]["ms"],
         "plain_ms": streaming["stitch"]["plain_ms"],
         "bound_ms": streaming["stitch"]["bound_ms"],
-        "bound_by": streaming["stitch"]["bound_by"], "library_ms": None}]}))
+        "bound_by": streaming["stitch"]["bound_by"], "library_ms": None}, {
+        "name": "prefix_beam", "route": "cuda",
+        "source": "speechless_tpu_torch/csrc/prefix_beam.cu",
+        "replaces": "speechless_tpu/ops/decode_pallas.py:188",
+        "launches": offline["launches"],
+        "max_abs_err": max(case["max_abs_err"] for case in offline["cases"].values()),
+        "ms": offline["cases"]["a"]["ms"], "plain_ms": offline["cases"]["a"]["plain_ms"],
+        "bound_ms": offline["cases"]["a"]["bound_ms"],
+        "bound_by": offline["cases"]["a"]["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -3,13 +3,18 @@
 The JAX package (`speechless_tpu`) stays the reference; this package mirrors its module
 paths so each counterpart is easy to find. It imports `torch` and never `jax` nor
 anything of `speechless_tpu`: it keeps its own copies of the JAX package's jax-free host
-modules (`text.charsets`, `text.graphemes`, `utils.microbatch`).
+modules (`text.charsets`, `text.graphemes`, `utils.microbatch`, `lm.char_ngram`).
 
 Ported so far: the LM-fused serving path — features, the wav2letter conv stack, the
 word-LM beam on the hand-written CUDA beam-step kernel (`csrc/lm_beam_step.cu`), the
-`Transcriber`, and the HTTP server (`python -m speechless_tpu_torch serve`) — and the CTC
+`Transcriber`, and the HTTP server (`python -m speechless_tpu_torch serve`); the CTC
 training step (`train/trainer.py`) on the hand-written CTC kernels
-(`csrc/ctc_alpha.cu`, `csrc/ctc_beta.cu`) with `.npz` checkpoints (`train/checkpoint.py`).
+(`csrc/ctc_alpha.cu`, `csrc/ctc_beta.cu`) with `.npz` checkpoints (`train/checkpoint.py`);
+streaming sessions (`serving_streaming.py`, `csrc/stream_stitch.cu`); and offline
+decoding on every beam route (`ops/device_beam.py`: the whole-utterance kernel
+`csrc/prefix_beam.cu`, the plain batched beam with char LM, lexicon and n-best),
+served by ``?nbest=N``, ``serve --lexicon`` and ``python -m speechless_tpu_torch
+transcribe``.
 """
 
 __version__ = "0.2.0"

@@ -1,20 +1,97 @@
-"""Command-line interface: ``python -m speechless_tpu_torch serve ...``.
+"""Command-line interface: ``python -m speechless_tpu_torch serve|transcribe ...``.
 
     python -m speechless_tpu_torch serve --checkpoint nets/run/weights-epoch9.npz \\
         --kenlm kenlm/english --device cuda:0 --port 8000
+    python -m speechless_tpu_torch transcribe --checkpoint nets/run/weights-epoch9.npz \\
+        --kenlm kenlm/english --json --nbest 3 a.wav b.wav
 
-serves the port's HTTP transcription API (`serving_http.py`: ``/v1/transcribe`` and the
-``/v1/stream`` session routes) from a checkpoint written by either package
-(``layer{i}.{w,b}`` entries).
+``serve`` runs the port's HTTP transcription API (`serving_http.py`: ``/v1/transcribe``
+and the ``/v1/stream`` session routes); ``transcribe`` decodes wav files offline and
+prints ``file<TAB>text`` lines or one JSON object per file. Both read a checkpoint
+written by either package (``layer{i}.{w,b}`` entries).
 """
 import argparse
+import json
 import logging
 from pathlib import Path
 
 from .models.wav2letter import Wav2LetterConfig
 from .serving import CHARSETS, Transcriber
-from .serving_http import TranscriptionServer
 from .train.checkpoint import load_params_npz
+
+
+def _model_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--checkpoint", required=True,
+                        help="weights file (weights-epoch{n}.npz)")
+    parser.add_argument("--kenlm", default=None,
+                        help="directory holding lm.arpa: LM-fused beam transcriptions "
+                             "(default: greedy)")
+    parser.add_argument("--lexicon", action="store_true",
+                        help="lexicon-constrained beam: every decoded word is in the LM "
+                             "vocabulary (requires --kenlm)")
+    parser.add_argument("--charset", choices=sorted(CHARSETS), default="english")
+    parser.add_argument("--device", default="cuda:0", help="torch device to run on")
+
+
+def _transcriber(args) -> Transcriber:
+    characters = CHARSETS[args.charset]
+    params = load_params_npz(Path(args.checkpoint))
+    config = Wav2LetterConfig(input_size_per_time_step=params[0]["w"].shape[1],
+                              grapheme_set_size=len(characters) + 1)
+    return Transcriber(config, params, characters, device=args.device,
+                       kenlm_directory=args.kenlm, lexicon_constrained=args.lexicon)
+
+
+def _transcribe(args, parser: argparse.ArgumentParser) -> None:
+    """The ``transcribe`` command, with the JAX CLI's refusals before anything loads."""
+    from .features.audio_io import load_audio
+    from .serving import words_from_frame_tokens
+
+    if args.timestamps and args.long_form:
+        parser.error("--timestamps is per-utterance; long-form segmentation does not "
+                     "carry emission offsets")
+    if args.timestamps and not args.as_json:
+        parser.error("--timestamps requires --json (the plain output is one "
+                     "'file<TAB>text' line per file)")
+    if args.nbest < 1:
+        parser.error("--nbest must be >= 1")
+    if args.nbest > 1 and not args.as_json:
+        parser.error("--nbest requires --json")
+    if args.nbest > 1 and (args.timestamps or args.long_form):
+        parser.error("--nbest is mutually exclusive with --timestamps and --long-form")
+    transcriber = _transcriber(args)
+    if args.nbest > transcriber.beam_width:
+        parser.error("--nbest must be <= the decoder's beam width ({})".format(
+            transcriber.beam_width))
+    audios = [load_audio(Path(name)) for name in args.files]
+    if args.nbest > 1:
+        for name, audio in zip(args.files, audios):
+            hypotheses = transcriber.transcribe_nbest(audio, args.nbest)
+            print(json.dumps({"file": name,
+                              "text": hypotheses[0][0] if hypotheses else "",
+                              "hypotheses": [{"text": text, "score": round(score, 4)}
+                                             for text, score in hypotheses]}))
+        return
+    if args.long_form:
+        decoded = [(transcriber.transcribe_long_audio(audio), None) for audio in audios]
+    else:
+        decoded = transcriber.transcribe_batch(audios, batch_size=args.dispatch_batch)
+    frames = (transcriber.frame_tokens_batch(audios, batch_size=args.dispatch_batch)
+              if args.timestamps else [None] * len(audios))
+    for name, tokens, (text, confidence) in zip(args.files, frames, decoded):
+        if not args.as_json:
+            print("{}\t{}".format(name, text))
+            continue
+        record = {"file": name, "text": text}
+        if confidence is not None:
+            record["confidence"] = confidence
+        if args.timestamps:
+            record["words"] = [
+                {"word": word, "start_s": round(start, 4), "end_s": round(end, 4)}
+                for word, start, end in words_from_frame_tokens(
+                    tokens, transcriber.codec, transcriber.blank_index,
+                    transcriber.seconds_per_frame)]
+        print(json.dumps(record))
 
 
 def main(argv=None) -> None:
@@ -24,12 +101,7 @@ def main(argv=None) -> None:
     sub = parser.add_subparsers(dest="command", required=True)
     p_serve = sub.add_parser("serve",
                              help="HTTP transcription service (dynamic micro-batching)")
-    p_serve.add_argument("--checkpoint", required=True,
-                         help="weights file (weights-epoch{n}.npz)")
-    p_serve.add_argument("--kenlm", default=None,
-                         help="directory holding lm.arpa: serve LM-fused beam "
-                              "transcriptions (default: greedy)")
-    p_serve.add_argument("--charset", choices=sorted(CHARSETS), default="english")
+    _model_args(p_serve)
     p_serve.add_argument("--host", default="127.0.0.1")
     p_serve.add_argument("--port", type=int, default=8000)
     p_serve.add_argument("--max-batch", type=int, default=16,
@@ -42,26 +114,44 @@ def main(argv=None) -> None:
                               "0 = unbounded)")
     p_serve.add_argument("--no-warm-up", action="store_true",
                          help="skip running every length bucket once before binding")
-    p_serve.add_argument("--device", default="cuda:0", help="torch device to serve on")
     p_serve.add_argument("--device-streams", action="store_true",
                          help="device-resident streaming sessions (not ported yet)")
     p_serve.add_argument("--beam-mode", choices=("posterior", "resident"),
                          default="posterior",
                          help="'resident' keeps the beam carry in the device pool (not "
                               "ported yet)")
+    p_transcribe = sub.add_parser("transcribe", help="transcribe wav files offline")
+    p_transcribe.add_argument("files", nargs="+", help="audio files (wav)")
+    _model_args(p_transcribe)
+    p_transcribe.add_argument("--timestamps", action="store_true",
+                              help="include word-level emission timestamps (requires "
+                                   "--json)")
+    p_transcribe.add_argument("--long-form", action="store_true",
+                              help="segment at silences for long recordings (> the "
+                                   "largest sample bucket)")
+    p_transcribe.add_argument("--json", action="store_true", dest="as_json",
+                              help="one JSON object per file on stdout")
+    p_transcribe.add_argument("--dispatch-batch", type=int, default=16,
+                              help="files per batched device dispatch")
+    p_transcribe.add_argument("--nbest", type=int, default=1,
+                              help="emit the top-N hypotheses with path scores (requires "
+                                   "--json)")
     args = parser.parse_args(argv)
     # Refused before any weights load or warm-up runs.
+    if args.lexicon and not args.kenlm:
+        parser.error("--lexicon requires --kenlm (the vocabulary trie rides in the word "
+                     "LM)")
+    if args.command == "transcribe":
+        _transcribe(args, p_transcribe)
+        return
     if args.device_streams or args.beam_mode == "resident":
         p_serve.error("--device-streams and --beam-mode resident (device-resident "
-                     "streaming sessions) are not ported yet (ROADMAP.md, item 11)")
+                      "streaming sessions) are not ported yet (ROADMAP.md, item 11)")
+
+    from .serving_http import TranscriptionServer
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
-    characters = CHARSETS[args.charset]
-    params = load_params_npz(Path(args.checkpoint))
-    config = Wav2LetterConfig(input_size_per_time_step=params[0]["w"].shape[1],
-                              grapheme_set_size=len(characters) + 1)
-    transcriber = Transcriber(config, params, characters, device=args.device,
-                              kenlm_directory=args.kenlm)
+    transcriber = _transcriber(args)
     if not args.no_warm_up:
         transcriber.warm_up()
     TranscriptionServer(transcriber, host=args.host, port=args.port,

@@ -1,7 +1,9 @@
 """Request audio decoding (jax-free port of `speechless_tpu/features/audio_io.py:28-90`):
-wav bytes via scipy, polyphase resampling. Results are mono float32 in [-1, 1]."""
+wav bytes or files via scipy, polyphase resampling. Results are mono float32 in
+[-1, 1]."""
 import io
 from fractions import Fraction
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
@@ -38,3 +40,14 @@ def resample(audio: np.ndarray, original_rate: int, target_rate: int) -> np.ndar
     ratio = Fraction(target_rate, original_rate)
     return resample_poly(audio.astype(np.float64), ratio.numerator,
                          ratio.denominator).astype(np.float32)
+
+
+def load_audio(path: Path, sample_rate: int = 16000) -> np.ndarray:
+    """Read a wav file as mono float32 at ``sample_rate``. FLAC, which the JAX package
+    decodes with its native extension, is not ported yet (ROADMAP.md, item 13)."""
+    path = Path(path)
+    if path.suffix.lower() != ".wav":
+        raise ValueError("unsupported audio format {} (the port reads wav; FLAC is not "
+                         "ported yet, ROADMAP.md item 13)".format(path))
+    audio, rate = decode_wav_bytes(path.read_bytes())
+    return resample(audio, rate, sample_rate)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/speechless_tpu_torch_kernels/<name>-<hash>.so`` beside the
-package, then loaded with `ctypes`. The file name carries a hash of the source and the
-flags, so an edited kernel is rebuilt and never confused with a stale library. Nothing
-is built or loaded at import: the CPU tests import every module without a CUDA toolkit.
+package, then loaded with `ctypes`. The file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited kernel or header is rebuilt
+and never confused with a stale library. Nothing is built or loaded at import: the CPU
+tests import every module without a CUDA toolkit.
 """
 import ctypes
 import hashlib
@@ -21,10 +22,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "speechless_tpu_torc
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point of each source: argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
     "lm_beam_step": [_P] * 15 + [_I] * 10 + [_P],
+    "prefix_beam": [_P] * 7 + [_I] * 10 + [_F, _P],
     "ctc_alpha": [_P] * 6 + [_I] * 4 + [_P],
     "ctc_beta": [_P] * 6 + [_I] * 4 + [_P],
     "stream_stitch": [_P] * 9 + [_I] * 4 + [_P],
@@ -45,9 +47,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    source = SOURCE_DIR / (name + ".cu")
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / "{}-{}.so".format(name, digest[:16])
+    """The library's path: its name carries a hash of the source, every header of
+    ``csrc/`` it may include, and the flags."""
+    digest = hashlib.sha1((SOURCE_DIR / (name + ".cu")).read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / "{}-{}.so".format(name, digest.hexdigest()[:16])
 
 
 def _build_many(names) -> None:

@@ -30,8 +30,9 @@ fed are consumed for good: callers feed only frames whose receptive field is com
 
 The TPU version padded the rows to a multiple of 8 sublanes and capped the alphabet at
 128 packed lanes; the port's kernels take any row count and class count. Not ported:
-the JAX package's XLA step (`decode_jax._beam_step`), char-table LM fusion and
-``lexicon_constrained`` search (ROADMAP.md, section 3: beam routes).
+the JAX package's XLA streaming step (`decode_incremental.py` on `decode_jax._beam_step`,
+whose port is `decode_beam._beam_step`), and with it char-table LM fusion, unpruned and
+``lexicon_constrained`` streams (ROADMAP.md, section 3: streaming).
 """
 import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -42,6 +43,8 @@ import torch
 from . import _kernels
 from .beam_common import next_pow2, word_bonuses
 from .decode_lm import _advance, fresh_carry, lm_step, pack_frames
+
+DEFAULT_DEVICE = "cuda:0"  # the card unless the caller asks for the CPU
 
 
 class BeamStreamResult(NamedTuple):
@@ -195,7 +198,7 @@ def stream_advance(stacked_state: Sequence[torch.Tensor], log_probs: torch.Tenso
     return carry + [rows], rows_best, scalars
 
 
-def state_from_jax(beams, device="cpu") -> List[torch.Tensor]:
+def state_from_jax(beams, device) -> List[torch.Tensor]:
     """The JAX package's `PallasBeamStreamDecoder` carries as the port's stacked state.
 
     ``beams`` is a sequence of per-stream beams (``BeamStreamState.beam`` of the JAX
@@ -244,7 +247,7 @@ class KernelBeamStreamDecoder:
                  max_decoded_length: int = 512, chunk_frames: int = 128,
                  lm_weight: float = 0.8, word_lm=None, word_count_weight: float = 0.0,
                  valid_word_count_weight: float = 2.3,
-                 prune_classes: Optional[int] = 8, device="cpu",
+                 prune_classes: Optional[int] = 8, device=DEFAULT_DEVICE,
                  step=lm_step, stitch=stream_stitch):
         if chunk_frames < 1:
             raise ValueError("chunk_frames must be >= 1")

@@ -3,13 +3,14 @@
 
 A request runs features -> acoustic model -> log-softmax -> decode on one device, with
 the batch grouped by length bucket as in the JAX package. With ``kenlm_directory`` the
-decode is the word-LM-fused beam on the beam-step kernel (`ops/device_beam.py`);
-without, greedy. ``max_decoded_length`` is the frame count: CTC emits at most one
-grapheme per frame, so nothing is truncated.
+decode is the word-LM-fused beam on the beam-step kernel (`ops/device_beam.py`), or with
+``lexicon_constrained`` the plain batched beam kept on the LM's vocabulary; without,
+greedy. ``max_decoded_length`` is the frame count: CTC emits at most one grapheme per
+frame, so nothing is truncated. `transcribe_nbest` runs the plain batched beam's n-best
+search (`ops/decode_beam.py`).
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP.md item): meshes,
-quantized weights, lexicon-constrained search, ``transcribe_nbest``, sequence-parallel
-long-form decoding and ``align_audio``.
+quantized weights, sequence-parallel long-form decoding and ``align_audio``.
 """
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
@@ -20,6 +21,7 @@ import torch
 from .features.spectrogram import features_batch
 from .models import wav2letter as w2l
 from .ops.decode import greedy_decode
+from .ops.decode_beam import beam_search_nbest
 from .ops.device_beam import beam_search_decode_device
 from .text.charsets import english_frequent_characters, german_frequent_characters
 from .text.graphemes import CtcGraphemeCodec
@@ -130,13 +132,17 @@ class Transcriber:
                  mesh=None):
         """``device``: where the model, the LM tables and every request run.
         ``kenlm_directory``: serve LM-fused beam transcriptions with the ARPA model in
-        that directory (its tables live on ``device``)."""
+        that directory (its tables live on ``device``). ``lexicon_constrained``:
+        restrict that beam to vocabulary words (character extensions stay on the trie,
+        spaces only end complete words); requires ``kenlm_directory``."""
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED.format("mesh-sharded serving"))
         if quantize_weights or int8_compute:
             raise NotImplementedError(_NOT_PORTED.format("quantized serving"))
-        if lexicon_constrained:
-            raise NotImplementedError(_NOT_PORTED.format("lexicon-constrained search"))
+        if lexicon_constrained and kenlm_directory is None:
+            raise ValueError("lexicon_constrained requires kenlm_directory (the "
+                             "vocabulary trie rides in the word LM)")
+        self.lexicon_constrained = lexicon_constrained
         self.config = config
         self.device = torch.device(device)
         self.model = w2l.build_model(config, params, device=self.device)
@@ -161,6 +167,7 @@ class Transcriber:
     def from_checkpoint(net_directory: Path, epoch: int, allowed_characters: List[str], *,
                         device, mel_frequency_count: int = 128,
                         kenlm_directory: Optional[Path] = None,
+                        lexicon_constrained: bool = False,
                         **config_kwargs) -> "Transcriber":
         from .train.checkpoint import load_params
 
@@ -168,7 +175,13 @@ class Transcriber:
             input_size_per_time_step=mel_frequency_count,
             grapheme_set_size=len(allowed_characters) + 1, **config_kwargs)
         return Transcriber(config, load_params(net_directory, epoch), allowed_characters,
-                           device=device, kenlm_directory=kenlm_directory)
+                           device=device, kenlm_directory=kenlm_directory,
+                           lexicon_constrained=lexicon_constrained)
+
+    @property
+    def beam_width(self) -> int:
+        """The decoder's beam width: also the upper bound for ``transcribe_nbest``."""
+        return self._decoder["beam_width"]
 
     @property
     def blank_index(self) -> int:
@@ -215,6 +228,7 @@ class Transcriber:
         if self.word_lm is not None:
             tokens, counts = beam_search_decode_device(
                 log_probs, logit_lengths, blank=self.blank_index, word_lm=self.word_lm,
+                lexicon_constrained=self.lexicon_constrained,
                 max_decoded_length=log_probs.shape[1], **self._decoder)
         else:
             tokens, counts = greedy_decode(log_probs, logit_lengths, self.blank_index)
@@ -299,8 +313,37 @@ class Transcriber:
                  split_long_audio(audio, max_segment_s, min_silence_s)]
         return " ".join(text for text in texts if text)
 
-    def transcribe_nbest(self, audio: np.ndarray, nbest: int = 5):
-        raise NotImplementedError(_NOT_PORTED.format("n-best decoding"))
+    @torch.inference_mode()
+    def transcribe_nbest(self, audio: np.ndarray, nbest: int = 5
+                         ) -> List[Tuple[str, float]]:
+        """The ``nbest`` most probable transcriptions with their total path scores
+        (acoustic log prob + weighted LM terms when serving with a language model),
+        descending. Runs the plain batched beam's n-best search on the one padded
+        utterance, with its default cap of 256 graphemes, as the JAX package's n-best
+        program does. Returns up to ``nbest`` ``(text, score)`` pairs: fewer when the
+        search holds fewer live prefixes (very short audio)."""
+        log_probs, logit_lengths = self._log_probs(*self._padded(audio))
+        decoder = self._decoder
+        tokens, counts, scores = beam_search_nbest(
+            log_probs, logit_lengths, blank=self.blank_index, nbest=nbest,
+            beam_width=decoder["beam_width"], word_lm=self.word_lm,
+            lm_weight=decoder["lm_weight"] if self.word_lm is not None else 0.0,
+            word_count_weight=decoder["word_count_weight"],
+            valid_word_count_weight=decoder["valid_word_count_weight"],
+            prune_classes=decoder["prune_classes"],
+            lexicon_constrained=self.lexicon_constrained)
+        tokens, counts, scores = (x[0].cpu().numpy() for x in (tokens, counts, scores))
+        hypotheses, seen_texts = [], set()
+        for i in range(tokens.shape[0]):
+            if scores[i] <= -1e29:
+                continue  # a dead beam: fewer live prefixes than asked for
+            text = self.codec.decode_graphemes(tokens[i, :int(counts[i])].tolist(),
+                                               merge_repeated=False)
+            # Beams are distinct prefixes (hash merge); this guards 32-bit collisions.
+            if text not in seen_texts:
+                seen_texts.add(text)
+                hypotheses.append((text, float(scores[i])))
+        return hypotheses
 
     def align_audio(self, audio: np.ndarray, transcript: str):
         raise NotImplementedError(_NOT_PORTED.format("forced alignment"))

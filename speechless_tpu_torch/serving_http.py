@@ -13,6 +13,8 @@ Endpoints::
                                   "sample_rate": 16000}, or raw little-endian float32
                                   PCM as application/octet-stream (";rate=<hz>")
          ?timestamps=1            adds word-level emission timestamps
+         ?nbest=N                 the top N hypotheses with path scores:
+                                  {"text", "hypotheses": [{"text", "score"}]}
     POST /v1/stream               open a streaming session; optional JSON body
                                   {"partial_decode": "greedy"|"beam"|"beam_pipelined",
                                   "final_decode": bool} -> {"session": id}
@@ -21,9 +23,10 @@ Endpoints::
     POST /v1/stream/<id>/finish   flush and close -> {"text", "live_text", "words",
                                   "final_up_to_s"}
 
-Streaming sessions run on `serving_streaming.StreamingSessionPool`: 400 for a bad body
-or mode, 404 for an unknown session, 501 for a mode the backend cannot serve.
-``?nbest=N`` answers 501: n-best decoding is not ported yet (ROADMAP.md).
+``?nbest=N`` answers 400 when N is not an integer, below 1 or above the beam width, or
+comes with ``timestamps``. Streaming sessions run on
+`serving_streaming.StreamingSessionPool`: 400 for a bad body or mode, 404 for an unknown
+session, 501 for a mode the backend cannot serve.
 """
 import json
 import logging
@@ -57,7 +60,9 @@ class DynamicBatcher(MicroBatcher):
     """Collect concurrent requests into micro-batches: everything that arrives within
     ``max_wait_ms`` of the first queued request (up to ``max_batch``) is served by one
     ``backend.transcribe_batch`` call; a lone request takes the single-utterance path.
-    Queue, shutdown and error semantics are `utils.microbatch`'s."""
+    N-best requests ride the same thread but decode one by one (their search returns n
+    hypotheses, not one row of a shared batch). Queue, shutdown and error semantics are
+    `utils.microbatch`'s."""
 
     item_noun = "requests"
 
@@ -67,18 +72,32 @@ class DynamicBatcher(MicroBatcher):
                          name="transcribe-batcher", max_queue=max_queue)
         self.backend = backend
 
-    def submit(self, audio: np.ndarray, want_timestamps: bool = False) -> dict:
+    def submit(self, audio: np.ndarray, want_timestamps: bool = False,
+               nbest: Optional[int] = None) -> dict:
         """Enqueue one request and block until its batch is served."""
-        return super().submit((audio, want_timestamps))
+        return super().submit((audio, want_timestamps, nbest))
 
     def _serve(self, batch: List[PendingItem]) -> None:
+        for pending in [p for p in batch if p.payload[2] is not None]:
+            audio, _, nbest = pending.payload
+            try:
+                hypotheses = self.backend.transcribe_nbest(audio, nbest)
+            except Exception as error:  # a bad n must not fail the co-batched requests
+                pending.error = error
+                continue
+            pending.result = {"text": hypotheses[0][0] if hypotheses else "",
+                              "hypotheses": [{"text": text, "score": round(score, 4)}
+                                             for text, score in hypotheses]}
+        batch = [p for p in batch if p.payload[2] is None]
+        if not batch:
+            return
         if len(batch) == 1:
             decoded = [self.backend.transcribe_audio_with_confidence(batch[0].payload[0])]
         else:
             decoded = self.backend.transcribe_batch(
                 [pending.payload[0] for pending in batch], batch_size=self.max_batch)
         for pending, (text, confidence) in zip(batch, decoded):
-            audio, want_timestamps = pending.payload
+            audio, want_timestamps, _ = pending.payload
             result = {"text": text, "confidence": confidence}
             if want_timestamps:
                 words = words_from_frame_tokens(
@@ -198,6 +217,24 @@ class TranscriptionServer:
         self.batcher.stop()
         self.streams.stop()
 
+    def _transcribe_nbest(self, audio: np.ndarray, nbest_raw: str,
+                          want_timestamps: bool) -> dict:
+        """``?nbest=N``: the top N hypotheses with path scores, decoded on the batcher
+        thread like every other request."""
+        try:
+            nbest = int(nbest_raw)
+        except ValueError:
+            raise RequestError(400, "nbest must be an integer")
+        if nbest < 1:
+            raise RequestError(400, "nbest must be >= 1")
+        if want_timestamps:
+            raise RequestError(400, "timestamps and nbest are mutually exclusive "
+                                    "(timestamps describe the single best path)")
+        if nbest > self.backend.beam_width:
+            raise RequestError(400, "nbest must be <= the decoder's beam width ({})"
+                               .format(self.backend.beam_width))
+        return self.batcher.submit(audio, nbest=nbest)
+
     def _health(self) -> dict:
         return {
             "status": "ok",
@@ -265,12 +302,15 @@ class TranscriptionServer:
                         audio = _parse_audio(self.headers.get("Content-Type", ""),
                                              self._read_body())
                         query = parse_qs(parsed.query)
-                        if query.get("nbest", ["1"])[0] not in ("", "1"):
-                            raise RequestError(501, "n-best decoding is not ported yet "
-                                                    "(ROADMAP.md, Transcriber routes)")
                         want_timestamps = query.get("timestamps", ["0"])[0] in (
                             "1", "true", "yes")
-                        self._reply(200, server.batcher.submit(audio, want_timestamps))
+                        nbest = query.get("nbest", ["1"])[0]
+                        if nbest not in ("", "1"):
+                            self._reply(200, server._transcribe_nbest(audio, nbest,
+                                                                      want_timestamps))
+                        else:
+                            self._reply(200, server.batcher.submit(audio,
+                                                                   want_timestamps))
                     elif parsed.path == "/v1/stream":
                         self._stream_create()
                     elif parsed.path.startswith("/v1/stream/"):

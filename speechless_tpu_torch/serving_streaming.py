@@ -158,11 +158,11 @@ def beam_decoder_for(transcriber, chunk_frames: int = 32,
     decoder = getattr(transcriber, "_decoder", {})
     if getattr(transcriber, "lexicon_constrained", False):
         raise NotImplementedError("lexicon-constrained streaming beams are not ported "
-                                  "(ROADMAP.md, section 3: beam routes)")
+                                  "(ROADMAP.md, section 3: streaming)")
     prune_classes = decoder.get("prune_classes", None)
     if prune_classes is None:
         raise NotImplementedError("unpruned streaming beams (prune_classes=None) are not "
-                                  "ported (ROADMAP.md, section 3: beam routes)")
+                                  "ported (ROADMAP.md, section 3: streaming)")
     return KernelBeamStreamDecoder(
         blank=transcriber.blank_index,
         beam_width=decoder.get("beam_width", 25),
@@ -173,7 +173,7 @@ def beam_decoder_for(transcriber, chunk_frames: int = 32,
         word_count_weight=decoder.get("word_count_weight", 0.0),
         valid_word_count_weight=decoder.get("valid_word_count_weight", 2.3),
         prune_classes=prune_classes,
-        device=getattr(transcriber, "device", "cpu"))
+        device=transcriber.device)
 
 
 class _DeferredAdvance:

@@ -202,14 +202,15 @@ def test_wrappers_run_the_plain_versions_on_cpu_and_count_no_launch():
 
 
 def test_kernel_entry_points_match_their_ctypes_signatures():
-    """The C entry point of each CUDA source takes the pointers and ints, in the order,
-    that `_kernels.SIGNATURES` declares (the sources are compiled only on the card)."""
+    """The C entry point of each CUDA source takes the pointers, ints and floats, in the
+    order, that `_kernels.SIGNATURES` declares (the sources are compiled only on the
+    card)."""
+    ctypes = _kernels.ctypes
+    names = {ctypes.c_void_p: "ptr", ctypes.c_int: "int", ctypes.c_float: "float"}
     for name, argtypes in _kernels.SIGNATURES.items():
         source = (REPO / "speechless_tpu_torch" / "csrc" / (name + ".cu")).read_text()
         match = re.search(r'extern "C" int {}\(([^)]*)\)'.format(name), source)
         assert match, name
         params = [p.strip() for p in match.group(1).split(",")]
-        kinds = ["ptr" if "*" in p else "int" for p in params]
-        assert all(p.startswith("int ") for p, k in zip(params, kinds) if k == "int"), params
-        assert kinds == ["ptr" if t is _kernels.ctypes.c_void_p else "int"
-                         for t in argtypes], name
+        kinds = ["ptr" if "*" in p else p.split()[0] for p in params]
+        assert kinds == [names[t] for t in argtypes], name

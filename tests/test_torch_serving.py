@@ -1,10 +1,12 @@
 """The port's serving slice end to end on the CPU: `speechless_tpu_torch.serving.
 Transcriber` against the JAX package's `Transcriber` (same weights, same word LM, same
-audio), and the port's HTTP server (`serving_http.TranscriptionServer`).
+audio) on the LM beam, greedy, lexicon-constrained and n-best routes, the port's HTTP
+server (`serving_http.TranscriptionServer`) and its CLI.
 
 Tolerances: log-probs atol 1e-4 (fp32 features and convolutions summed in another
 order; the output layer is scaled up so frames are peaky); transcripts exactly equal;
-confidences atol 1e-4.
+confidences atol 1e-4; n-best scores 1e-4 relative (the log-probs' own difference,
+summed over the frames).
 """
 import io
 import json
@@ -72,7 +74,7 @@ def server(port_lm):
     srv.stop()
 
 
-def _jax_transcriber(setup, kenlm):
+def _jax_transcriber(setup, kenlm, lexicon_constrained=False):
     config, params, lm_directory = setup
     jax_config = jax_w2l.Wav2LetterConfig(
         128, len(ALPHABET) + 1, layers=tuple(
@@ -81,7 +83,7 @@ def _jax_transcriber(setup, kenlm):
     return JaxTranscriber(jax_config, [{k: jnp.asarray(v) for k, v in p.items()}
                                        for p in params], ALPHABET,
                           kenlm_directory=lm_directory if kenlm else None, beam_width=8,
-                          sample_buckets=BUCKETS)
+                          sample_buckets=BUCKETS, lexicon_constrained=lexicon_constrained)
 
 
 @pytest.mark.parametrize("kenlm", [True, False], ids=["lm_beam", "greedy"])
@@ -168,12 +170,72 @@ def test_http_status_codes(server):
     assert status == 200 and health["sample_buckets"] == list(BUCKETS)
     assert _request(server.port, "/v1/metrics")[0] == 200
     assert _request(server.port, "/nope")[0] == 404
-    status, payload = _request(server.port, "/v1/transcribe?nbest=3", _pcm_body(AUDIOS[1]))
-    assert status == 501 and "ROADMAP.md" in payload["error"]
+    for query in ("nbest=two", "nbest=0", "nbest=3&timestamps=1", "nbest=9"):
+        status, payload = _request(server.port, "/v1/transcribe?" + query,
+                                   _pcm_body(AUDIOS[1]))
+        assert status == 400 and "nbest" in payload["error"], query
     status, payload = _request(server.port, "/v1/stream", b"{}")  # a greedy session
     assert status == 200 and payload["session"]
     assert _request(server.port, "/v1/transcribe", b"not json")[0] == 400
     assert _request(server.port, "/v1/transcribe", b"\x00", "text/plain")[0] == 415
+
+
+@pytest.mark.parametrize("kenlm", [True, False], ids=["lm_beam", "no_lm"])
+def test_nbest_matches_jax_transcriber(setup, port_lm, kenlm):
+    """`transcribe_nbest` gives the JAX Transcriber's hypotheses: texts exactly, scores
+    within 1e-4 relative; the best text is the one-best route's."""
+    config, params, _ = setup
+    ours = port_lm if kenlm else Transcriber(config, params, ALPHABET, device="cpu",
+                                             beam_width=8, sample_buckets=BUCKETS)
+    theirs = _jax_transcriber(setup, kenlm)
+    for audio in AUDIOS[:3]:
+        got, want = ours.transcribe_nbest(audio, 5), theirs.transcribe_nbest(audio, 5)
+        assert [text for text, _ in got] == [text for text, _ in want]
+        assert len(got) > 1
+        np.testing.assert_allclose([score for _, score in got],
+                                   [score for _, score in want], rtol=1e-4)
+    if kenlm:
+        assert got[0][0] == ours.transcribe_audio(AUDIOS[2])
+
+
+def test_lexicon_transcripts_match_jax_transcriber(setup):
+    """The lexicon-constrained route: transcripts equal to the JAX Transcriber's, every
+    completed word in the LM's vocabulary."""
+    config, params, lm_directory = setup
+    ours = Transcriber(config, params, ALPHABET, device="cpu", kenlm_directory=lm_directory,
+                       beam_width=8, sample_buckets=BUCKETS, lexicon_constrained=True)
+    want = _jax_transcriber(setup, True, lexicon_constrained=True).transcribe_batch(
+        AUDIOS, batch_size=8)
+    got = ours.transcribe_batch(AUDIOS, batch_size=8)
+    assert [text for text, _ in got] == [text for text, _ in want]
+    vocabulary = {word for text in TEXTS for word in text.split()}
+    words = [w for text, _ in got for w in text.split(" ")[:-1] if w]
+    assert words and set(words) <= vocabulary
+    assert ours.transcribe_nbest(AUDIOS[0], 3)[0][0] == got[0][0]
+
+
+def test_http_nbest_matches_direct_calls(server, port_lm):
+    """``?nbest=3`` answers 200 with the direct call's hypotheses; plain requests in the
+    same batch window are answered as before."""
+    results = {}
+
+    def send(name, path, audio):
+        results[name] = _request(server.port, path, _pcm_body(audio))
+
+    threads = [threading.Thread(target=send, args=args) for args in (
+        ("nbest", "/v1/transcribe?nbest=3", AUDIOS[2]),
+        ("plain", "/v1/transcribe", AUDIOS[1]))]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=300)
+    status, payload = results["nbest"]
+    want = port_lm.transcribe_nbest(AUDIOS[2], 3)
+    assert status == 200 and payload["text"] == want[0][0]
+    assert [(h["text"], h["score"]) for h in payload["hypotheses"]] == \
+        [(text, round(score, 4)) for text, score in want]
+    status, payload = results["plain"]
+    assert status == 200 and payload["text"] == port_lm.transcribe_audio(AUDIOS[1])
 
 
 def test_parse_audio_resamples_octet_stream():
@@ -215,12 +277,13 @@ def test_long_transcripts_are_not_truncated(setup, kenlm):
 
 def test_unported_options_raise(setup, port_lm):
     config, params, _ = setup
-    for option in (dict(mesh=object()), dict(quantize_weights=True),
-                   dict(lexicon_constrained=True)):
+    for option in (dict(mesh=object()), dict(quantize_weights=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Transcriber(config, params, ALPHABET, device="cpu", **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_lm.transcribe_nbest(AUDIOS[0], 3)
+    with pytest.raises(ValueError, match="requires kenlm_directory"):
+        Transcriber(config, params, ALPHABET, device="cpu", lexicon_constrained=True)
+    with pytest.raises(ValueError, match="nbest must be in"):
+        port_lm.transcribe_nbest(AUDIOS[0], 9)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_lm.transcribe_long_audio(AUDIOS[0], sequence_parallel=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -272,6 +335,49 @@ def test_cli_serves_a_full_width_checkpoint(setup, tmp_path):
     direct = Transcriber(config, params, ALPHABET, device="cpu",
                          kenlm_directory=lm_directory).transcribe_audio(AUDIOS[0])
     assert status == 200 and payload["text"] == direct and direct
+
+
+def _cli(*args):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    return subprocess.run([sys.executable, "-m", "speechless_tpu_torch", *args],
+                          cwd=str(Path(__file__).resolve().parent.parent),
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_cli_transcribe_nbest_json(setup, port_lm, tmp_path):
+    """``transcribe --nbest 3 --json`` prints the direct call's hypotheses per file;
+    ``--lexicon`` without ``--kenlm`` is refused before anything loads, by both
+    commands."""
+    import scipy.io.wavfile as wavfile
+
+    _, params, lm_directory = setup
+    config = w2l.Wav2LetterConfig(128, len(ALPHABET) + 1)
+    checkpoint = tmp_path / "weights-epoch1.npz"
+    full = w2l.init_params(config, seed=2)
+    full[-1]["w"] = full[-1]["w"] * 8.0  # peaky frames
+    np.savez(checkpoint, **{"layer{}.{}".format(i, key): value
+                            for i, layer in enumerate(full)
+                            for key, value in layer.items()})
+    wav = tmp_path / "a.wav"
+    wavfile.write(wav, 16000, AUDIOS[0])
+    done = _cli("transcribe", str(wav), "--checkpoint", str(checkpoint), "--kenlm",
+                str(lm_directory), "--device", "cpu", "--json", "--nbest", "3")
+    assert done.returncode == 0, done.stderr
+    record = json.loads(done.stdout.strip().splitlines()[-1])
+    want = Transcriber(config, full, ALPHABET, device="cpu", kenlm_directory=lm_directory
+                       ).transcribe_nbest(AUDIOS[0], 3)
+    assert record["file"] == str(wav) and record["text"] == want[0][0]
+    assert [(h["text"], h["score"]) for h in record["hypotheses"]] == \
+        [(text, round(score, 4)) for text, score in want]
+    for command in (["serve"], ["transcribe", str(wav)]):
+        refused = _cli(*command, "--checkpoint", str(checkpoint), "--lexicon",
+                       "--device", "cpu")
+        assert refused.returncode == 2 and "--lexicon requires --kenlm" in refused.stderr
+    refused = _cli("transcribe", str(wav), "--checkpoint", str(checkpoint), "--nbest", "3")
+    assert refused.returncode == 2 and "--nbest requires --json" in refused.stderr
 
 
 def test_long_audio_segments_like_jax(port_lm):

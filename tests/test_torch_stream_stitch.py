@@ -113,11 +113,11 @@ def test_stream_advance_takes_the_given_step_and_stitch():
 
     decoder = KernelBeamStreamDecoder(blank=BLANK, beam_width=W, max_decoded_length=MAX_LEN,
                                       chunk_frames=CF, prune_classes=C, step=step,
-                                      stitch=stitch)
+                                      stitch=stitch, device="cpu")
     _, result = decoder.feed(decoder.init_state(), _log_probs(20, seed=1))
     assert calls.count("step") == 20 and calls.count("stitch") == 2
     plain = KernelBeamStreamDecoder(blank=BLANK, beam_width=W, max_decoded_length=MAX_LEN,
-                                    chunk_frames=CF, prune_classes=C)
+                                    chunk_frames=CF, prune_classes=C, device="cpu")
     assert np.array_equal(plain.feed(plain.init_state(), _log_probs(20, seed=1))[1].tokens,
                           result.tokens)
 

@@ -76,7 +76,8 @@ def no_lm():
     """(port decoder, JAX Pallas decoder) at C=6, W=8, 16-frame chunks."""
     kwargs = dict(blank=BLANK, beam_width=W, max_decoded_length=64, chunk_frames=16,
                   prune_classes=C)
-    return KernelBeamStreamDecoder(**kwargs), PallasBeamStreamDecoder(**kwargs)
+    return (KernelBeamStreamDecoder(device="cpu", **kwargs),
+            PallasBeamStreamDecoder(**kwargs))
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +94,7 @@ def with_lm(word_lms):
     """(port decoder, JAX Pallas decoder) with the word LM, 29 classes, W=8."""
     kwargs = dict(blank=BLANK_LM, beam_width=W, max_decoded_length=64, chunk_frames=16,
                   prune_classes=8)
-    return (KernelBeamStreamDecoder(word_lm=word_lms[0], **kwargs),
+    return (KernelBeamStreamDecoder(word_lm=word_lms[0], device="cpu", **kwargs),
             PallasBeamStreamDecoder(word_lm=word_lms[1], **kwargs))
 
 
@@ -140,7 +141,7 @@ class TestNoLm:
         kwargs = dict(blank=BLANK, beam_width=W, max_decoded_length=16, chunk_frames=4,
                       prune_classes=C)
         lp = random_log_probs(120, C, seed=7)
-        state, result = stream(KernelBeamStreamDecoder(**kwargs), lp, [9, 50])
+        state, result = stream(KernelBeamStreamDecoder(device="cpu", **kwargs), lp, [9, 50])
         want_state, want = stream(JaxXlaDecoder(**kwargs), lp, [9, 50])
         assert state.committed.size > 16
         np.testing.assert_array_equal(state.committed, want_state.committed)
@@ -150,7 +151,7 @@ class TestNoLm:
 
     def test_rollover_rows_in_feed_batch_match_sequential(self):
         ours = KernelBeamStreamDecoder(blank=BLANK, beam_width=W, max_decoded_length=16,
-                                       chunk_frames=4, prune_classes=C)
+                                       chunk_frames=4, prune_classes=C, device="cpu")
         lps = [random_log_probs(frames, C, seed=20 + frames) for frames in (37, 3, 22)]
         sequential = [ours.feed(ours.init_state(), lp) for lp in lps]
         for (got_state, got), (want_state, want) in zip(
@@ -162,7 +163,8 @@ class TestNoLm:
         ours, theirs = no_lm
         lp = random_log_probs(40, C, seed=3)
         jax_state, _ = stream(theirs, lp[:13], [5])
-        state = BeamStreamState(tuple(leaf[0] for leaf in state_from_jax([jax_state.beam])),
+        state = BeamStreamState(tuple(leaf[0] for leaf in
+                                      state_from_jax([jax_state.beam], device="cpu")),
                                 jax_state.committed, jax_state.committed_score)
         _, got = stream(ours, lp[13:], [10], state=state)
         assert_same_result(got, stream(theirs, lp, [5, 13, 23])[1])
@@ -181,7 +183,7 @@ def test_one_advance_matches_the_jax_stream_core(no_lm, count):
     want_states, want_row, want_scalars = _pallas_stream_step_impl(
         (state.beam,), jnp.asarray(piece[None]), jnp.asarray([count], jnp.int32), BLANK,
         W, 64, None, None, 0.8, 0.0, 2.3, C)
-    stacked = state_from_jax([state.beam])
+    stacked = state_from_jax([state.beam], device="cpu")
     got_state, got_row, got_scalars = stream_advance(
         stacked, torch.from_numpy(piece[None]), np.asarray([count]), blank=BLANK,
         beam_width=W, max_decoded_length=64, prune_classes=C)
@@ -231,7 +233,8 @@ class TestWordLm:
             assert_same_result(got, want)
         lp = random_log_probs(48, BLANK_LM + 1, seed=3)
         jax_state, _ = stream(theirs, lp[:21], [])
-        state = BeamStreamState(tuple(leaf[0] for leaf in state_from_jax([jax_state.beam])),
+        state = BeamStreamState(tuple(leaf[0] for leaf in
+                                      state_from_jax([jax_state.beam], device="cpu")),
                                 jax_state.committed, jax_state.committed_score)
         assert_same_result(stream(ours, lp[21:], [], state=state)[1],
                            stream(theirs, lp, [21])[1])
@@ -239,14 +242,28 @@ class TestWordLm:
 
 class TestDecoderConstruction:
     def test_refusals_and_defaults(self):
-        assert KernelBeamStreamDecoder(blank=BLANK, prune_classes=None).prune_classes == 8
+        assert KernelBeamStreamDecoder(blank=BLANK, prune_classes=None,
+                                       device="cpu").prune_classes == 8
         with pytest.raises(ValueError, match="chunk_frames"):
-            KernelBeamStreamDecoder(blank=BLANK, chunk_frames=65, max_decoded_length=64)
+            KernelBeamStreamDecoder(blank=BLANK, chunk_frames=65, max_decoded_length=64,
+                                    device="cpu")
         with pytest.raises(ValueError, match="chunk_frames"):
-            KernelBeamStreamDecoder(blank=BLANK, chunk_frames=0)
+            KernelBeamStreamDecoder(blank=BLANK, chunk_frames=0, device="cpu")
         # No TPU lane cap: 120 classes + 2*8 pruned decode.
-        wide = KernelBeamStreamDecoder(blank=119, beam_width=4, chunk_frames=8)
+        wide = KernelBeamStreamDecoder(blank=119, beam_width=4, chunk_frames=8,
+                                       device="cpu")
         assert wide.feed(wide.init_state(), random_log_probs(9, 120, seed=5))[1].score < 0
+
+    def test_the_default_device_is_the_card(self):
+        """Built without ``device``, the decoder targets CUDA (constructing it touches
+        no GPU); `beam_decoder_for` takes the transcriber's device, with no fallback."""
+        assert KernelBeamStreamDecoder(blank=BLANK).device.type == "cuda"
+        assert beam_decoder_for(TestRouting.fake(device=torch.device("cuda", 1))).device \
+            == torch.device("cuda", 1)
+        without_device = TestRouting.fake()
+        del without_device.device
+        with pytest.raises(AttributeError):
+            beam_decoder_for(without_device)
 
     def test_feeds_must_be_frames_by_classes(self, no_lm):
         ours = no_lm[0]
