@@ -7,22 +7,30 @@ sessions, offline decoding on every beam route, and training.
 Builds every kernel of ``speechless_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
 source, all started together) and prints ptxas's registers and spills, then:
 
-* phase A: `lm_step` (kernel K4) against `lm_step_reference` (plain PyTorch) on the
-  same CUDA tensors at the serving shapes (16 rows, r=32, k=8, 29 classes): integer
-  outputs equal, float outputs bitwise equal or within 1e-6; both timed with CUDA
-  events. The same check, bitwise, at other lane counts (16 to 1024 candidates per
-  row). Then a full `beam_search_decode_lm` over 513 frames (8 s of audio) through the
-  kernel and through the plain step: tokens identical.
+* phase A: `lm_span` (kernel K4, the span kernel: every frame of a span in one launch,
+  with the word-LM gathers inside) against `lm_span_reference` (the plain loop of
+  `_advance` over `lm_step_reference`) on the same CUDA tensors: carry, backpointers and
+  tail bonus bitwise, at the serving shape (16 x 513 frames, ragged lengths, W=25, k=8,
+  29 classes) with and without the word LM, over a lane sweep (W/k/C = 1/1/4 ... 40/8/33,
+  12 frames, 16 to 1024 candidate lanes) and from seeded states with three live lanes
+  of one hash, which must take the frame step's sorted network (its exactness branch).
+  The single-frame entry `lm_step` against `lm_step_reference` on seeded states at the
+  same lane counts. Times (CUDA events): the span kernel per launch and per frame, its
+  bound (bytes: frames, carry, backpointers and the LM table bytes the run reads), the
+  plain loop, the single-frame entry on the sorted and on the rank network, and the
+  decode's wall on the span kernel and on the per-frame route; the decode's tokens
+  equal the plain loop's.
 * phase B: the full-width wav2letter (seeded random weights, output layer scaled for
   peaky frames), a word LM built by the port's `arpa_builder` from sentences of this
   repository's README, `Transcriber(kenlm_directory=..., device="cuda:0")` behind
   `TranscriptionServer(port=0)`. Five concurrent JSON requests and one octet-stream
   request of 1.6-8 s seeded audio, served in one batch where two of them share a length
-  bucket, must answer 200 with the text of a direct `transcribe_batch` call, and the
-  kernel's launch count must rise while they are served. The shared bucket's
+  bucket, must answer 200 with the text of a direct `transcribe_batch` call, with one
+  span launch and one backtrace launch per length bucket and no per-frame step. The shared bucket's
   log-probs must match the same model on the CPU (the path runs in fp32 with TF32 off
-  whatever the process-wide flags say) and its transcripts the plain-step beam. Prints
-  per-request latency and the `transcribe_batch` rate at 16 x 8 s.
+  whatever the process-wide flags say) and its transcripts the plain loop's. Prints
+  per-request latency and the `transcribe_batch` wall at 16 x 8 s (one span launch a
+  batch).
 * phase C (training): the CTC kernels K1 (`ctc_alpha`) and K2 (`ctc_beta`) against
   `alpha_reference`/`beta_reference` on the same CUDA tensors at the bench's shapes
   (B=64, T=513, U=192, 29 classes, seeded lengths with edge rows: 1 frame with an empty
@@ -44,16 +52,17 @@ source, all started together) and prints ptxas's registers and spills, then:
   capacity and dead lanes, and once past the kernel's shared-memory staging (F=128,
   r=64): every output equal, scores bitwise; timed with CUDA events.
   Then `KernelBeamStreamDecoder` (W=25, word LM) takes 16 serving-shape streams of 513
-  frames by `feed_batch` in 32-frame pieces, on the kernels and on the plain steps:
-  tokens identical, scores within 1e-6 relative, and equal to the offline
-  `beam_search_decode_lm` over the same frames; a synchronized run splits a piece round
-  into the K4 frame loop, the stitch and the LM glue, and one more runs on the kernels
-  while another thread decodes offline (the same results; the time per round when two
-  host-bound beam loops share the interpreter). Last, 8 concurrent HTTP stream
+  frames by `feed_batch` in 32-frame pieces, on the kernels (one span launch and one
+  stitch launch a piece round) and on the plain loop: tokens identical, scores within
+  1e-6 relative, and equal to the offline `beam_search_decode_lm` over the same frames;
+  a synchronized run splits a piece round into the span kernel, the stitch and the
+  rest, and one more runs on the kernels while another thread decodes offline (the
+  same results; the time per round). Last, 8 concurrent HTTP stream
   sessions on the card (6 ``beam``, 1 ``beam_pipelined``, 1 greedy with
   ``final_decode``), each fed 8 s in 0.5 s chunks and finished: every reply 200, each
-  beam final equal to a plain-step replay of the rows its beam consumed, the two-pass
-  final equal to the offline transcript, and both kernels launched during the run;
+  beam final equal to a plain-loop replay of the rows its beam consumed, the two-pass
+  final equal to the offline transcript, the span and stitch kernels launched during
+  the run and the per-frame step never;
   driven twice (cold: the first windows of each batch size and length; warm: a new
   server in the same process, the run whose launches are reported). Prints feed
   latency p50/p95 (greedy, beam), the slowest feeds and batcher dispatches, when each
@@ -67,8 +76,10 @@ source, all started together) and prints ptxas's registers and spills, then:
   is blank-confident with ragged lengths from 1 to 513, skip on and off, and (c) W = 4,
   8, 16 with k = 3, 5, 8 and W = 40 (32 to 1024 candidate lanes); kernel times by CUDA
   events, the one plain run's time, the fast path's share and the least time. Then K3
-  without skipping against the K4 frame-loop beam (tokens equal), the router's skip
-  route (one K3 launch, the plain version's tokens), ``POST /v1/transcribe?nbest=5``
+  without skipping against the span kernel's no-LM beam (tokens equal), the router's
+  skip route (one K3 launch, the plain version's tokens), the backtrace kernel
+  (`beam_backtrace`) against `backtrace_tokens` on K3's (a) and phase A's span outputs
+  (tokens and counts equal; times and bound), ``POST /v1/transcribe?nbest=5``
   against a direct `transcribe_nbest`, a lexicon-constrained `Transcriber` on 16 x 8 s
   (every word in the LM's vocabulary), the plain batched beam twice on the card
   (bitwise) and on the card against the CPU (tokens equal).
@@ -79,8 +90,11 @@ source, all started together) and prints ptxas's registers and spills, then:
   cuDNN's autotuner on), and the device's busy share of one k-step call
   (``chiprun_out/profile_train.json``).
 
-Any failed check exits non-zero before the result is printed. The last two lines are
-the kernel table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero before the result is printed. The last three lines are
+a summary of the span kernel's, the serving batch's and the piece round's times, the
+kernel table ``{"kernels": [...]}`` (the kernels of the main paths; the single-frame
+step entry is a test entry and is reported by phase A) and ``{"ok": true, "device":
+{...}}``.
 Needs one CUDA device; exits non-zero without one.
 """
 import json
@@ -175,94 +189,259 @@ def post(port: int, body: bytes, content_type: str):
         return response.status, payload, time.perf_counter() - start
 
 
-def phase_a(device, blank, space_index, word_lm):
-    """Kernel vs plain step at serving shapes, then a full 513-frame decode both ways."""
+def span_states(batch, r, word_lm, device, rng=None):
+    """A fresh carry (`decode_lm.fresh_carry`), or with ``rng`` phase A's seeded beam
+    states with dead lanes and three lanes of one hash (live), as a carry."""
     import torch
 
-    from speechless_tpu_torch.ops import _kernels, decode_lm
+    from speechless_tpu_torch.ops import decode_lm
+
+    carry = decode_lm.fresh_carry(batch, r, word_lm, device)
+    if rng is not None:
+        seeded = random_step_inputs(rng, batch, r, 8, 29, 40, device)[1:7]
+        seeded[0][:, [1, r // 2, r - 1]] = -1.0  # the three lanes of one hash are live
+        carry[:6] = seeded
+    return [leaf.contiguous() for leaf in carry]
+
+
+def lm_bytes_read(word_lm, carries, parents, chars, space_index) -> int:
+    """The word-LM table bytes a span needs for this run's beams: for every distinct
+    (trie node, context) a carry of the run holds, the node's word, the unigram and
+    backoff reads, and the keys of both slots of each of the three 2-choice probes with
+    the value of the slot that matched; for every distinct char extension, its trie
+    edge. ``carries`` are the carries before and after each frame (CPU)."""
+    import torch
+
+    from speechless_tpu_torch.lm.device_lm import _slot
+
+    lm = word_lm.to("cpu")
+    nodes = torch.cat([c[6].reshape(-1) for c in carries])
+    ctx = torch.cat([c[7].reshape(-1, 2) for c in carries])
+    states = torch.unique(torch.stack([nodes, ctx[:, 0], ctx[:, 1]], dim=1), dim=0)
+    node, c1, c2 = states.unbind(1)
+    completed = torch.where(node > 0, lm.node_word[node.clamp(min=0).long()], -1)
+    w = torch.where(completed >= 0, completed, lm.unk_id)
+    total = 4 * (int(torch.unique(node[node > 0]).numel()) + int(torch.unique(w).numel())
+                 + int(torch.unique(c2).numel()))
+
+    def probe_bytes(table_keys, value_bytes, keys):
+        keys = torch.unique(torch.stack(keys, dim=1), dim=0).unbind(1)
+        size, width = table_keys.shape
+        touched, hits = set(), set()
+        for side in (0, 1):
+            slots = _slot(keys, size, side)
+            match = torch.ones_like(slots, dtype=torch.bool)
+            for column, key in enumerate(keys):
+                match &= table_keys[slots, column] == key
+            touched.update(slots.tolist())
+            hits.update(slots[match].tolist())
+        return 4 * width * len(touched) + value_bytes * len(hits)
+
+    total += probe_bytes(lm.bi_k, 8, (c2, w)) + probe_bytes(lm.bi_k, 8, (c1, c2))
+    total += probe_bytes(lm.tri_k, 4, (c1, c2, w))
+    # Trie edges: (parent's node, char) of every char extension.
+    walks = set()
+    for t in range(parents.shape[1]):
+        parent_nodes = carries[t][6].gather(1, parents[:, t].long())
+        is_char = (chars[:, t] >= 0) & (chars[:, t] != space_index) & (parent_nodes >= 0)
+        walks.update(zip(parent_nodes[is_char].tolist(), chars[:, t][is_char].tolist()))
+    return total + 4 * len(walks)
+
+
+def check_span(name, frames, carry, counts, word_lm, static, record_lm=False):
+    """`lm_span` (the span kernel) against `lm_span_reference` over `lm_step_reference`
+    (the plain loop) on the same CUDA tensors: carry, backpointers and tail bonus
+    bitwise. The plain loop runs one frame at a time (the carry is the whole state, so
+    this equals one span) and is timed with CUDA events. Returns the kernel's outputs,
+    the plain time, the frames that took the sorted network and, with ``record_lm``,
+    the LM bytes of the run (`lm_bytes_read`)."""
+    import torch
+
+    from speechless_tpu_torch.ops import decode_lm
+
+    got = decode_lm.lm_span(frames, [leaf.clone() for leaf in carry], counts, word_lm,
+                            **static)
+    sorted_frames = int(decode_lm.lm_span.sorted_frames.sum())
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    plain_carry, parents, chars, history = carry, [], [], [[leaf.cpu() for leaf in carry]]
+    start.record()
+    for t in range(frames.shape[0]):
+        plain_carry, p, c, bonus = decode_lm.lm_span_reference(
+            frames[t:t + 1], plain_carry, (counts > t).to(torch.int32), word_lm,
+            step=decode_lm.lm_step_reference, **static)
+        parents.append(p)
+        chars.append(c)
+        if record_lm:
+            history.append([leaf.cpu() for leaf in plain_carry])
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    want = (plain_carry, torch.cat(parents, dim=1), torch.cat(chars, dim=1), bonus)
+    names = ["pb", "pnb", "hash", "last", "len", "lm", "trie node", "word context"]
+    for label, g, w in zip(names[:len(carry)] + ["parents", "chars", "tail bonus"],
+                           list(got[0]) + list(got[1:]), list(want[0]) + list(want[1:])):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              "lm_span {}: {} differs from the plain loop".format(name, label))
+    lm_bytes = 0
+    if record_lm and word_lm is not None:
+        lm_bytes = lm_bytes_read(word_lm, history, want[1].cpu(), want[2].cpu(),
+                                 word_lm.space_index)
+    return got, plain_ms, sorted_frames, lm_bytes
+
+
+def phase_a(device, blank, space_index, word_lm):
+    """The span kernel (K4) against its plain loop at the serving shape with and without
+    the word LM, over a lane sweep and from seeded states that take the step's sorted
+    network; the single-frame entry of the step against the plain step; times, bounds
+    and the decode's wall on the span kernel and on the old per-frame route."""
+    import torch
+
+    from speechless_tpu_torch.ops import _kernels, beam_common, decode_lm
 
     k, beam_width, classes, max_len = 8, 25, 29, 513
     static = dict(k=k, blank=blank, beam_width=beam_width, max_decoded_length=max_len,
                   space_index=space_index)
+    weights = dict(lm_weight=0.8, word_count_weight=0.0, valid_word_count_weight=2.3)
     rng = np.random.default_rng(SEED)
-    max_abs_err = 0.0
+
+    # The single-frame entry: seeded states whose duplicate live hashes take the sorted
+    # network, and the states of a real decode, which take the rank network.
     for trial in range(8):
         inputs = random_step_inputs(rng, 16, 32, k, classes, 40, device)
-        kernel = decode_lm.lm_step(*inputs, **static)
-        plain = decode_lm.lm_step_reference(*inputs, **static)
-        torch.cuda.synchronize()
-        for name, got, want in zip("pb pnb hash last len lm idx".split(), kernel, plain):
-            if got.dtype == torch.int32:
-                check(torch.equal(got, want), "step trial {}: {} differs".format(trial, name))
-            else:
-                err = float((got - want).abs().max())
-                check(torch.equal(got, want) or err <= TOLERANCE,
-                      "step trial {}: {} max |err| {}".format(trial, name, err))
-                max_abs_err = max(max_abs_err, err)
-    # Other lane counts: the warp-only network (16, 32 lanes), shared-memory stages
-    # (64..512) and the >48 KB dynamic shared memory of 1024 lanes.
+        for label, got, want in zip("pb pnb hash last len lm idx".split(),
+                                    decode_lm.lm_step(*inputs, **static),
+                                    decode_lm.lm_step_reference(*inputs, **static)):
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  "step trial {}: {} differs".format(trial, label))
     for width, k_other, classes_other in ((1, 1, 4), (8, 2, 6), (8, 7, 120), (8, 8, 29),
                                           (16, 8, 29), (40, 8, 33)):
         r_other = max(8, 1 << (width - 1).bit_length())
         other = dict(static, k=k_other, blank=classes_other - 1, beam_width=width)
         shaped = random_step_inputs(rng, 5, r_other, k_other, classes_other, 40, device)
-        for name, got, want in zip("pb pnb hash last len lm idx".split(),
-                                   decode_lm.lm_step(*shaped, **other),
-                                   decode_lm.lm_step_reference(*shaped, **other)):
+        for label, got, want in zip("pb pnb hash last len lm idx".split(),
+                                    decode_lm.lm_step(*shaped, **other),
+                                    decode_lm.lm_step_reference(*shaped, **other)):
             check(torch.equal(got, want), "step W={} k={} C={}: {} differs".format(
-                width, k_other, classes_other, name))
-    print("phase A step: kernel == plain bitwise at W/k/C = 1/1/4, 8/2/6, 8/7/120, "
-          "8/8/29, 16/8/29, 40/8/33 (16, 32, 64, 128, 256, 1024 candidate lanes)")
+                width, k_other, classes_other, label))
 
-    # Device time of the kernel alone: raw back-to-back launches of the C entry point
-    # (the wrapper's host work per call is timed separately; the plain version is a
-    # chain of ~1000 small torch kernels per step, timed per call).
-    outputs = [torch.empty_like(t) for t in inputs[1:7]] + [torch.empty_like(inputs[3])]
-    raw = (*(t.data_ptr() for t in inputs + outputs), 16, inputs[0].shape[1], 32, k, 512,
-           classes, blank, beam_width, max_len, space_index,
-           torch.cuda.current_stream().cuda_stream)
+    # The serving shape: 16 x 513 frames of peaky-but-noisy posteriors, ragged lengths.
+    frames_n = 513
+    log_probs = torch.from_numpy(serving_posteriors(rng, 16, frames_n, classes, blank)
+                                 ).to(device)
+    lengths = torch.tensor(rng.integers(frames_n // 2, frames_n + 1, 16), dtype=torch.int32,
+                           device=device)
+    lengths[0] = frames_n
+    frames = decode_lm.pack_frames(log_probs, k)
+    span_static = dict(k=k, blank=blank, beam_width=beam_width, max_decoded_length=max_len,
+                       **weights)
+    results = {}
+    for label, lm in (("word LM", word_lm), ("no LM", None)):
+        carry = span_states(16, 32, lm, device)
+        got, plain_ms, sorted_frames, lm_bytes = check_span(
+            "16 x 513 " + label, frames, carry, lengths, lm, span_static,
+            record_lm=lm is not None)
+        ms = cuda_ms(lambda: decode_lm.lm_span(frames, carry, lengths, lm, **span_static),
+                     20)
+        active = int(lengths.sum())
+        # Least time: the active frames' packed rows, the counts and the carry read once;
+        # the carry, backpointers and tail bonus written once; the LM bytes this run's
+        # beams need. Operations, per active row-frame: a comparison sort of the (k + 1) W
+        # live candidates and a segmented log-sum-exp over them, as for K3.
+        live = (k + 1) * beam_width
+        moved = (active * frames.shape[2] * 4 + lengths.numel() * 4
+                 + 2 * sum(t.numel() * t.element_size() for t in carry)
+                 + sum(t.numel() * t.element_size() for t in got[1:]) + lm_bytes)
+        bound_ms, bound_by = bound(moved, active * (live * math.log2(live) + 4 * live))
+        results[label] = dict(ms=ms, per_frame_us=ms / frames_n * 1e3, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
+                              lm_bytes=lm_bytes, sorted_frames=sorted_frames,
+                              active_frames=active, outputs=got)
+        print("phase A span 16 x 513 ({}): kernel == plain loop (carry, parents, chars, "
+              "tail bonus bitwise); {} of {} row-frames took the sorted network; kernel "
+              "{:.4f} ms per launch ({:.2f} us per frame), plain loop {:.1f} ms, bound "
+              "{:.6f} ms ({}: {} bytes, {} of them LM tables)".format(
+                  label, sorted_frames, active, ms, ms / frames_n * 1e3, plain_ms,
+                  bound_ms, bound_by, moved, lm_bytes))
+
+    # Lane sweep (16 to 1024 candidate lanes; the >48 KB shared memory of 1024) over 12
+    # frames, with the word LM where the alphabet is the LM's.
+    for width, k_other, classes_other in ((1, 1, 4), (8, 2, 6), (8, 7, 120), (8, 8, 29),
+                                          (16, 8, 29), (40, 8, 33)):
+        r_other = max(8, 1 << (width - 1).bit_length())
+        lm = word_lm if classes_other == classes else None
+        sweep_lp = torch.from_numpy(serving_posteriors(rng, 5, 12, classes_other,
+                                                       classes_other - 1)).to(device)
+        sweep_static = dict(span_static, k=k_other, blank=classes_other - 1,
+                            beam_width=width)
+        check_span("W={} k={} C={}".format(width, k_other, classes_other),
+                   decode_lm.pack_frames(sweep_lp, k_other),
+                   span_states(5, r_other, lm, device),
+                   torch.tensor([12, 9, 1, 0, 12], dtype=torch.int32, device=device), lm,
+                   sweep_static)
+    # The exactness branch: a span from seeded states with three live lanes of one hash.
+    _, _, exact_frames, _ = check_span(
+        "seeded duplicate hashes", frames[:8], span_states(16, 32, word_lm, device, rng),
+        torch.full((16,), 8, dtype=torch.int32, device=device), word_lm, span_static)
+    check(exact_frames > 0, "the seeded duplicate hashes never took the sorted network")
+    print("phase A span: kernel == plain loop bitwise at W/k/C = 1/1/4, 8/2/6, 8/7/120, "
+          "8/8/29, 16/8/29, 40/8/33 over 12 frames (16 to 1024 candidate lanes, word LM at "
+          "C=29), and from seeded states with duplicate live hashes ({} of 128 row-frames "
+          "took the sorted network)".format(exact_frames))
+
+    # Tokens: the kernel route of the decode against the plain span's outputs.
+    full = results["word LM"]["outputs"]
+    tokens = decode_lm._beam_search(log_probs, lengths, blank, word_lm, beam_width,
+                                    max_len, 0.8, 0.0, 2.3, k)
+    carry, parents, chars, tail = full
+    final = torch.logaddexp(carry[0], carry[1]) + carry[5] + tail
+    best = final.argmax(dim=1)
+    plain_tokens = beam_common.backtrace_tokens(parents, chars, best,
+                                                carry[4].gather(1, best[:, None])[:, 0],
+                                                max_len)
+    check(all(torch.equal(a, b) for a, b in zip(tokens, plain_tokens)),
+          "beam_search_decode_lm 16 x 513: span-kernel tokens differ from the plain loop's")
+
+    # The single-frame entry's device time (raw launches) on seeded states (the sorted
+    # network, as every frame ran before the rank network) and on decode states (the
+    # rank network), and the decode's wall on the span kernel and on the per-frame route
+    # (the step entry per frame with the LM gathers as torch ops between frames).
+    step_ms = {}
+    decode_state = decode_lm.lm_span(frames[:200], span_states(16, 32, word_lm, device),
+                                     lengths, word_lm, **span_static)[0]
     entry = _kernels.function("lm_beam_step")
-    ms = cuda_ms(lambda: check(entry(*raw) == 0, "raw kernel launch failed"), 2000)
-    # Least time: inputs read and outputs written once; operations counted as the
-    # compare-exchanges of the two bitonic sorts (n log n (log n + 1) / 4 each) and the
-    # n log n merge steps of each of the 16 rows of 512 lanes.
-    lanes, stages = 512, 9
-    operations = 16 * (2 * lanes * stages * (stages + 1) / 4 + lanes * stages)
-    bound_ms, bound_by = bound(sum(t.numel() * t.element_size() for t in inputs + outputs),
-                               operations)
-    wrapper_ms = cuda_ms(lambda: decode_lm.lm_step(*inputs, **static), 500)
-    plain_ms = cuda_ms(lambda: decode_lm.lm_step_reference(*inputs, **static), 20)
-    print("phase A step: kernel == plain over 8 seeded states at b=16 r=32 k=8 C=29 "
-          "(max |float err| {}); kernel {:.5f} ms per launch on the device, lm_step "
-          "wrapper {:.5f} ms per call, plain {:.5f} ms per call".format(
-              max_abs_err, ms, wrapper_ms, plain_ms))
-
-    # A full decode of 16 x 513 frames of peaky-but-noisy posteriors, both routes.
-    frames = 513
-    targets = rng.integers(0, classes - 1, (16, frames))
-    targets[rng.random((16, frames)) < 0.5] = blank
-    logits = rng.normal(size=(16, frames, classes)) * 1.5
-    logits[np.arange(16)[:, None], np.arange(frames)[None, :], targets] += 6.0
-    log_probs = torch.log_softmax(torch.tensor(logits, dtype=torch.float32), -1).to(device)
-    lengths = torch.tensor(rng.integers(frames // 2, frames + 1, 16), device=device)
-    lengths[0] = frames
-    routes = {}
-    for name, step in (("kernel", decode_lm.lm_step), ("plain", decode_lm.lm_step_reference)):
+    seeded = random_step_inputs(rng, 16, 32, k, classes, 40, device)
+    real = [frames[200]] + decode_state[:6] + [seeded[7]]
+    for label, inputs in (("sorted", seeded), ("rank", real)):
+        outputs = [torch.empty_like(t) for t in inputs[1:7]] + [torch.empty_like(inputs[3])]
+        raw = (*(t.data_ptr() for t in inputs + outputs), 16, inputs[0].shape[1], 32, k,
+               512, classes, blank, beam_width, max_len, space_index,
+               torch.cuda.current_stream().cuda_stream)
+        step_ms[label] = cuda_ms(lambda: check(entry(*raw) == 0, "raw step launch failed"),
+                                 2000)
+    walls = {}
+    for label, step in (("span", None), ("per-frame", decode_lm.lm_step)):
+        decode_lm._beam_search(log_probs, lengths, blank, word_lm, beam_width, max_len,
+                               0.8, 0.0, 2.3, k, step=step)
         torch.cuda.synchronize()
         start = time.perf_counter()
-        routes[name] = decode_lm._beam_search(
-            log_probs, lengths, blank, word_lm, beam_width, frames, 0.8, 0.0, 2.3, k,
-            step=step)
+        decode_lm._beam_search(log_probs, lengths, blank, word_lm, beam_width, max_len,
+                               0.8, 0.0, 2.3, k, step=step)
         torch.cuda.synchronize()
-        routes[name] += (time.perf_counter() - start,)
-    check(torch.equal(routes["kernel"][0], routes["plain"][0])
-          and torch.equal(routes["kernel"][1], routes["plain"][1]),
-          "513-frame beam_search_decode_lm: kernel and plain tokens differ")
-    print("phase A decode: beam_search_decode_lm 16 x 513 frames, W=25, word LM: tokens "
-          "identical on both routes ({} tokens); wall {:.3f} s kernel, {:.3f} s plain".format(
-              int(routes["kernel"][1].sum()), routes["kernel"][2], routes["plain"][2]))
-    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+        walls[label] = time.perf_counter() - start
+    print("phase A step entry (one frame, 16 rows, 512 lanes): {:.5f} ms per launch on "
+          "seeded states (sorted network), {:.5f} ms on decode states (rank network); "
+          "beam_search_decode_lm 16 x 513 with the word LM: tokens equal to the plain "
+          "loop's ({} tokens), wall {:.4f} s on the span kernel, {:.4f} s on the "
+          "per-frame route".format(step_ms["sorted"], step_ms["rank"],
+                                   int(tokens[1].sum()), walls["span"],
+                                   walls["per-frame"]))
+    lm_result = results["word LM"]
+    return {"max_abs_err": 0.0, "ms": lm_result["ms"], "plain_ms": lm_result["plain_ms"],
+            "bound_ms": lm_result["bound_ms"], "bound_by": lm_result["bound_by"],
+            "per_frame_us": lm_result["per_frame_us"],
+            "no_lm_ms": results["no LM"]["ms"], "step_ms": step_ms, "walls": walls,
+            "decode_outputs": full, "frames": frames, "lengths": lengths}
 
 
 def serving_params(config):
@@ -281,7 +460,7 @@ def phase_b(device, lm_directory):
 
     from speechless_tpu_torch.features.spectrogram import features_batch
     from speechless_tpu_torch.models import wav2letter as w2l
-    from speechless_tpu_torch.ops import decode_lm
+    from speechless_tpu_torch.ops import beam_common, decode_lm
     from speechless_tpu_torch.serving import CHARSETS, Transcriber, grouped_padded_batches
     from speechless_tpu_torch.serving_http import TranscriptionServer
 
@@ -322,20 +501,27 @@ def phase_b(device, lm_directory):
                                   "application/octet-stream; rate=16000")
 
     try:
-        decode_lm.lm_step.launches = 0
+        decode_lm.lm_span.launches = decode_lm.lm_step.launches = 0
+        beam_common.beam_backtrace.launches = 0
         threads = [threading.Thread(target=send, args=(i,)) for i in range(len(audios))]
         for thread in threads:
             thread.start()
         for thread in threads:
             thread.join(timeout=600)
-        launches = decode_lm.lm_step.launches
+        launches = {"lm_beam_span": decode_lm.lm_span.launches,
+                    "beam_backtrace": beam_common.beam_backtrace.launches,
+                    "lm_beam_step": decode_lm.lm_step.launches}
         with urllib.request.urlopen("http://127.0.0.1:{}/metrics".format(server.port),
                                     timeout=60) as response:
             metrics = json.loads(response.read())
     finally:
         server.stop()
     check(all(r is not None for r in results), "a request did not complete")
-    check(launches > 0, "lm_step.launches did not rise while serving")
+    buckets = len({transcriber._bucket(len(a)) for a in audios})
+    check(launches == {"lm_beam_span": buckets, "beam_backtrace": buckets,
+                       "lm_beam_step": 0},
+          "serving {} length buckets launched {} (want one span and one backtrace per "
+          "bucket, no per-frame step)".format(buckets, launches))
     check(metrics["batches"] == 1, "the six requests were served in {} batches, not "
           "one".format(metrics["batches"]))
     direct = transcriber.transcribe_batch(audios)
@@ -348,9 +534,8 @@ def phase_b(device, lm_directory):
             "octet-stream" if index == octet_stream else "json", seconds, len(text),
             text[:60]))
     print("phase B served {} requests in {} batch ({} length buckets, the 2 s one with 2 "
-          "rows); lm_step.launches = {}".format(metrics["requests"], metrics["batches"],
-                                                len({transcriber._bucket(len(a))
-                                                     for a in audios}), launches))
+          "rows); launches {}".format(metrics["requests"], metrics["batches"], buckets,
+                                      launches))
 
     # The output is right by the repo's own means: finite posteriors of the expected
     # shape, in fp32 (they match the same model on the CPU), and each transcript of
@@ -374,24 +559,31 @@ def phase_b(device, lm_directory):
     for row, index in enumerate((0, 5)):
         plain_text = transcriber.codec.decode_graphemes(
             tokens[row, :int(counts[row])].tolist(), merge_repeated=False)
-        check(plain_text == direct[index][0], "request {}: plain-step beam {!r} != "
+        check(plain_text == direct[index][0], "request {}: plain-loop beam {!r} != "
               "{!r}".format(index, plain_text, direct[index][0]))
     print("phase B 2 s + 1.6 s bucket: log-probs {} finite, max |card - CPU| {} (fp32, "
-          "limit {}); the plain-step beam on both rows gives the served texts".format(
-              tuple(log_probs.shape), fp32_err, FP32_TOLERANCE))
+          "limit {}); the plain loop (lm_span_reference, plain backtrace) on both rows "
+          "gives the served texts".format(tuple(log_probs.shape), fp32_err,
+                                          FP32_TOLERANCE))
 
     batch = [audio(8.0) for _ in range(16)]
     transcriber.transcribe_batch(batch)
-    runs = 3
+    runs = 5
+    decode_lm.lm_span.launches = decode_lm.lm_step.launches = 0
+    torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(runs):
         texts = transcriber.transcribe_batch(batch)
+    torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     check(len(texts) == 16 and all(isinstance(t, str) for t, _ in texts), "batch output")
-    print("phase B transcribe_batch 16 x 8 s: {:.3f} s per batch, {:.2f} utterances/s, "
-          "{:.1f} x realtime".format(elapsed / runs, 16 * runs / elapsed,
-                                     16 * 8.0 * runs / elapsed))
-    return launches, transcriber, batch, audios[0], audio
+    check(decode_lm.lm_span.launches == runs and decode_lm.lm_step.launches == 0,
+          "{} batches of 16 x 8 s launched the span kernel {} times and the step {}".format(
+              runs, decode_lm.lm_span.launches, decode_lm.lm_step.launches))
+    print("phase B transcribe_batch 16 x 8 s: {:.4f} s per batch, {:.2f} utterances/s, "
+          "{:.1f} x realtime; one span launch per batch".format(
+              elapsed / runs, 16 * runs / elapsed, 16 * 8.0 * runs / elapsed))
+    return launches, transcriber, batch, audios[0], audio, elapsed / runs
 
 
 def phase_profile(transcriber, batch, short_audio, out_path: Path) -> None:
@@ -462,8 +654,10 @@ def phase_profile(transcriber, batch, short_audio, out_path: Path) -> None:
         device_busy_s=busy_s,
         device_idle_share=1.0 - busy_s / numbers["transcribe_batch_s"],
         device_ops_per_batch=sum(count for count, _ in per_name.values()),
-        lm_beam_step=[[count, us / 1e3] for name, (count, us) in top
-                      if "lm_beam_step" in name],
+        lm_beam_span=[[count, us / 1e3] for name, (count, us) in top
+                      if "lm_beam_span" in name],
+        beam_backtrace=[[count, us / 1e3] for name, (count, us) in top
+                        if "beam_backtrace" in name],
         top_device_ops_ms=[[name[:72], count, us / 1e3] for name, (count, us) in top[:12]])
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(numbers, indent=1))
@@ -1000,22 +1194,22 @@ def check_stitch_kernel(rng, device, classes):
 
 def check_stream_decoder(rng, device, blank, word_lm, profile_path=None):
     """`KernelBeamStreamDecoder` with the word LM on the card: 16 serving-shape streams
-    of 513 frames fed by `feed_batch` in 32-frame pieces, once on the kernels and once
-    on the plain steps (tokens equal, scores within SCORE_RTOL), and against the offline
-    `beam_search_decode_lm` over the same frames (chunked equals offline). A third run
-    synchronizes around every kernel call to split a piece round into the K4 frame
-    loop, the stitch and the rest (the LM glue between frames, packing, stacking); a
-    fourth runs on the kernels while another thread decodes offline (same results,
-    its time per round)."""
+    of 513 frames fed by `feed_batch` in 32-frame pieces, once on the kernels (one span
+    launch and one stitch launch per piece round) and once on the plain loop (tokens
+    equal, scores within SCORE_RTOL), and against the offline `beam_search_decode_lm`
+    over the same frames (chunked equals offline). A third run synchronizes around
+    every kernel call to split a piece round into the span kernel, the stitch and the
+    rest (packing, stacking, ranking); a fourth runs on the kernels while another
+    thread decodes offline (same results, its time per round)."""
     import torch
 
-    from speechless_tpu_torch.ops import decode_lm
+    from speechless_tpu_torch.ops import decode_incremental_kernel, decode_lm
     from speechless_tpu_torch.ops.decode_incremental_kernel import (
         KernelBeamStreamDecoder, stitch_reference, stream_stitch)
 
     classes = blank + 1
     log_probs = serving_posteriors(rng, STREAM_N, STREAM_FRAMES, classes, blank)
-    spent = {"k4": 0.0, "stitch": 0.0}
+    spent = {"span": 0.0, "stitch": 0.0}
 
     def timed(fn, key):
         def run(*args, **kwargs):
@@ -1044,16 +1238,28 @@ def check_stream_decoder(rng, device, blank, word_lm, profile_path=None):
         torch.cuda.synchronize()
         return results, time.perf_counter() - start
 
-    for name, step, stitch in (
-            ("warm-up", decode_lm.lm_step, stream_stitch),
-            ("kernel", decode_lm.lm_step, stream_stitch),
-            ("plain", decode_lm.lm_step_reference, stitch_reference),
-            ("split", timed(decode_lm.lm_step, "k4"), timed(stream_stitch, "stitch"))):
+    launches = {}
+    for name, step, stitch in (("warm-up", None, stream_stitch),
+                               ("kernel", None, stream_stitch),
+                               ("plain", decode_lm.lm_step_reference, stitch_reference)):
+        decode_lm.lm_span.launches = decode_lm.lm_step.launches = 0
+        stream_stitch.launches = 0
         routes[name] = stream_all(step, stitch)
+        launches[name] = (decode_lm.lm_span.launches, stream_stitch.launches,
+                          decode_lm.lm_step.launches)
+    check(launches["kernel"] == (rounds, rounds, 0),
+          "{} piece rounds launched (span, stitch, step) {}".format(rounds,
+                                                                  launches["kernel"]))
+    # The split: the decoder's span function and stitch, each synchronized and timed.
+    original = decode_incremental_kernel.span_function
+    decode_incremental_kernel.span_function = lambda step: timed(decode_lm.lm_span, "span")
+    try:
+        routes["split"] = stream_all(None, timed(stream_stitch, "stitch"))
+    finally:
+        decode_incremental_kernel.span_function = original
 
     # The same run on the kernels while another thread decodes one stream offline
-    # (another host-bound beam loop, as a two-pass final is in the HTTP run): both loops
-    # issue hundreds of small torch calls per frame and share one interpreter lock.
+    # (another beam, as a two-pass final is in the HTTP run).
     stop = threading.Event()
 
     def offline_loop():
@@ -1066,14 +1272,15 @@ def check_stream_decoder(rng, device, blank, word_lm, profile_path=None):
     rival = threading.Thread(target=offline_loop)
     rival.start()
     try:
-        routes["contended"] = stream_all(decode_lm.lm_step, stream_stitch)
+        routes["contended"] = stream_all(None, stream_stitch)
     finally:
         stop.set()
         rival.join(timeout=600)
     check(not rival.is_alive(), "the offline decode thread did not stop")
-    for (_, got), (_, want) in zip(routes["contended"][0], routes["kernel"][0]):
-        check(np.array_equal(got.tokens, want.tokens) and got.score == want.score,
-              "stream decoder: a concurrent offline decode changed the results")
+    for route in ("contended", "split"):
+        for (_, got), (_, want) in zip(routes[route][0], routes["kernel"][0]):
+            check(np.array_equal(got.tokens, want.tokens) and got.score == want.score,
+                  "stream decoder: the {} run changed the results".format(route))
     for (got_state, got), (_, want) in zip(routes["kernel"][0], routes["plain"][0]):
         check(np.array_equal(got.tokens, want.tokens), "stream decoder: kernel and plain "
               "tokens differ")
@@ -1091,19 +1298,20 @@ def check_stream_decoder(rng, device, blank, word_lm, profile_path=None):
     if profile_path is not None:
         profile_piece_round(log_probs, blank, word_lm, device, profile_path)
     piece_ms = {name: seconds / rounds * 1e3 for name, (_, seconds) in routes.items()}
-    split = {"k4_loop_ms": spent["k4"] / rounds * 1e3,
+    split = {"span_ms": spent["span"] / rounds * 1e3,
              "stitch_ms": spent["stitch"] / rounds * 1e3}
-    split["lm_glue_ms"] = piece_ms["split"] - split["k4_loop_ms"] - split["stitch_ms"]
+    split["rest_ms"] = piece_ms["split"] - split["span_ms"] - split["stitch_ms"]
     print("phase D decoder: {} streams x {} frames, W=25, word LM, {}-frame pieces by "
           "feed_batch: kernel and plain tokens identical ({} tokens), scores within {}, "
-          "and equal to the offline beam_search_decode_lm; {:.2f} ms per piece round on "
-          "the kernels ({:.2f} ms with an offline decode in another thread), {:.2f} ms on "
-          "the plain steps; synchronized split of a round ({:.2f} ms): K4 frame loop "
-          "{:.2f} ms, stitch {:.3f} ms, LM glue and the rest {:.2f} ms".format(
-              STREAM_N, STREAM_FRAMES, STREAM_CF, int(counts.sum()), SCORE_RTOL,
-              piece_ms["kernel"], piece_ms["contended"], piece_ms["plain"],
-              piece_ms["split"], split["k4_loop_ms"], split["stitch_ms"],
-              split["lm_glue_ms"]))
+          "and equal to the offline beam_search_decode_lm; launches in {} rounds (span, "
+          "stitch, step) {}; {:.3f} ms per piece round on the kernels ({:.3f} ms with an "
+          "offline decode in another thread), {:.2f} ms on the plain loop; synchronized "
+          "split of a round ({:.3f} ms): span kernel {:.3f} ms, stitch {:.3f} ms, the "
+          "rest {:.3f} ms".format(
+              STREAM_N, STREAM_FRAMES, STREAM_CF, int(counts.sum()), SCORE_RTOL, rounds,
+              launches["kernel"], piece_ms["kernel"], piece_ms["contended"],
+              piece_ms["plain"], piece_ms["split"], split["span_ms"], split["stitch_ms"],
+              split["rest_ms"]))
     return dict(piece_ms, **split)
 
 
@@ -1237,14 +1445,16 @@ def phase_d_http(transcriber, make_audio, label):
                                 sum(len(item.payload[1]) if isinstance(item.payload, tuple)
                                     else len(item.payload) for item in batch)))
             batcher._serve = logged
-        decode_lm.lm_step.launches = stream_stitch.launches = 0
+        decode_lm.lm_span.launches = decode_lm.lm_step.launches = 0
+        stream_stitch.launches = 0
         threads = [threading.Thread(target=run, args=(i,)) for i in range(len(sessions))]
         for thread in threads:
             thread.start()
         for thread in threads:
             thread.join(timeout=900)
-        launches = {"lm_beam_step": decode_lm.lm_step.launches,
-                    "stream_stitch": stream_stitch.launches}
+        launches = {"lm_beam_span": decode_lm.lm_span.launches,
+                    "stream_stitch": stream_stitch.launches,
+                    "lm_beam_step": decode_lm.lm_step.launches}
         advance_metrics = server.streams.beam_batcher.metrics()
         served = server.streams.beam_batcher.decoder
     finally:
@@ -1252,7 +1462,8 @@ def phase_d_http(transcriber, make_audio, label):
     check(len(finals) == len(sessions), "a stream session did not finish")
     check(all(status == 200 for status in statuses), "stream replies: {}".format(
         sorted(set(statuses))))
-    check(launches["lm_beam_step"] > 0 and launches["stream_stitch"] > 0,
+    check(launches["lm_beam_span"] > 0 and launches["stream_stitch"] > 0
+          and launches["lm_beam_step"] == 0,
           "the stream sessions launched the kernels {}".format(launches))
 
     # Replay every beam session's consumed rows, advance by advance, through the
@@ -1303,13 +1514,13 @@ def phase_d_http(transcriber, make_audio, label):
           "equal their plain-step replays ({} frames), the two-pass final the offline "
           "transcript; {} advances in {} batches; feed latency greedy p50 {:.4f} s p95 "
           "{:.4f} s, beam p50 {:.4f} s p95 {:.4f} s; slowest [s, feed index] greedy {} "
-          "beam {}; launches lm_beam_step {} stream_stitch {}; finals: {}".format(
+          "beam {}; launches lm_beam_span {} stream_stitch {}; finals: {}".format(
               label, len(sessions), int(HTTP_SECONDS / HTTP_CHUNK_S), HTTP_CHUNK_S,
               transcriber.device, numbers["frames_consumed"], numbers["advances"],
               numbers["advance_batches"], numbers["greedy_feed_p50_s"],
               numbers["greedy_feed_p95_s"], numbers["beam_feed_p50_s"],
               numbers["beam_feed_p95_s"], numbers["greedy_slowest_feeds"],
-              numbers["beam_slowest_feeds"], launches["lm_beam_step"],
+              numbers["beam_slowest_feeds"], launches["lm_beam_span"],
               launches["stream_stitch"], [finals[sid]["text"][:24] for sid in sessions]))
     print("phase D HTTP ({} pass) slowest dispatches [start s, seconds, batch, work]: {}; "
           "finishes [mode, start s, seconds]: {}".format(
@@ -1412,11 +1623,40 @@ def check_prefix_beam(name, log_probs, lengths, blank, beam_width, k, skip, devi
     return result, got
 
 
-def phase_e(device, transcriber, batch, lm_directory, vocabulary):
+def check_backtrace(name, parents, chars, best, counts, max_len, iterations):
+    """`beam_backtrace` (the kernel) against `backtrace_tokens` (plain PyTorch) on the
+    same CUDA tensors: tokens and counts equal. CUDA-event times of both and the least
+    time by bytes: two words a frame along each row's path, best and count read once,
+    the tokens and counts written once."""
+    import torch
+
+    from speechless_tpu_torch.ops.beam_common import backtrace_tokens, beam_backtrace
+
+    got = beam_backtrace(parents, chars, best, counts, max_len)
+    want = backtrace_tokens(parents, chars, best, counts, max_len)
+    for label, g, w in zip(("tokens", "counts"), got, want):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              "beam_backtrace {}: {} differ from the plain version".format(name, label))
+    ms = cuda_ms(lambda: beam_backtrace(parents, chars, best, counts, max_len), iterations)
+    plain_ms = cuda_ms(lambda: backtrace_tokens(parents, chars, best, counts, max_len), 5)
+    batch, t_max, _ = parents.shape
+    moved = 4 * (2 * batch * t_max + 2 * batch) + sum(t.numel() * t.element_size()
+                                                      for t in got)
+    bound_ms, bound_by = bound(moved, 0.0)
+    print("phase E beam_backtrace {}: B={} T={} max_len={}: kernel == plain (tokens, "
+          "counts); kernel {:.4f} ms per launch, plain {:.3f} ms, bound {:.6f} ms ({}: {} "
+          "bytes)".format(name, batch, t_max, max_len, ms, plain_ms, bound_ms, bound_by,
+                          moved))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": 0.0}
+
+
+def phase_e(device, transcriber, batch, lm_directory, vocabulary, span_outputs):
     """Offline decoding on the card: K3 against its plain version in cases (a) to (c), K3
-    with skipping off against the K4 frame-loop beam, the router's skip route launching
-    K3 once, and the plain batched beam (n-best over HTTP, lexicon-constrained batches,
-    repeatability, the card against the CPU)."""
+    with skipping off against the span kernel's no-LM beam, the router's skip route
+    launching K3 once, the backtrace kernel against its plain version on K3's and on
+    phase A's span outputs, and the plain batched beam (n-best over HTTP,
+    lexicon-constrained batches, repeatability, the card against the CPU)."""
     import torch
 
     from speechless_tpu_torch.ops.beam_common import backtrace_tokens
@@ -1455,12 +1695,13 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary):
     lanes = sorted({case["n_pad"] for case in cases.values()})
     check(lanes[0] == 32 and lanes[-1] == 1024, "the K3 cases cover lanes {}".format(lanes))
 
-    # K3 with skipping off is the K4 frame-loop beam (JAX's claim for both no-LM routes).
+    # K3 with skipping off is the span kernel's no-LM beam (JAX's claim for both no-LM
+    # routes).
     options = dict(beam_width=25, max_decoded_length=served.shape[1], prune_classes=8)
     whole = beam_search_decode_whole(served, frames, blank, **options)
     loop = beam_search_decode_frames(served, frames, blank, **options)
     check(torch.equal(whole[0], loop[0]) and torch.equal(whole[1], loop[1]),
-          "K3 without skipping and the K4 frame-loop beam differ")
+          "K3 without skipping and the span kernel's no-LM beam differ")
 
     # The router's skip route: one K3 launch, the plain version's tokens.
     prefix_beam.launches = 0
@@ -1475,6 +1716,14 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary):
                              served.shape[1])
     check(torch.equal(tokens, plain[0]) and torch.equal(counts, plain[1]),
           "the router's skip route and the plain K3 give other tokens")
+    backtraces = {"k3": check_backtrace("on K3 (a)", parents, chars, best.to(torch.int32),
+                                        lens.gather(1, best[:, None])[:, 0],
+                                        served.shape[1], 50)}
+    carry, span_parents, span_chars, tail = span_outputs
+    span_best = (torch.logaddexp(carry[0], carry[1]) + carry[5] + tail).argmax(dim=1)
+    backtraces["span"] = check_backtrace(
+        "on the span (word LM)", span_parents, span_chars, span_best,
+        carry[4].gather(1, span_best[:, None])[:, 0], span_parents.shape[1], 50)
     # The no-LM routes end to end on (a) (synchronized host clock, mean of 3 after one).
     def wall_s(fn, runs=3):
         fn()
@@ -1490,16 +1739,16 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary):
             served, frames, blank, skip_blank_log_prob=SKIP_BLANK, **options)),
         "k3_exact_s": wall_s(lambda: beam_search_decode_whole(served, frames, blank,
                                                               **options)),
-        "k4_loop_s": wall_s(lambda: beam_search_decode_frames(served, frames, blank,
-                                                              **options)),
+        "span_no_lm_s": wall_s(lambda: beam_search_decode_frames(served, frames, blank,
+                                                                 **options)),
         "plain_beam_s": wall_s(lambda: beam_search_decode(served, frames, blank, **options),
                                runs=1)}
-    print("phase E: K3 without skipping == the K4 frame-loop beam ({} tokens); the "
+    print("phase E: K3 without skipping == the span kernel's no-LM beam ({} tokens); the "
           "router's skip route launched K3 {} time, tokens == the plain version's; no-LM "
           "decode of (a), wall per call: K3 {:.4f} s with skipping, {:.4f} s without, the "
-          "K4 frame loop {:.4f} s, the plain batched beam {:.4f} s".format(
+          "span kernel {:.4f} s, the plain batched beam {:.4f} s".format(
               int(whole[1].sum()), launches, routes["k3_skip_s"], routes["k3_exact_s"],
-              routes["k4_loop_s"], routes["plain_beam_s"]))
+              routes["span_no_lm_s"], routes["plain_beam_s"]))
 
     # The plain batched beam: n-best over HTTP, against a direct call.
     audio = batch[0]
@@ -1558,7 +1807,7 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary):
           "card bitwise equal; the lexicon beam on the peaky batch equal on card and CPU "
           "({} tokens)".format(NBEST, len(want), numbers["nbest_request_s"], lexicon_s,
                                sum(len(row) for row in words), int(on_cpu[1].sum())))
-    numbers.update(routes, cases=cases, launches=launches)
+    numbers.update(routes, cases=cases, launches=launches, backtraces=backtraces)
     return numbers
 
 
@@ -1616,7 +1865,7 @@ def main() -> None:
         print("word LM: {} sentences of README.md, {} trie nodes, {} unigrams".format(
             len(sentences), word_lm.trie.shape[0], word_lm.uni_logp.shape[0]))
         step = phase_a(device, len(alphabet), alphabet.index(" "), word_lm)
-        launches, transcriber, batch, short_audio, make_audio = phase_b(
+        launches, transcriber, batch, short_audio, make_audio, batch_s = phase_b(
             device, Path(lm_directory))
         if args.profile:
             phase_profile(transcriber, batch, short_audio,
@@ -1625,19 +1874,34 @@ def main() -> None:
                             ROOT / "chiprun_out" / "profile_stream.json"
                             if args.profile else None)
         offline = phase_e(device, transcriber, batch, Path(lm_directory),
-                          {word for sentence in sentences for word in sentence.split()})
+                          {word for sentence in sentences for word in sentence.split()},
+                          step["decode_outputs"])
     train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "speechless_tpu")],
           "the port imported jax or the JAX package")
 
     ctc = train["ctc"]
+    backtrace = offline["backtraces"]["span"]
+    print("summary: span kernel {:.4f} ms per 16 x 513 launch ({:.2f} us per frame; "
+          "no LM {:.4f} ms); step entry {:.5f} ms per frame on the sorted network, {:.5f} "
+          "ms on the rank network; transcribe_batch 16 x 8 s {:.4f} s; stream piece round "
+          "{:.3f} ms".format(step["ms"], step["per_frame_us"], step["no_lm_ms"],
+                             step["step_ms"]["sorted"], step["step_ms"]["rank"], batch_s,
+                             streaming["decoder"]["kernel"]))
     print(json.dumps({"kernels": [{
-        "name": "lm_beam_step", "route": "cuda",
-        "source": "speechless_tpu_torch/csrc/lm_beam_step.cu",
+        "name": "lm_beam_span", "route": "cuda",
+        "source": "speechless_tpu_torch/csrc/lm_beam_span.cu",
         "replaces": "speechless_tpu/ops/decode_pallas_lm.py:124",
-        "launches": launches, "max_abs_err": step["max_abs_err"], "ms": step["ms"],
-        "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+        "launches": launches["lm_beam_span"], "max_abs_err": step["max_abs_err"],
+        "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": None}, {
+        "name": "beam_backtrace", "route": "cuda",
+        "source": "speechless_tpu_torch/csrc/beam_backtrace.cu",
+        "replaces": "speechless_tpu/ops/decode_jax.py:34",
+        "launches": launches["beam_backtrace"], "max_abs_err": backtrace["max_abs_err"],
+        "ms": backtrace["ms"], "plain_ms": backtrace["plain_ms"],
+        "bound_ms": backtrace["bound_ms"], "bound_by": backtrace["bound_by"],
+        "library_ms": None}, {
         "name": "ctc_alpha", "route": "cuda",
         "source": "speechless_tpu_torch/csrc/ctc_alpha.cu",
         "replaces": "speechless_tpu/ops/ctc_pallas.py:45",

@@ -1,23 +1,17 @@
-// One frame of the word-LM-fused CTC prefix beam search, hand-written for Hopper.
+// One frame of the word-LM-fused CTC prefix beam search, hand-written for Hopper: the
+// single-frame test entry of the shared frame step.
 //
-// Replaces the TPU kernel speechless_tpu/ops/decode_pallas_lm.py::_lm_step_kernel and
-// computes what it computes, bit for bit: the frame network of beam_step.cuh (expand,
-// sort by prefix hash, segmented log-sum-exp merge with the LM score as a rider, sort
-// on -(score + lm), keep the top W). The plain PyTorch twin is
-// speechless_tpu_torch/ops/decode_lm.py::lm_step_reference.
+// No serving path launches it any more: offline decoding and streaming run every frame
+// of a span in one launch of lm_beam_span.cu (K4, the port of
+// speechless_tpu/ops/decode_pallas_lm.py::_lm_step_kernel). This entry runs the same
+// beam::beam_step of beam_step.cuh on one frame of given states, so that chip_smoke.py
+// can hold the step against speechless_tpu_torch/ops/decode_lm.py::lm_step_reference on
+// states no decode produces: random bonuses and duplicate live hashes, which take the
+// step's sorted network (its exactness branch).
 //
-// What bounds it on the H100: latency, not bytes or FLOPs. A row reads and writes a few
-// KB per frame, but its candidates pass two bitonic sorts of n_pad lanes (45 dependent
-// compare-exchange stages each at n_pad = 512, the serving shape) plus log2(n_pad)
-// merge stages, every one a round of cross-lane exchange, once per frame.
-// What the design does about it: one thread block per utterance row (rows are
-// independent, so a batch spreads over the SMs) and one thread per candidate lane;
-// partners closer than a warp are exchanged by shuffles (35 of the 45 stages), and the
-// sorts carry a source lane instead of the payloads. Everything stays in registers and
-// shared memory; the kernel allocates nothing.
-//
-// The LM gathers (trie walk, cuckoo probes, word bonuses) run as torch ops between
-// frames, as they ran as XLA ops outside the Pallas kernel.
+// One thread block per row, one thread per candidate lane; the step's scratch (the
+// sorted network's arrays and the rank network's hash table) lives in dynamic shared
+// memory. The kernel allocates nothing.
 #include "beam_step.cuh"
 
 namespace {
@@ -34,6 +28,8 @@ __global__ void lm_beam_step_kernel(
   extern __shared__ int smem[];
   const size_t row = blockIdx.x;
   const size_t at = row * r;  // this row's r state lanes
+  beam::init_scratch(smem);
+  __syncthreads();
   beam::beam_step(frame + row * frame_width, pb + at, pnb + at, hash + at, last + at,
                   len + at, lm + at, bonus + at, out_pb + at, out_pnb + at, out_hash + at,
                   out_last + at, out_len + at, out_lm + at, out_idx + at, smem, r, k,
@@ -51,7 +47,7 @@ extern "C" int lm_beam_step(const float* frame, const float* pb, const float* pn
                             float* out_lm, int* out_idx, int batch, int frame_width, int r,
                             int k, int n_pad, int class_count, int blank, int beam_width,
                             int max_len, int space_index, void* stream) {
-  const int shared_bytes = beam::kScratchArrays * n_pad * static_cast<int>(sizeof(int));
+  const int shared_bytes = beam::kScratchWords * n_pad * static_cast<int>(sizeof(int));
   if (shared_bytes > 48 * 1024) {
     const cudaError_t status = cudaFuncSetAttribute(
         lm_beam_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);

@@ -10,9 +10,12 @@
 //   the fast path: only the blank / non-blank split of each beam updates; hash, last
 //   char and length stay, and the backpointers are (own lane, no char);
 // * otherwise the full update of beam_step.cuh with no LM rider (K4's step): expand,
-//   bitonic sort on the int32 hash, Hillis-Steele segmented log-sum-exp with the
-//   min-index representative and the run-start mask (decode_pallas.py:323-330), a
-//   second sort on -score with the index as secondary, keep the top W.
+//   merge equal prefix hashes with the min-index representative (decode_pallas.py:
+//   323-330), keep the top W by -score with the index as secondary; the step's rank
+//   network, or its sorted network when a hash gathers more than two live candidates.
+//
+// The next frame's packed row is copied into shared memory with cp.async while the
+// current frame runs (two row buffers), so no frame waits on a device-memory load.
 //
 // Every frame's (parent, char) row goes to (B, T, r) int32 (rows past the utterance's
 // length pass every beam through); the final pb, pnb and length to (B, r). The top-k
@@ -24,9 +27,9 @@
 // frames in, the backpointers out: ~1.1 us at 3.35 TB/s), but each utterance is T
 // dependent frames of ~100 barrier or shuffle stages (two bitonic sorts and the merge),
 // and one block per utterance keeps 16 of the 132 SMs busy at B = 16. What the design
-// does about it: no launch or host step between frames, and the state never leaves
-// shared memory. A faster version (several utterances per block, the next frame
-// prefetched with cp.async) is later work.
+// does about it: no launch or host step between frames, the state never leaves shared
+// memory, and the frame step pays a handful of barriers instead of ~40. Several
+// utterances per block is later work.
 #include "beam_step.cuh"
 
 namespace {
@@ -44,13 +47,13 @@ __global__ void prefix_beam_kernel(
   const int n = blockDim.x;
   const int lane = threadIdx.x;
   const int row = blockIdx.x;
-  float* st_pb = reinterpret_cast<float*>(smem + beam::kScratchArrays * n);
+  float* st_pb = reinterpret_cast<float*>(smem + beam::kScratchWords * n);
   float* st_pnb = st_pb + r;
   int* st_hash = reinterpret_cast<int*>(st_pnb + r);
   int* st_last = st_hash + r;
   int* st_len = st_last + r;
   int* st_idx = st_len + r;
-  float* fr = reinterpret_cast<float*>(st_idx + r);  // this frame's packed row
+  float* rows = reinterpret_cast<float*>(st_idx + r);  // two packed frame rows
 
   if (lane < r) {  // one live empty prefix in lane 0
     st_pb[lane] = lane == 0 ? 0.f : beam::kNegInf;
@@ -59,12 +62,19 @@ __global__ void prefix_beam_kernel(
     st_last[lane] = -1;
     st_len[lane] = 0;
   }
+  beam::init_scratch(smem);
   const int length = min(max(lengths[row], 0), t_max);
+  if (length > 0) beam::prefetch_row(rows, frames + static_cast<size_t>(row) * frame_width,
+                                     frame_width);
   for (int t = 0; t < length; ++t) {
-    __syncthreads();  // the previous frame is done with the state and the frame row
-    const float* src = frames + (static_cast<size_t>(t) * batch + row) * frame_width;
-    for (int i = lane; i < frame_width; i += n) fr[i] = src[i];
-    __syncthreads();
+    __pipeline_wait_prior(0);
+    __syncthreads();  // frame t has landed; every thread is done with frame t - 1
+    const float* fr = rows + (t & 1) * frame_width;
+    if (t + 1 < length) {
+      beam::prefetch_row(rows + ((t + 1) & 1) * frame_width,
+                         frames + (static_cast<size_t>(t + 1) * batch + row) * frame_width,
+                         frame_width);
+    }
     const size_t out = (static_cast<size_t>(row) * t_max + t) * r;
     const float lp_blank = fr[2 * k + blank];
     if (lp_blank > skip_blank_log_prob) {  // the same branch for the whole block
@@ -84,7 +94,8 @@ __global__ void prefix_beam_kernel(
       beam::beam_step(fr, st_pb, st_pnb, st_hash, st_last, st_len, nullptr, nullptr,
                       st_pb, st_pnb, st_hash, st_last, st_len, nullptr, st_idx, smem, r,
                       k, class_count, blank, beam_width, max_len, -2);
-      if (lane < r) {  // each lane reads back only what it wrote itself
+      __syncthreads();  // a beam slot may be written by another lane's candidate
+      if (lane < r) {
         const int idx = st_idx[lane];
         parents[out + lane] = idx / (k + 1);
         chars[out + lane] = idx % (k + 1) > 0 ? st_last[lane] : -1;
@@ -121,7 +132,7 @@ extern "C" int prefix_beam(const float* frames, const int* lengths, int* parents
                            float skip_blank_log_prob, void* stream) {
   if (batch == 0) return 0;
   const int shared_bytes = static_cast<int>(sizeof(int)) *
-                           (beam::kScratchArrays * n_pad + kStateArrays * r + frame_width);
+                           (beam::kScratchWords * n_pad + kStateArrays * r + 2 * frame_width);
   if (shared_bytes > 48 * 1024) {
     const cudaError_t status = cudaFuncSetAttribute(
         prefix_beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);

@@ -25,7 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point of each source: argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
+    "lm_beam_span": [_P] * 31 + [_I] * 15 + [_F] * 3 + [_P],
     "lm_beam_step": [_P] * 15 + [_I] * 10 + [_P],
+    "beam_backtrace": [_P] * 6 + [_I] * 4 + [_P],
     "prefix_beam": [_P] * 7 + [_I] * 10 + [_F, _P],
     "ctc_alpha": [_P] * 6 + [_I] * 4 + [_P],
     "ctc_beta": [_P] * 6 + [_I] * 4 + [_P],

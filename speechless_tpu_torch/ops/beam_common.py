@@ -1,6 +1,8 @@
 """Constants and helpers shared by the prefix beams (port of `speechless_tpu/ops/
 decode_jax.py::backtrace_tokens/_word_bonuses` and the constants of
-`speechless_tpu/ops/decode_pallas.py`).
+`speechless_tpu/ops/decode_pallas.py`), and the backtrace kernel's wrapper
+(`beam_backtrace`, CUDA source ``csrc/beam_backtrace.cu``; `backtrace_tokens` is its
+plain version).
 
 Prefix hashes are int32 with wraparound (``hash * HASH_MULTIPLIER + (char + 2)``); they
 compare as signed int32, so ``DEAD_KEY = INT32_MAX`` sorts after every live prefix.
@@ -8,6 +10,8 @@ compare as signed int32, so ``DEAD_KEY = INT32_MAX`` sorts after every live pref
 from typing import Tuple
 
 import torch
+
+from . import _kernels
 
 NEG_INF = -1e30
 HASH_MULTIPLIER = 16777619    # FNV-ish
@@ -45,6 +49,47 @@ def backtrace_tokens(parents: torch.Tensor, emit_chars: torch.Tensor, best: torc
     counts = counts.to(torch.int32)
     tokens = torch.where(out < counts[:, None], picked, picked.new_full((), -1))
     return tokens.to(torch.int32), counts
+
+
+def beam_backtrace(parents: torch.Tensor, emit_chars: torch.Tensor, best: torch.Tensor,
+                   counts: torch.Tensor, max_decoded_length: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`backtrace_tokens` on the device: one launch of the backtrace kernel for CUDA
+    tensors, `backtrace_tokens` itself for CPU tensors. Same contract;
+    ``beam_backtrace.launches`` counts kernel launches. A build or launch failure
+    raises."""
+    if parents.device.type == "cpu":
+        return backtrace_tokens(parents, emit_chars, best, counts, max_decoded_length)
+    if parents.device.type != "cuda":
+        raise ValueError("beam_backtrace runs on CPU or CUDA tensors, got {}".format(
+            parents.device))
+    batch, t_max, lanes = parents.shape
+    if t_max < 1:
+        raise ValueError("beam_backtrace needs at least one frame")
+    parents = parents.to(torch.int32).contiguous()
+    emit_chars = emit_chars.to(torch.int32).contiguous()
+    if emit_chars.shape != parents.shape or emit_chars.device != parents.device:
+        raise ValueError("beam_backtrace: parents and chars must be (B, T, r) on one device")
+    best = best.to(device=parents.device, dtype=torch.int32).contiguous()
+    counts = counts.to(device=parents.device, dtype=torch.int32).contiguous()
+    if best.shape != (batch,) or counts.shape != (batch,):
+        raise ValueError("beam_backtrace: best and counts must be (B,)")
+    path = torch.empty((batch, t_max), dtype=torch.int32, device=parents.device)
+    tokens = torch.empty((batch, max_decoded_length), dtype=torch.int32,
+                         device=parents.device)
+    with torch.cuda.device(parents.device):
+        status = _kernels.function("beam_backtrace")(
+            *(t.data_ptr() for t in (parents, emit_chars, best, counts, path, tokens)),
+            batch, t_max, lanes, max_decoded_length,
+            torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError("beam_backtrace kernel launch failed with CUDA error {}".format(
+            status))
+    beam_backtrace.launches += 1
+    return tokens, counts
+
+
+beam_backtrace.launches = 0
 
 
 def word_bonuses(word_lm, trie_nodes: torch.Tensor, word_contexts: torch.Tensor,

@@ -11,10 +11,10 @@ ancestor at chunk entry, then its emissions within the chunk).
 
 One chunk advance of N streams (`stream_advance`) runs as follows:
 
-* the chunk's frames are packed (`decode_lm.pack_frames`) and the beam-step kernel
-  (`decode_lm.lm_step`, CUDA source ``csrc/lm_beam_step.cu``) runs once per frame,
-  with the word-LM gathers between frames and the per-row ``t < counts`` mask
-  (`decode_lm._advance`): a row with count 0 is an exact no-op;
+* the chunk's frames are packed (`decode_lm.pack_frames`) and the span kernel
+  (`decode_lm.lm_span`, CUDA source ``csrc/lm_beam_span.cu``) runs every frame of the
+  chunk in one launch, with the word-LM gathers and the per-row ``t < counts`` mask
+  inside it: a row with count 0 is an exact no-op;
 * the stitch-and-rank kernel (`stream_stitch`, CUDA source ``csrc/stream_stitch.cu``)
   rebuilds every lane's token buffer from the chunk's backpointers and picks each
   stream's best lane with its (length, score, longest live length).
@@ -41,8 +41,8 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .beam_common import next_pow2, word_bonuses
-from .decode_lm import _advance, fresh_carry, lm_step, pack_frames
+from .beam_common import next_pow2
+from .decode_lm import fresh_carry, pack_frames, span_function
 
 DEFAULT_DEVICE = "cuda:0"  # the card unless the caller asks for the CPU
 
@@ -153,14 +153,15 @@ def stream_advance(stacked_state: Sequence[torch.Tensor], log_probs: torch.Tenso
                    counts, *, blank: int, beam_width: int, max_decoded_length: int,
                    word_lm=None, lm_weight: float = 0.8, word_count_weight: float = 0.0,
                    valid_word_count_weight: float = 2.3, prune_classes: int = 8,
-                   step=lm_step, stitch=stream_stitch):
+                   step=None, stitch=stream_stitch):
     """One chunk advance of N streams (the port of `_pallas_stream_core`).
 
     ``stacked_state`` is the carry leaves and the token buffer with a leading stream
     dimension (`stacked_fresh_state`'s layout), ``log_probs`` ``(N, F, C)`` on the
     state's device, ``counts`` ``(N,)`` valid frames per row (0 is an exact no-op).
-    ``step`` and ``stitch`` are the one-frame and the stitch functions (the kernels,
-    or `decode_lm.lm_step_reference` and `stitch_reference` to check them against).
+    ``step`` None runs the span kernel (`decode_lm.span_function`); a one-frame
+    function (`decode_lm.lm_step_reference`) runs the plain loop over it instead.
+    ``stitch`` is the stitch function (the kernel, or `stitch_reference`).
     Returns ``(new stacked state, best rows (N, max_len), scalars (N, 3))``."""
     carry, tokens = list(stacked_state[:-1]), stacked_state[-1]
     device = tokens.device
@@ -170,29 +171,21 @@ def stream_advance(stacked_state: Sequence[torch.Tensor], log_probs: torch.Tenso
     # Frames past every row's count are exact no-ops (identity backpointers, nothing
     # emitted): stop at the longest row, as the offline beam does.
     t_run = max(1, min(frames, int(counts.max()) if streams else 0))
-    counts = counts.to(device=device, dtype=torch.int64)
-    static = dict(k=k, blank=blank, beam_width=beam_width,
-                  max_decoded_length=max_decoded_length,
-                  space_index=word_lm.space_index if word_lm is not None else -2)
-    weights = (lm_weight, word_count_weight, valid_word_count_weight)
-    packed = pack_frames(log_probs, k)                                 # (F, N, 2k + C)
+    counts = counts.to(device=device, dtype=torch.int32)
+    packed = pack_frames(log_probs, k)[:t_run]                         # (F, N, 2k + C)
     prev_len = carry[4]
-    parents, chars = [], []
-    for t in range(t_run):
-        carry, (bp_parent, bp_char) = _advance(carry, packed[t], t, counts, step,
-                                               word_lm, k, weights, static)
-        parents.append(bp_parent)
-        chars.append(bp_char)
+    carry, parents, chars, tail_bonus = span_function(step)(
+        packed, carry, counts, word_lm, k=k, blank=blank, beam_width=beam_width,
+        max_decoded_length=max_decoded_length, lm_weight=lm_weight,
+        word_count_weight=word_count_weight,
+        valid_word_count_weight=valid_word_count_weight)
     pb, pnb, _, _, new_len, lm = carry[:6]
     final = torch.logaddexp(pb, pnb) + lm
     if word_lm is not None:
         # The trailing unterminated word joins the ranking, as in the offline beam.
-        tail_bonus, _, _ = word_bonuses(word_lm, carry[6].reshape(-1),
-                                        carry[7].reshape(-1, 2), *weights)
-        final = final + tail_bonus.reshape(final.shape)
+        final = final + tail_bonus
     rows, rows_best, scalars = stitch(
-        torch.stack(parents, dim=1).to(torch.int32).contiguous(),
-        torch.stack(chars, dim=1).to(torch.int32).contiguous(), tokens.contiguous(),
+        parents.contiguous(), chars.contiguous(), tokens.contiguous(),
         prev_len.contiguous(), new_len.contiguous(),
         final.to(torch.float32).contiguous())
     return carry + [rows], rows_best, scalars
@@ -220,17 +213,16 @@ def _host(x) -> np.ndarray:
 
 
 class KernelBeamStreamDecoder:
-    """Streaming prefix-beam decoder on `stream_advance`: the beam-step kernel per
-    frame and the stitch-and-rank kernel per chunk on CUDA, their plain versions on the
-    CPU. Construct once per decoder configuration, then `init_state()` per stream and
+    """Streaming prefix-beam decoder on `stream_advance`: the span kernel and the
+    stitch-and-rank kernel once per chunk on CUDA, their plain versions on the CPU. Construct once per decoder configuration, then `init_state()` per stream and
     `feed(state, log_probs)` with each newly finalized frame range. The decoder holds
     no per-stream state, so one instance serves any number of streams.
 
     ``chunk_frames`` is the frame capacity of one advance: feeds are cut into pieces of
     at most ``chunk_frames`` frames (the last zero-padded and masked). ``device`` holds
-    the state and runs the advance (the word LM is moved there). ``step``/``stitch``
-    swap the one-frame and stitch functions (to run the plain versions on CUDA
-    tensors). ``prune_classes=None`` becomes 8, as in the JAX kernel decoder: the beam
+    the state and runs the advance (the word LM is moved there). ``step`` (a one-frame
+    function for the plain frame loop instead of the span kernel) and ``stitch`` run the
+    plain versions on CUDA tensors. ``prune_classes=None`` becomes 8, as in the JAX kernel decoder: the beam
     step expands the frame's top classes only.
 
     Unbounded streams: the carried token buffer is (lanes, ``max_decoded_length``), and
@@ -248,7 +240,7 @@ class KernelBeamStreamDecoder:
                  lm_weight: float = 0.8, word_lm=None, word_count_weight: float = 0.0,
                  valid_word_count_weight: float = 2.3,
                  prune_classes: Optional[int] = 8, device=DEFAULT_DEVICE,
-                 step=lm_step, stitch=stream_stitch):
+                 step=None, stitch=stream_stitch):
         if chunk_frames < 1:
             raise ValueError("chunk_frames must be >= 1")
         if chunk_frames > max_decoded_length:

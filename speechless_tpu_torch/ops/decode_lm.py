@@ -1,26 +1,34 @@
-"""Word-LM-fused CTC prefix beam search on the hand-written beam-step kernel (port of
+"""Word-LM-fused CTC prefix beam search on the hand-written span kernel (port of
 `speechless_tpu/ops/decode_pallas_lm.py`).
 
-One frame of the beam is split as in the JAX package:
+One frame of the beam is, as in the JAX package:
 
-* **the beam-step kernel** (`lm_step`, CUDA source `csrc/lm_beam_step.cu`) expands W
-  beams into r·(k+1) candidates (stay, or extend by one of the frame's top-k classes),
-  sorts them by prefix hash with a bitonic network, merges equal prefixes with a
-  segmented log-sum-exp (keeping the min-index representative and carrying the LM score
-  as a rider), and sorts again on -(score + lm) to keep the top W;
-* **torch ops between frames** walk the vocabulary trie, probe the cuckoo n-gram tables
-  (`lm/device_lm.py`) and record the (parent, emitted char) backpointers.
+* **the LM bonuses**: each beam's word bonus from the vocabulary trie and the cuckoo
+  n-gram tables (`lm/device_lm.py`, `beam_common.word_bonuses`);
+* **the frame step** (`lm_step_reference`): expand W beams into r·(k+1) candidates
+  (stay, or extend by one of the frame's top-k classes), merge equal prefixes (keeping
+  the min-index representative and carrying the LM score as a rider), and keep the top
+  W by -(score + lm);
+* **after it**: the ``t < counts`` mask, the trie walk and word-context shift through
+  each new beam's parent, and the (parent, emitted char) backpointers (`_advance`).
 
-`lm_step_reference` is the plain PyTorch version of one step. It follows the same
-network with the same tie rule (no swap on equal keys) and the same merge order, so it,
-the kernel and the JAX kernel agree bit for bit on one device. `lm_step` runs the kernel
-for CUDA tensors and `lm_step_reference` for CPU tensors, and nothing else.
+`lm_span` runs every frame of a span in one launch of the CUDA kernel
+``csrc/lm_beam_span.cu`` (the JAX package ran the step in Pallas and the LM between
+frames in XLA); `lm_span_reference` is its plain PyTorch version, the loop of `_advance`
+over `lm_step_reference`. `lm_step_reference` follows the Pallas network with the same
+tie rule (no swap on equal keys) and the same merge order, so it, the kernel and the JAX
+kernel agree bit for bit on one device. `lm_step` runs one frame on the single-frame
+test entry ``csrc/lm_beam_step.cu`` of the kernel's step; no decode launches it. Each
+wrapper runs its kernel for CUDA tensors and its plain version for CPU tensors, and
+nothing else.
 """
+import functools
+
 import torch
 
 from . import _kernels
 from .beam_common import (DEAD_KEY, EMPTY_HASH, HASH_MULTIPLIER, NEG_INF,
-                          backtrace_tokens, next_pow2, word_bonuses)
+                          backtrace_tokens, beam_backtrace, next_pow2, word_bonuses)
 
 INT32_MAX = 2 ** 31 - 1
 MAX_LANES = 1024  # candidate lanes per row: one CUDA thread each
@@ -118,13 +126,12 @@ def _segmented_merge(keys, pb, pnb, idx, rider):
     return run_start, pb, pnb, idx, rider
 
 
-def lm_step_reference(frame, pb, pnb, hsh, last, lens, lm, bonus, *, k: int, blank: int,
-                      beam_width: int, max_decoded_length: int, space_index: int):
-    """One beam frame in plain PyTorch. ``frame`` is ``(B, 2k + C)`` (`pack_frames`);
-    the state blocks are ``(B, r)`` (pb, pnb, lm, bonus float32; hash, last, len int32).
-    Candidate lane i of a row is (parent beam i % r, extension i // r): 0 stays,
-    1..k extend with the frame's e-th pruned class. Returns ``(pb, pnb, hash, last,
-    len, lm, selected candidate index)``, each ``(B, r)``."""
+def expand_candidates(frame, pb, pnb, hsh, last, lens, lm, bonus, *, k: int, blank: int,
+                      max_decoded_length: int, space_index: int):
+    """The candidates of one beam frame (the first stage of `lm_step_reference`): lane i
+    of a row is (parent beam i % r, extension i // r), over ``next_pow2((k + 1) r)``
+    lanes. Returns ``(pb, pnb, hash, last, len, lm, alive, index)``, each ``(B, n_pad)``;
+    a dead candidate's index is INT32_MAX."""
     batch, r = pb.shape
     class_count = frame.shape[1] - 2 * k
     n_pad = next_pow2((k + 1) * r)
@@ -170,8 +177,22 @@ def lm_step_reference(frame, pb, pnb, hsh, last, lens, lm, bonus, *, k: int, bla
     cand_len = torch.where(is_stay, c_len, (c_len + 1).clamp(max=max_decoded_length))
     cand_lm = torch.where(is_stay | (ext_char != space_index), c_lm, c_lm + c_bonus)
     alive = torch.logaddexp(cand_pb, cand_pnb) > NEG_INF / 2
-    key = torch.where(alive, cand_hash, DEAD_KEY)
     orig = torch.where(alive, (w_of * (k + 1) + e_of).to(torch.int32), INT32_MAX)
+    return cand_pb, cand_pnb, cand_hash, cand_last, cand_len, cand_lm, alive, orig
+
+
+def lm_step_reference(frame, pb, pnb, hsh, last, lens, lm, bonus, *, k: int, blank: int,
+                      beam_width: int, max_decoded_length: int, space_index: int):
+    """One beam frame in plain PyTorch. ``frame`` is ``(B, 2k + C)`` (`pack_frames`);
+    the state blocks are ``(B, r)`` (pb, pnb, lm, bonus float32; hash, last, len int32).
+    Candidate lane i of a row is (parent beam i % r, extension i // r): 0 stays,
+    1..k extend with the frame's e-th pruned class (`expand_candidates`). Returns
+    ``(pb, pnb, hash, last, len, lm, selected candidate index)``, each ``(B, r)``."""
+    batch, r = pb.shape
+    cand_pb, cand_pnb, cand_hash, cand_last, cand_len, cand_lm, alive, orig = \
+        expand_candidates(frame, pb, pnb, hsh, last, lens, lm, bonus, k=k, blank=blank,
+                          max_decoded_length=max_decoded_length, space_index=space_index)
+    key = torch.where(alive, cand_hash, DEAD_KEY)
 
     perm = _bitonic_permutation(key)
     key = key.gather(1, perm)
@@ -200,9 +221,11 @@ def lm_step_reference(frame, pb, pnb, hsh, last, lens, lm, bonus, *, k: int, bla
 
 def lm_step(frame, pb, pnb, hsh, last, lens, lm, bonus, *, k: int, blank: int,
             beam_width: int, max_decoded_length: int, space_index: int):
-    """One beam frame: the CUDA kernel for CUDA tensors, `lm_step_reference` for CPU
-    tensors. Same contract as `lm_step_reference`; ``lm_step.launches`` counts kernel
-    launches. A build or launch failure raises."""
+    """One beam frame: the single-frame CUDA entry of the span kernel's step for CUDA
+    tensors, `lm_step_reference` for CPU tensors. Same contract as `lm_step_reference`;
+    ``lm_step.launches`` counts kernel launches. A build or launch failure raises. The
+    decoders run `lm_span`; this entry holds the step alone against its plain version
+    on states no decode produces."""
     static = dict(k=k, blank=blank, beam_width=beam_width,
                   max_decoded_length=max_decoded_length, space_index=space_index)
     if pb.device.type == "cpu":
@@ -285,42 +308,163 @@ def _advance(carry, frame, t, counts, step, word_lm, k, weights, static):
                        torch.where(active & emitted, nlast, -1))
 
 
+def lm_span_reference(frames, carry, counts, word_lm, *, k: int, blank: int,
+                      beam_width: int, max_decoded_length: int, lm_weight: float,
+                      word_count_weight: float, valid_word_count_weight: float,
+                      step=lm_step_reference):
+    """Every frame of a span in plain PyTorch: `_advance` over ``step`` per frame.
+
+    ``frames`` ``(F, B, 2k + C)`` (`pack_frames`); ``carry`` the leaves of `fresh_carry`
+    (pb, pnb, hash, last, len, lm[, trie node, word context]); ``counts`` ``(B,)`` the
+    valid frames of each row (frames past it leave the row as it is). Returns ``(carry
+    after the span, parents (B, F, r) int32, chars (B, F, r) int32, tail bonus (B, r)
+    float32)``; the tail bonus is the word bonus of the final beams (zeros without an
+    LM). ``step`` is the one-frame function (`lm_step` runs the per-frame kernel)."""
+    static = dict(k=k, blank=blank, beam_width=beam_width,
+                  max_decoded_length=max_decoded_length,
+                  space_index=word_lm.space_index if word_lm is not None else -2)
+    weights = (lm_weight, word_count_weight, valid_word_count_weight)
+    counts = counts.to(device=frames.device, dtype=torch.int64)
+    parents, chars = [], []
+    for t in range(frames.shape[0]):
+        carry, (bp_parent, bp_char) = _advance(carry, frames[t], t, counts, step, word_lm,
+                                               k, weights, static)
+        parents.append(bp_parent)
+        chars.append(bp_char)
+    pb = carry[0]
+    if word_lm is not None:
+        tail_bonus, _, _ = word_bonuses(word_lm, carry[6].reshape(-1),
+                                        carry[7].reshape(-1, 2), *weights)
+        tail_bonus = tail_bonus.reshape(pb.shape).to(torch.float32)
+    else:
+        tail_bonus = torch.zeros_like(pb)
+    return carry, torch.stack(parents, dim=1), torch.stack(chars, dim=1), tail_bonus
+
+
+def lm_span(frames, carry, counts, word_lm, *, k: int, blank: int, beam_width: int,
+            max_decoded_length: int, lm_weight: float, word_count_weight: float,
+            valid_word_count_weight: float):
+    """Every frame of a span: one launch of the CUDA span kernel for CUDA tensors,
+    `lm_span_reference` for CPU tensors. Same contract as `lm_span_reference`; the
+    carry comes back as new tensors. ``lm_span.launches`` counts kernel launches and
+    ``lm_span.sorted_frames`` holds the last launch's ``(B,)`` count of frames that
+    took the step's sorted network. A build or launch failure raises, as does a shape
+    the kernel refuses."""
+    weights = dict(lm_weight=lm_weight, word_count_weight=word_count_weight,
+                   valid_word_count_weight=valid_word_count_weight)
+    static = dict(k=k, blank=blank, beam_width=beam_width,
+                  max_decoded_length=max_decoded_length)
+    if frames.device.type == "cpu":
+        return lm_span_reference(frames, carry, counts, word_lm, **static, **weights)
+    if frames.device.type != "cuda":
+        raise ValueError("lm_span runs on CPU or CUDA tensors, got {}".format(
+            frames.device))
+    span, batch, width = frames.shape
+    r = carry[0].shape[1]
+    n_pad = next_pow2((k + 1) * r)
+    if n_pad > MAX_LANES:
+        raise ValueError("beam step needs {} candidate lanes; the kernel takes at most {} "
+                         "(lower beam_width or prune_classes)".format(n_pad, MAX_LANES))
+    if span < 1 or width <= 2 * k + blank:
+        raise ValueError("lm_span: frames must be (F >= 1, B, 2k + C)")
+    leaves = 8 if word_lm is not None else 6
+    expected = [(frames, torch.float32, (span, batch, width)),
+                (counts, torch.int32, (batch,))] + [
+        (leaf, dtype, (batch, r) + ((2,) if i == 7 else ()))
+        for i, (leaf, dtype) in enumerate(zip(carry, (torch.float32, torch.float32,
+                                                      torch.int32, torch.int32,
+                                                      torch.int32, torch.float32,
+                                                      torch.int32, torch.int32)))]
+    if len(carry) != leaves:
+        raise ValueError("lm_span: the carry has {} leaves, want {}".format(len(carry),
+                                                                             leaves))
+    for tensor, dtype, shape in expected:
+        if tensor.device != frames.device or tensor.dtype != dtype \
+                or tuple(tensor.shape) != shape or not tensor.is_contiguous():
+            raise ValueError("lm_span: expected a contiguous {} tensor of shape {} on {}, "
+                             "got {} {} on {}".format(dtype, shape, frames.device,
+                                                      tensor.dtype, tuple(tensor.shape),
+                                                      tensor.device))
+    new_carry = [torch.empty_like(leaf) for leaf in carry]
+    parents = torch.empty((batch, span, r), dtype=torch.int32, device=frames.device)
+    chars = torch.empty_like(parents)
+    tail_bonus = torch.empty((batch, r), dtype=torch.float32, device=frames.device)
+    sorted_frames = torch.empty((batch,), dtype=torch.int32, device=frames.device)
+    if word_lm is not None:
+        tables = [word_lm.trie, word_lm.node_word, word_lm.uni_logp, word_lm.uni_bo,
+                  word_lm.bi_k, word_lm.bi_logp, word_lm.bi_bo, word_lm.tri_k,
+                  word_lm.tri_logp]
+        for table in tables:
+            if table.device != frames.device or not table.is_contiguous() \
+                    or table.dtype not in (torch.int32, torch.float32):
+                raise ValueError("lm_span: the word LM's tables must be contiguous int32 "
+                                 "or float32 tensors on {}".format(frames.device))
+        pointers = [t.data_ptr() for t in tables]
+        lm_ints = (word_lm.trie.shape[1], word_lm.bi_k.shape[0], word_lm.tri_k.shape[0],
+                   word_lm.unk_id)
+        space_index = word_lm.space_index
+        carry_pointers = [t.data_ptr() for t in carry + new_carry]
+    else:
+        pointers, lm_ints, space_index = [None] * 9, (0, 0, 0, 0), -2
+        carry_pointers = ([t.data_ptr() for t in carry] + [None, None]
+                          + [t.data_ptr() for t in new_carry] + [None, None])
+    with torch.cuda.device(frames.device):
+        status = _kernels.function("lm_beam_span")(
+            frames.data_ptr(), counts.data_ptr(), *carry_pointers,
+            *(t.data_ptr() for t in (parents, chars, tail_bonus, sorted_frames)),
+            *pointers, batch, span, width, r, k, n_pad, width - 2 * k, blank, beam_width,
+            max_decoded_length, space_index, *lm_ints, lm_weight, word_count_weight,
+            valid_word_count_weight, torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError("lm_beam_span kernel launch failed with CUDA error {} "
+                           "(F={}, B={}, r={})".format(status, span, batch, r))
+    lm_span.launches += 1
+    lm_span.sorted_frames = sorted_frames
+    return new_carry, parents, chars, tail_bonus
+
+
+lm_span.launches = 0
+lm_span.sorted_frames = None
+
+
+def span_function(step=None):
+    """The span function a decoder runs: `lm_span` (the kernel on CUDA) when ``step``
+    is None, else `lm_span_reference` over the given one-frame function (the plain
+    loop, e.g. ``lm_step_reference`` on CUDA tensors to check the kernel against)."""
+    return lm_span if step is None else functools.partial(lm_span_reference, step=step)
+
+
 def _beam_search(log_probs, lengths, blank, word_lm, beam_width, max_decoded_length,
                  lm_weight, word_count_weight, valid_word_count_weight, prune_classes,
-                 step=lm_step):
-    """The frame loop shared by both public entries (``step`` is the one-frame
-    function: `lm_step`, or `lm_step_reference` to check the kernel against on CUDA)."""
+                 step=None):
+    """The decode shared by both public entries: one span over the longest row's frames,
+    the final ranking, the backtrace. ``step`` None runs the span kernel and the
+    backtrace kernel (their plain versions on the CPU); a one-frame function runs the
+    plain loop over it and the plain backtrace (`span_function`)."""
     batch, t_max, class_count = log_probs.shape
     device = log_probs.device
     k = min(prune_classes, class_count)
     r = next_pow2(max(beam_width, 8))
     if word_lm is not None:
         word_lm = word_lm.to(device)
-    static = dict(k=k, blank=blank, beam_width=beam_width,
-                  max_decoded_length=max_decoded_length,
-                  space_index=word_lm.space_index if word_lm is not None else -2)
-    weights = (lm_weight, word_count_weight, valid_word_count_weight)
-    frames = pack_frames(log_probs, k)
-    counts = lengths.to(device=device, dtype=torch.int64)
+    counts = lengths.to(device=device, dtype=torch.int32)
     # Frames past every row's length are exact no-ops: stop at the longest row.
     t_run = max(1, min(t_max, int(counts.max())))
-    carry = fresh_carry(batch, r, word_lm, device)
-    parents, chars = [], []
-    for t in range(t_run):
-        carry, (bp_parent, bp_char) = _advance(carry, frames[t], t, counts, step,
-                                               word_lm, k, weights, static)
-        parents.append(bp_parent)
-        chars.append(bp_char)
+    frames = pack_frames(log_probs, k)[:t_run]
+    carry, parents, chars, tail_bonus = span_function(step)(
+        frames, fresh_carry(batch, r, word_lm, device), counts, word_lm, k=k, blank=blank,
+        beam_width=beam_width, max_decoded_length=max_decoded_length, lm_weight=lm_weight,
+        word_count_weight=word_count_weight,
+        valid_word_count_weight=valid_word_count_weight)
     pb, pnb, _, _, lens, lm = carry[:6]
     final = torch.logaddexp(pb, pnb)
     if word_lm is not None:
         # The trailing unterminated word joins the final ranking.
-        tail_bonus, _, _ = word_bonuses(word_lm, carry[6].reshape(-1),
-                                        carry[7].reshape(-1, 2), *weights)
-        final = final + lm + tail_bonus.reshape(batch, r)
+        final = final + lm + tail_bonus
     best = final.argmax(dim=1)
-    return backtrace_tokens(torch.stack(parents, dim=1), torch.stack(chars, dim=1), best,
-                            lens.gather(1, best[:, None])[:, 0], max_decoded_length)
+    backtrace = beam_backtrace if step is None else backtrace_tokens
+    return backtrace(parents, chars, best, lens.gather(1, best[:, None])[:, 0],
+                     max_decoded_length)
 
 
 def beam_search_decode_lm(log_probs, lengths, blank, word_lm, beam_width=25,

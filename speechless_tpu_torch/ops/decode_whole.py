@@ -4,14 +4,17 @@
 `prefix_beam` runs every frame of every utterance in one launch (CUDA source
 `csrc/prefix_beam.cu`, one thread block per utterance) and returns the per-frame
 backpointers and the final beams; the top-k frame packing before it
-(`decode_lm.pack_frames`) and the winner and backtrace after it are torch ops, as they
-were XLA ops around the Pallas call. Frames whose blank log-prob exceeds
+(`decode_lm.pack_frames`) and the winner after it are torch ops, as they were XLA ops
+around the Pallas call, and the backtrace is one launch of the backtrace kernel
+(`beam_common.beam_backtrace`). Frames whose blank log-prob exceeds
 ``skip_blank_log_prob`` take the fast path of `decode_pallas.py:236-245`: only the
 blank / non-blank split of each beam updates.
 
 `prefix_beam_reference` is the plain PyTorch version: the frame loop over
-`decode_lm.lm_step_reference` with no LM, plus the fast path chosen per row. It is the
-kernel's network, so the two agree bit for bit on one device. `prefix_beam` runs the
+`decode_lm.lm_step_reference` with no LM, plus the fast path chosen per row. The
+kernel's frame step gives the same result by its rank network, or by this very network
+where a hash gathers more than two live candidates (``csrc/beam_step.cuh``), so the two
+agree bit for bit on one device. `prefix_beam` runs the
 kernel for CUDA tensors and the plain version for CPU tensors, and nothing else.
 """
 from typing import Optional, Tuple
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .beam_common import NEG_INF, backtrace_tokens, next_pow2
+from .beam_common import NEG_INF, beam_backtrace, next_pow2
 from .decode_lm import MAX_LANES, fresh_carry, lm_step_reference, pack_frames
 
 
@@ -147,5 +150,5 @@ def beam_search_decode_whole(log_probs: torch.Tensor, lengths: torch.Tensor, bla
         k=k, blank=blank, beam_width=beam_width, max_decoded_length=max_decoded_length,
         skip_blank_log_prob=skip_blank_log_prob)
     best = torch.logaddexp(pb, pnb).argmax(dim=1)
-    return backtrace_tokens(parents, chars, best, lens.gather(1, best[:, None])[:, 0],
-                            max_decoded_length)
+    return beam_backtrace(parents, chars, best, lens.gather(1, best[:, None])[:, 0],
+                          max_decoded_length)

@@ -126,3 +126,116 @@ def test_pack_frames_breaks_ties_to_the_lower_class():
     packed = decode_lm.pack_frames(log_probs, 3)
     assert packed.shape == (1, 1, 2 * 3 + 5)
     np.testing.assert_array_equal(packed[0, 0, 3:6].numpy(), [1.0, 2.0, 4.0])
+
+
+# -- the argument behind the kernel's rank network (csrc/beam_step.cuh) ------------------
+
+def _lae(a, b):
+    """torch.logaddexp over flat float32 values, padded to a multiple of 64 lanes so that
+    every element takes the same (vectorized) CPU path as the plain step's full rows."""
+    count = a.numel()
+    width = max(64, -(-count // 64) * 64)
+    pad = torch.full((width - count,), -1e30)
+    return torch.logaddexp(torch.cat([a, pad]), torch.cat([b, pad]))[:count]
+
+
+def rank_network_model(frame, *state, k, blank, beam_width, max_decoded_length,
+                       space_index):
+    """The rank network in plain PyTorch: group the live candidates by hash, merge each
+    two-member group into its min-index member with one logaddexp, rank the merged
+    prefixes by (-score, index) and keep the first W. Returns the step's seven outputs
+    and, per row, whether the exactness branch is needed (a hash with three or more
+    live candidates, a pair that disagrees on last character or length, or a live hash
+    equal to the dead key)."""
+    batch, r = state[0].shape
+    c_pb, c_pnb, c_hash, c_last, c_len, c_lm, alive, orig = decode_lm.expand_candidates(
+        frame, *state, k=k, blank=blank, max_decoded_length=max_decoded_length,
+        space_index=space_index)
+    needed = np.zeros(batch, bool)
+    groups = []  # per row: lists of the candidate lanes of each live hash
+    for row in range(batch):
+        by_hash = {}
+        for lane in torch.nonzero(alive[row])[:, 0].tolist():
+            by_hash.setdefault(int(c_hash[row, lane]), []).append(lane)
+        pairs_disagree = any(
+            len(g) == 2 and (int(c_last[row, g[0]]) != int(c_last[row, g[1]])
+                             or int(c_len[row, g[0]]) != int(c_len[row, g[1]]))
+            for g in by_hash.values())
+        needed[row] = (max(map(len, by_hash.values()), default=0) > 2 or pairs_disagree
+                       or 2 ** 31 - 1 in by_hash)
+        groups.append(list(by_hash.values()))
+    # Merged masses and scores, each computed once for every group of every row.
+    flat = [(row, g) for row in range(batch) for g in groups[row]]
+    rows = torch.tensor([row for row, _ in flat], dtype=torch.long)
+    first = torch.tensor([g[0] for _, g in flat], dtype=torch.long)
+    second = torch.tensor([g[-1] for _, g in flat], dtype=torch.long)
+    pair = torch.tensor([len(g) == 2 for _, g in flat])
+    rep = torch.where(pair & (orig[rows, second] < orig[rows, first]), second, first)
+    m_pb = torch.where(pair, _lae(c_pb[rows, first], c_pb[rows, second]), c_pb[rows, first])
+    m_pnb = torch.where(pair, _lae(c_pnb[rows, first], c_pnb[rows, second]),
+                        c_pnb[rows, first])
+    score = _lae(m_pb, m_pnb) + c_lm[rows, rep]
+    out = [np.full((batch, r), v, dtype) for v, dtype in
+           ((-1e30, np.float32), (-1e30, np.float32), (0, np.int32), (-1, np.int32),
+            (0, np.int32), (0.0, np.float32))]
+    out.append(np.tile((np.arange(r) * (k + 1)).astype(np.int32), (batch, 1)))
+    for row in range(batch):
+        mine = [i for i, (owner, _) in enumerate(flat) if owner == row]
+        mine.sort(key=lambda i: (-float(score[i]), int(orig[row, rep[i]])))
+        for slot, i in enumerate(mine[:beam_width]):
+            lane = int(rep[i])
+            values = (m_pb[i], m_pnb[i], c_hash[row, lane], c_last[row, lane],
+                      c_len[row, lane], c_lm[row, lane], orig[row, lane])
+            for array, value in zip(out, values):
+                array[row, slot] = value.item()
+    return [torch.from_numpy(a) for a in out], needed
+
+
+def _decode_states(seed, frames_in):
+    """Beam states of a real no-LM decode after ``frames_in`` frames, with seeded LM
+    scores and bonuses, and the next packed frame."""
+    log_probs, lengths = _batch(LM_TEXTS[:8], seed=seed)
+    k, r = 8, 32
+    frames = decode_lm.pack_frames(torch.from_numpy(log_probs), k)
+    carry, _, _, _ = decode_lm.lm_span_reference(
+        frames[:frames_in], decode_lm.fresh_carry(8, r, None, "cpu"),
+        torch.from_numpy(lengths), None, k=k, blank=BLANK, beam_width=25,
+        max_decoded_length=64, lm_weight=0.0, word_count_weight=0.0,
+        valid_word_count_weight=0.0)
+    rng = np.random.default_rng(seed)
+    lm = torch.from_numpy(rng.normal(size=(8, r)).astype(np.float32))
+    bonus = torch.from_numpy(rng.normal(size=(8, r)).astype(np.float32))
+    return frames[frames_in], carry[:5] + [lm, bonus]
+
+
+@pytest.mark.parametrize("frames_in", [3, 9, 17, 30])
+def test_rank_network_equals_the_plain_step_on_decode_states(frames_in):
+    """On the states of a real decode (distinct live hashes) the two-member merge and
+    rank selection give the plain step's outputs bit for bit, without the exactness
+    branch, and the frames do merge pairs."""
+    frame, state = _decode_states(frames_in, frames_in)
+    static = dict(k=8, blank=BLANK, beam_width=25, max_decoded_length=64, space_index=26)
+    got, needed = rank_network_model(frame, *state, **static)
+    want = decode_lm.lm_step_reference(frame, *state, **static)
+    assert not needed.any()
+    for name, g, w in zip("pb pnb hash last len lm idx".split(), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    c_hash, alive = (decode_lm.expand_candidates(frame, *state, k=8, blank=BLANK,
+                                                 max_decoded_length=64,
+                                                 space_index=26)[i] for i in (2, 6))
+    live = [np.unique(c_hash[row][alive[row]].numpy(), return_counts=True)[1]
+            for row in range(8)]
+    assert any((counts == 2).any() for counts in live)
+
+
+def test_rank_network_reports_duplicate_live_hashes():
+    """Three live beams with one hash (states no decode produces) need the exactness
+    branch in every row."""
+    k, classes = 8, 29
+    log_probs, states = _random_states(np.random.default_rng(5), 16, 32, k, classes, 40)
+    states[0][:, [3, 5, 7]] = -1.0  # lanes 3, 5, 7 share a hash: make all three live
+    frame = decode_lm.pack_frames(torch.from_numpy(log_probs), k)[0]
+    _, needed = rank_network_model(frame, *(torch.from_numpy(s) for s in states), k=k,
+                                   blank=classes - 1, beam_width=25,
+                                   max_decoded_length=40, space_index=26)
+    assert needed.all()

@@ -203,6 +203,35 @@ def test_one_advance_matches_the_jax_stream_core(no_lm, count):
         np.testing.assert_array_equal(got_state[-1].numpy(), stacked[-1].numpy())
 
 
+@pytest.mark.parametrize("count", [7, 16])
+def test_one_word_lm_advance_matches_the_jax_stream_core(with_lm, count):
+    """With the word LM: a JAX stream carried 21 frames in, then one chunk through the
+    port's span (`lm_span`, whose CPU path is `lm_span_reference`) and through the JAX
+    stream core. The carry after the chunk (trie nodes and word contexts included), the
+    stitched token buffer, the best row and the scalars agree."""
+    ours, theirs = with_lm
+    state, _ = theirs.feed(theirs.init_state(), random_log_probs(21, BLANK_LM + 1, seed=6))
+    piece = random_log_probs(16, BLANK_LM + 1, seed=7)
+    piece[count:] = 0.0
+    want_states, want_row, want_scalars = theirs._dispatch(
+        (state.beam,), piece[None], np.asarray([count], np.int32))
+    got_state, got_row, got_scalars = stream_advance(
+        state_from_jax([state.beam], device="cpu"), torch.from_numpy(piece[None]),
+        np.asarray([count]), blank=BLANK_LM, beam_width=W, max_decoded_length=64,
+        word_lm=ours.word_lm, prune_classes=8)
+    assert len(got_state) == 9  # pb, pnb, hash, last, len, lm, trie, context, tokens
+    for got, want in zip(got_state, want_states[0]):
+        want = np.asarray(want)
+        assert got[0].numpy().dtype == want.dtype
+        if want.dtype == np.int32:
+            np.testing.assert_array_equal(got[0].numpy(), want)
+        else:
+            np.testing.assert_allclose(got[0].numpy(), want, rtol=1e-5)
+    np.testing.assert_array_equal(got_row[0].numpy(), np.asarray(want_row[0]))
+    np.testing.assert_array_equal(got_scalars[0, [0, 2]].numpy(),
+                                  np.asarray(want_scalars[0])[[0, 2]])
+
+
 class TestWordLm:
     @pytest.mark.parametrize("splits", [[], [5, 13, 30], [16, 32]])
     def test_matches_the_jax_pallas_decoder(self, with_lm, splits):
