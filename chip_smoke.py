@@ -31,14 +31,18 @@ source, all started together) and prints ptxas's registers and spills, then:
   whatever the process-wide flags say) and its transcripts the plain loop's. Prints
   per-request latency and the `transcribe_batch` wall at 16 x 8 s (one span launch a
   batch).
-* phase C (training): the CTC kernels K1 (`ctc_alpha`) and K2 (`ctc_beta`) against
-  `alpha_reference`/`beta_reference` on the same CUDA tensors at the bench's shapes
-  (B=64, T=513, U=192, 29 classes, seeded lengths with edge rows: 1 frame with an empty
-  label, 1 frame with one label, adjacent repeats, an infeasible row) and at U=600,
-  T=1401 (1201 states, over 1024): alpha/beta within 1e-5 on each row's valid region
-  (scaled by max(1, |value|)), the CTC loss within 1e-5 relative and its gradient
-  within 1e-5, and `torch.nn.functional.ctc_loss` as a second oracle on the feasible
-  rows; times of K1, K2, the plain versions and `F.ctc_loss`. Then
+* phase C (training): the CTC kernels K1 (`ctc_alpha`) and the fused backward
+  (`ctc_beta_grad`: K2's beta recursion with the occupancy contraction) against
+  `alpha_reference` and `beta_reference` + `occupancy_gradient` on the same CUDA
+  tensors at the bench's shapes (B=64, T=513, U=192, 29 classes, seeded lengths with
+  edge rows: 1 frame with an empty label, 1 frame with one label, adjacent repeats, an
+  infeasible row), at U=600, T=1401 (1201 states, over 1024) and at U=8191, T=40
+  (16,383 states, the most a row may have): alpha bitwise, beta (through the kernel's
+  test pointer) within 1e-5 on each row's valid region (scaled by max(1, |value|)),
+  the gradient within 1e-5, the CTC loss within 1e-5 relative and its
+  gradient within 1e-5, and `torch.nn.functional.ctc_loss` as a second oracle on the
+  feasible rows; times of K1, the fused backward, their bounds, the plain versions, the
+  whole CTC forward and backward, and `F.ctc_loss`'s forward and backward. Then
   `make_multi_wav_step` trains the full-width model in bf16 on `bench.py`'s batch (64 x
   131,072 samples, 192 labels, k=10 steps a call; one warm-up call, three timed): every
   step loss finite, the last call's mean loss below the first step's, each CTC kernel
@@ -717,9 +721,12 @@ def ctc_case(rng, batch, t_max, u_max, classes, device):
 
 
 def check_ctc_kernels(rng, batch, t_max, u_max, classes, device, timed: bool):
-    """K1/K2 against `alpha_reference`/`beta_reference`, the loss and gradient of
-    `ctc_kernels.ctc_loss` against `ctc.ctc_loss`, and both against `F.ctc_loss` on the
-    feasible rows; with ``timed``, CUDA-event times of each."""
+    """K1 against `alpha_reference` and `final_log_prob` (bitwise), the fused backward's
+    beta (through its test pointer) and gradient against `beta_reference` +
+    `occupancy_gradient`, the loss and gradient of `ctc_kernels.ctc_loss` against
+    `ctc.ctc_loss`, and both against `F.ctc_loss` on the feasible rows; with ``timed``,
+    CUDA-event times of each, of the whole CTC forward and backward, and of
+    `F.ctc_loss`'s."""
     import torch
     import torch.nn.functional as F
 
@@ -734,24 +741,38 @@ def check_ctc_kernels(rng, batch, t_max, u_max, classes, device, timed: bool):
     t_index = torch.arange(t_max, device=device)[:, None, None]
     live = torch.arange(extended.shape[1], device=device)[None, None, :] < s_counts[None, :, None]
     result = {"S": extended.shape[1]}
-    # alpha is checked on t < max(length, 1) (alpha_0 is always written), beta on
+    weights = torch.linspace(0.5, 2.0, batch, device=device)
+    alphas, kernel_final = ctc_kernels.ctc_alpha(*args)
+    want_alphas = ctc.alpha_reference(*args)
+    final = ctc.final_log_prob(want_alphas[-1], s_counts)
+    grad, betas = ctc_kernels.ctc_beta_grad(*args, want_alphas, final, weights,
+                                            with_betas=True)
+    want_betas = ctc.beta_reference(*args)
+    want_grad = ctc.occupancy_gradient(log_probs, lengths, extended, s_counts, want_alphas,
+                                       want_betas, final, weights)
+    torch.cuda.synchronize()
+    check(torch.equal(alphas, want_alphas) and torch.equal(kernel_final, final),
+          "K1 alphas or log P(label) differ from alpha_reference and final_log_prob at S={}"
+          .format(extended.shape[1]))
+    # alpha is held on t < max(length, 1) (alpha_0 is always written), beta on
     # t < length, both on the live states. Their magnitude reaches ~3 * T here, where
     # one fp32 ulp is ~1e-4, so the error is scaled by max(1, |plain|).
-    for name, kernel, plain, valid in (
-            ("alpha", ctc_kernels.ctc_alpha, ctc.alpha_reference,
+    for name, got, want, valid in (
+            ("alpha", alphas, want_alphas,
              live & (t_index < lengths.clamp(min=1)[None, :, None])),
-            ("beta", ctc_kernels.ctc_beta, ctc.beta_reference,
-             live & (t_index < lengths[None, :, None]))):
-        got, want = kernel(*args), plain(*args)
-        torch.cuda.synchronize()
+            ("beta", betas, want_betas, live & (t_index < lengths[None, :, None]))):
         diff = (got - want).abs()[valid]
         scaled = float((diff / want.abs()[valid].clamp(min=1.0)).max())
         result[name + "_abs_err"], result[name + "_scaled_err"] = float(diff.max()), scaled
         check(bool(torch.isfinite(got[valid]).all()), name + " kernel: non-finite values")
         check(scaled <= CTC_ABS_TOL, "{} kernel vs plain at S={}: scaled error {}".format(
             name, extended.shape[1], scaled))
+    result["beta_grad_abs_err"] = float((grad - want_grad).abs().max())
+    check(bool(torch.isfinite(grad).all()), "fused backward: non-finite gradient")
+    check(result["beta_grad_abs_err"] <= CTC_ABS_TOL,
+          "fused backward gradient vs beta_reference + occupancy_gradient at S={}: {}"
+          .format(extended.shape[1], result["beta_grad_abs_err"]))
 
-    weights = torch.linspace(0.5, 2.0, batch, device=device)
     losses, grads = {}, {}
     for name, loss_fn in (("kernel", ctc_kernels.ctc_loss), ("plain", ctc.ctc_loss)):
         x = log_probs.clone().requires_grad_()
@@ -786,55 +807,72 @@ def check_ctc_kernels(rng, batch, t_max, u_max, classes, device, timed: bool):
           "CTC vs F.ctc_loss: loss {} grad {}".format(result["oracle_loss_rel_err"],
                                                       result["oracle_grad_abs_err"]))
     result["max_abs_err"] = max(result["alpha_abs_err"], result["beta_abs_err"],
-                                result["grad_abs_err"])
-    print("phase C CTC B={} T={} U={} S={} ({} feasible rows): kernel vs plain alpha "
-          "abs {:.3g} scaled {:.3g}, beta abs {:.3g} scaled {:.3g}, loss rel {:.3g}, grad "
-          "abs {:.3g}; vs F.ctc_loss loss rel {:.3g}, grad abs {:.3g}".format(
+                                result["beta_grad_abs_err"], result["grad_abs_err"])
+    print("phase C CTC B={} T={} U={} S={} ({} feasible rows): K1 vs alpha_reference and "
+          "final_log_prob bitwise, abs {:.3g}; fused backward vs plain: beta abs {:.3g} "
+          "scaled {:.3g}, gradient abs {:.3g}; loss rel {:.3g}, loss gradient abs {:.3g}; "
+          "vs F.ctc_loss loss rel {:.3g}, grad abs {:.3g}".format(
               batch, t_max, u_max, extended.shape[1], len(rows), result["alpha_abs_err"],
-              result["alpha_scaled_err"], result["beta_abs_err"], result["beta_scaled_err"],
+              result["beta_abs_err"], result["beta_scaled_err"], result["beta_grad_abs_err"],
               result["loss_rel_err"], result["grad_abs_err"], result["oracle_loss_rel_err"],
               result["oracle_grad_abs_err"]))
     if not timed:
         return result
 
-    def fwd_bwd(loss_fn):
-        x = log_probs.clone().requires_grad_()
-        loss_fn(x, lengths, labels, label_lengths, blank).sum().backward()
-
     lp_tbc = log_probs.transpose(0, 1).contiguous()
-    library = (lp_tbc, labels.clamp(min=0).long(), lengths.long(), label_lengths.long())
+    targets = (labels.clamp(min=0).long(), lengths.long(), label_lengths.long())
 
-    def library_fwd_bwd():
-        x = lp_tbc.clone().requires_grad_()
-        F.ctc_loss(x, *library[1:], blank=blank, reduction="none",
-                   zero_infinity=True).sum().backward()
+    def library_loss(x):
+        return F.ctc_loss(x, *targets, blank=blank, reduction="none", zero_infinity=True)
+
+    def port_loss(x, loss_fn=ctc_kernels.ctc_loss):
+        return loss_fn(x, lengths, labels, label_lengths, blank)
+
+    def forward_backward_ms(loss_fn, source, iterations):
+        """(forward ms, backward ms): the loss alone, then d(sum(loss * weights))/dx from
+        one retained graph."""
+        x = source.clone().requires_grad_()
+        forward_ms = cuda_ms(lambda: loss_fn(x), iterations)
+        loss = loss_fn(x)
+        backward_ms = cuda_ms(
+            lambda: torch.autograd.grad(loss, x, weights, retain_graph=True), iterations)
+        return forward_ms, backward_ms
 
     result.update(
         alpha_ms=cuda_ms(lambda: ctc_kernels.ctc_alpha(*args), 50),
-        beta_ms=cuda_ms(lambda: ctc_kernels.ctc_beta(*args), 50),
+        beta_grad_ms=cuda_ms(lambda: ctc_kernels.ctc_beta_grad(*args, alphas, final,
+                                                               weights), 50),
         alpha_plain_ms=cuda_ms(lambda: ctc.alpha_reference(*args), 3),
-        beta_plain_ms=cuda_ms(lambda: ctc.beta_reference(*args), 3),
-        loss_kernel_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(ctc_kernels.ctc_loss), 20),
-        loss_plain_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(ctc.ctc_loss), 3),
-        library_fwd_ms=cuda_ms(lambda: F.ctc_loss(*library, blank=blank, reduction="none",
-                                                  zero_infinity=True), 20),
-        library_fwd_bwd_ms=cuda_ms(library_fwd_bwd, 20))
-    result["library_bwd_ms"] = result["library_fwd_bwd_ms"] - result["library_fwd_ms"]
-    # Least time: each input read once (log-probs, labels, skip, lengths) and the
-    # (T, B, S) fp32 output written once; ~14 fp32 operations per state and step
-    # (3 max, 4 subtract/add, 3 exp, 1 log, 3 add).
+        beta_grad_plain_ms=cuda_ms(lambda: ctc.gradient_reference(*args, alphas, final,
+                                                                  weights), 3))
+    result["fwd_ms"], result["bwd_ms"] = forward_backward_ms(port_loss, log_probs, 30)
+    result["plain_fwd_ms"], result["plain_bwd_ms"] = forward_backward_ms(
+        lambda x: port_loss(x, ctc.ctc_loss), log_probs, 3)
+    result["library_fwd_ms"], result["library_bwd_ms"] = forward_backward_ms(
+        library_loss, lp_tbc, 30)
+    # Least times: each input read once and each output written once (K1: α and log
+    # P(label); the backward: the gradient); ~14 fp32 operations per state and step for a
+    # recursion (3 max, 4 subtract/add, 3 exp, 1 log, 3 add), 4 more for the gradient
+    # (add, subtract, exp, the class sum).
     in_bytes = sum(t.numel() * t.element_size() for t in args)
-    out_bytes = t_max * batch * extended.shape[1] * 4
-    result["bound_ms"], result["bound_by"] = bound(in_bytes + out_bytes,
-                                                   14.0 * t_max * batch * extended.shape[1])
-    print("phase C CTC times at B={} T={} S={}: K1 {:.4f} ms, K2 {:.4f} ms per launch "
-          "(bound {:.4f} ms by {}); plain alpha {:.2f} ms, beta {:.2f} ms; loss fwd+bwd "
-          "kernel {:.3f} ms, plain {:.2f} ms, F.ctc_loss {:.3f} ms (fwd {:.3f})".format(
-              batch, t_max, extended.shape[1], result["alpha_ms"], result["beta_ms"],
-              result["bound_ms"], result["bound_by"], result["alpha_plain_ms"],
-              result["beta_plain_ms"], result["loss_kernel_fwd_bwd_ms"],
-              result["loss_plain_fwd_bwd_ms"], result["library_fwd_bwd_ms"],
-              result["library_fwd_ms"]))
+    state_steps = t_max * batch * extended.shape[1]
+    result["bound_ms"], result["bound_by"] = bound(in_bytes + 4 * state_steps + 4 * batch,
+                                                   14.0 * state_steps)
+    backward_bytes = (in_bytes + alphas.numel() * 4 + final.numel() * 4 + weights.numel() * 4
+                      + grad.numel() * 4)
+    result["beta_grad_bound_ms"], result["beta_grad_bound_by"] = bound(
+        backward_bytes, 18.0 * state_steps)
+    print("phase C CTC times at B={} T={} S={}: K1 {:.4f} ms (bound {:.4f} ms by {}), "
+          "fused backward {:.4f} ms (bound {:.4f} ms by {}) per launch; plain alpha {:.2f} "
+          "ms, plain beta + occupancy gradient {:.2f} ms; CTC forward {:.4f} ms, backward "
+          "{:.4f} ms (plain {:.2f} / {:.2f}); F.ctc_loss forward {:.4f} ms, backward {:.4f} "
+          "ms".format(batch, t_max, extended.shape[1], result["alpha_ms"],
+                      result["bound_ms"], result["bound_by"], result["beta_grad_ms"],
+                      result["beta_grad_bound_ms"], result["beta_grad_bound_by"],
+                      result["alpha_plain_ms"], result["beta_grad_plain_ms"],
+                      result["fwd_ms"], result["bwd_ms"], result["plain_fwd_ms"],
+                      result["plain_bwd_ms"], result["library_fwd_ms"],
+                      result["library_bwd_ms"]))
     return result
 
 
@@ -939,6 +977,8 @@ def phase_c(device, profile: bool, out_path: Path):
     ctc_bench = check_ctc_kernels(rng, BENCH_BATCH, frames, BENCH_LABELS, 29, device, True)
     ctc_long = check_ctc_kernels(rng, 16, 1401, 600, 29, device, False)
     check(ctc_long["S"] > 1024, "the long CTC check must exceed 1024 states")
+    # The most states a row may have (16 a thread in K1, 32 in the backward's chain).
+    check_ctc_kernels(rng, 5, 40, (ctc_kernels.MAX_STATES - 1) // 2, 29, device, False)
 
     config = w2l.Wav2LetterConfig(128, 29, compute_dtype=torch.bfloat16)
     optimizer = trainer.make_optimizer(1e-4)
@@ -946,7 +986,7 @@ def phase_c(device, profile: bool, out_path: Path):
                                      device=device)
     batch = bench_wav_batch(rng, config, BENCH_STEPS, device)
     multi_step = trainer.make_multi_wav_step(config, optimizer, device=device)
-    ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta.launches = 0
+    ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta_grad.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -962,13 +1002,13 @@ def phase_c(device, profile: bool, out_path: Path):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     launches = {"ctc_alpha": ctc_kernels.ctc_alpha.launches,
-                "ctc_beta": ctc_kernels.ctc_beta.launches}
+                "ctc_beta_grad": ctc_kernels.ctc_beta_grad.launches}
     losses = torch.stack(losses).cpu().numpy()
     check(np.isfinite(first).all() and np.isfinite(losses).all(), "non-finite step loss")
     check(float(losses[-1].mean()) < first[0], "the last call's mean loss {} is not below "
           "the first step's {}".format(float(losses[-1].mean()), first[0]))
     expected = (calls + 1) * BENCH_STEPS
-    check(launches == {"ctc_alpha": expected, "ctc_beta": expected},
+    check(launches == {"ctc_alpha": expected, "ctc_beta_grad": expected},
           "CTC kernel launches in {} train steps: {}".format(expected, launches))
     steps = calls * BENCH_STEPS
     utterances_per_s = BENCH_BATCH * steps / elapsed
@@ -980,11 +1020,11 @@ def phase_c(device, profile: bool, out_path: Path):
     print("phase C train: make_multi_wav_step, full-width wav2letter in bf16, B={} x {} "
           "samples, {} labels, k={}: {:.2f} ms per step, {:.1f} utterances/s, MFU {:.4f} "
           "of 989 TFLOP/s bf16, peak memory {:.2f} GB; loss {:.2f} (first step) -> {:.2f} "
-          "(last call's mean); warm-up call {:.2f} s; ctc_alpha/ctc_beta launches {}/{}"
+          "(last call's mean); warm-up call {:.2f} s; ctc_alpha/ctc_beta_grad launches {}/{}"
           .format(BENCH_BATCH, BENCH_SAMPLES, BENCH_LABELS, BENCH_STEPS,
                   train["ms_per_step"], utterances_per_s, train["mfu"],
                   train["peak_memory_gb"], first[0], train["last_call_mean_loss"],
-                  warm_up_s, launches["ctc_alpha"], launches["ctc_beta"]))
+                  warm_up_s, launches["ctc_alpha"], launches["ctc_beta_grad"]))
     precision_check(device)
     if profile:
         profile_train_step(config, state, batch, multi_step, out_path)
@@ -1910,15 +1950,15 @@ def main() -> None:
         "ms": ctc["alpha_ms"], "plain_ms": ctc["alpha_plain_ms"],
         "bound_ms": ctc["bound_ms"], "bound_by": ctc["bound_by"],
         "library_ms": ctc["library_fwd_ms"]}, {
-        "name": "ctc_beta", "route": "cuda",
-        "source": "speechless_tpu_torch/csrc/ctc_beta.cu",
+        "name": "ctc_beta_grad", "route": "cuda",
+        "source": "speechless_tpu_torch/csrc/ctc_beta_grad.cu",
         "replaces": "speechless_tpu/ops/ctc_pallas.py:70",
-        "launches": train["launches"]["ctc_beta"],
-        "max_abs_err": max(ctc["beta_abs_err"], ctc["grad_abs_err"],
+        "launches": train["launches"]["ctc_beta_grad"],
+        "max_abs_err": max(ctc["beta_abs_err"], ctc["beta_grad_abs_err"],
                            train["ctc_long"]["beta_abs_err"],
-                           train["ctc_long"]["grad_abs_err"]),
-        "ms": ctc["beta_ms"], "plain_ms": ctc["beta_plain_ms"],
-        "bound_ms": ctc["bound_ms"], "bound_by": ctc["bound_by"],
+                           train["ctc_long"]["beta_grad_abs_err"]),
+        "ms": ctc["beta_grad_ms"], "plain_ms": ctc["beta_grad_plain_ms"],
+        "bound_ms": ctc["beta_grad_bound_ms"], "bound_by": ctc["beta_grad_bound_by"],
         "library_ms": ctc["library_bwd_ms"]}, {
         "name": "stream_stitch", "route": "cuda",
         "source": "speechless_tpu_torch/csrc/stream_stitch.cu",

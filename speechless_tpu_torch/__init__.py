@@ -9,7 +9,8 @@ Ported so far: the LM-fused serving path — features, the wav2letter conv stack
 word-LM beam on the hand-written CUDA beam-step kernel (`csrc/lm_beam_step.cu`), the
 `Transcriber`, and the HTTP server (`python -m speechless_tpu_torch serve`); the CTC
 training step (`train/trainer.py`) on the hand-written CTC kernels
-(`csrc/ctc_alpha.cu`, `csrc/ctc_beta.cu`) with `.npz` checkpoints (`train/checkpoint.py`);
+(`csrc/ctc_alpha.cu`, and `csrc/ctc_beta_grad.cu`, the β recursion fused with the
+gradient) with `.npz` checkpoints (`train/checkpoint.py`);
 streaming sessions (`serving_streaming.py`, `csrc/stream_stitch.cu`); and offline
 decoding on every beam route (`ops/device_beam.py`: the whole-utterance kernel
 `csrc/prefix_beam.cu`, the plain batched beam with char LM, lexicon and n-best),

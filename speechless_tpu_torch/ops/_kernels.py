@@ -29,8 +29,8 @@ SIGNATURES = {
     "lm_beam_step": [_P] * 15 + [_I] * 10 + [_P],
     "beam_backtrace": [_P] * 6 + [_I] * 4 + [_P],
     "prefix_beam": [_P] * 7 + [_I] * 10 + [_F, _P],
-    "ctc_alpha": [_P] * 6 + [_I] * 4 + [_P],
-    "ctc_beta": [_P] * 6 + [_I] * 4 + [_P],
+    "ctc_alpha": [_P] * 7 + [_I] * 4 + [_P],
+    "ctc_beta_grad": [_P] * 10 + [_I] * 4 + [_P],
     "stream_stitch": [_P] * 9 + [_I] * 4 + [_P],
 }
 

@@ -12,8 +12,9 @@ Where `speechless_tpu/ops/ctc.py` (the `lax.scan` recursion) and
 `speechless_tpu/ops/ctc_pallas.py` (the TPU kernels) disagree, this module follows the
 kernels: each row's α freezes from its length on and the final log-probability is read
 from the last α slice, so a zero-length row gets the lse of α_0's last two states
-(the scan version returns 1e30). The α and β recursions are `alpha_reference` and
-`beta_reference`; `ops/ctc_kernels.py` runs the same contract on the card.
+(the scan version returns 1e30). The forward is `forward_reference` (`alpha_reference`,
+then `final_log_prob`), the backward `gradient_reference` (`beta_reference`, then
+`occupancy_gradient`); `ops/ctc_kernels.py` runs the same contract on the card.
 """
 from typing import Callable, Tuple
 
@@ -161,34 +162,51 @@ def occupancy_gradient(log_probs: torch.Tensor, lengths: torch.Tensor,
     return torch.where(valid, -occupancy, 0.0) * grad_out[:, None, None]
 
 
-Recursion = Callable[..., torch.Tensor]
+def forward_reference(log_probs: torch.Tensor, lengths: torch.Tensor,
+                      extended: torch.Tensor, skip: torch.Tensor, s_counts: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward pass in plain PyTorch (plain version of kernel K1): ``(T, B, S)`` α
+    from `alpha_reference` and the ``(B,)`` log P(label) from `final_log_prob`."""
+    alphas = alpha_reference(log_probs, lengths, extended, skip, s_counts)
+    return alphas, final_log_prob(alphas[-1], s_counts)
+
+
+def gradient_reference(log_probs: torch.Tensor, lengths: torch.Tensor,
+                       extended: torch.Tensor, skip: torch.Tensor, s_counts: torch.Tensor,
+                       alphas: torch.Tensor, final: torch.Tensor,
+                       grad_out: torch.Tensor) -> torch.Tensor:
+    """The backward pass in plain PyTorch (plain version of the fused backward kernel,
+    `ctc_pallas.py::_beta_kernel` and the XLA contraction after it): `beta_reference`,
+    then `occupancy_gradient`. Returns d(loss)/d(log_probs), ``(B, T, C)``."""
+    betas = beta_reference(log_probs, lengths, extended, skip, s_counts)
+    return occupancy_gradient(log_probs, lengths, extended, s_counts, alphas, betas, final,
+                              grad_out)
 
 
 class CtcLoss(torch.autograd.Function):
-    """Per-row CTC NLL with the JAX package's custom gradient. ``alpha_fn``/``beta_fn``
-    run the two recursions: `alpha_reference`/`beta_reference` here, the kernel
-    wrappers in `ops/ctc_kernels.py`."""
+    """Per-row CTC NLL with the JAX package's custom gradient. ``forward_fn`` runs the α
+    recursion and returns α and log P(label); ``grad_fn`` runs the whole backward (β and
+    the occupancy contraction): `forward_reference`/`gradient_reference` here, the
+    kernel wrappers in `ops/ctc_kernels.py`."""
 
     @staticmethod
     def forward(ctx, log_probs, lengths, labels, label_lengths, blank: int,
-                alpha_fn: Recursion, beta_fn: Recursion):
+                forward_fn: Callable, grad_fn: Callable):
         lengths, labels, label_lengths = (
             x.to(device=log_probs.device, dtype=torch.int32)
             for x in (lengths, labels, label_lengths))
         extended, skip = extended_labels(labels, blank)
         s_counts = (2 * label_lengths + 1).to(torch.int32)
-        alphas = alpha_fn(log_probs, lengths, extended, skip, s_counts)
-        final = final_log_prob(alphas[-1], s_counts)
+        alphas, final = forward_fn(log_probs, lengths, extended, skip, s_counts)
         ctx.save_for_backward(log_probs, lengths, extended, skip, s_counts, alphas, final)
-        ctx.beta_fn = beta_fn
+        ctx.gradient_fn = grad_fn
         return -final
 
     @staticmethod
     def backward(ctx, grad_out):
         log_probs, lengths, extended, skip, s_counts, alphas, final = ctx.saved_tensors
-        betas = ctx.beta_fn(log_probs, lengths, extended, skip, s_counts)
-        grads = occupancy_gradient(log_probs, lengths, extended, s_counts, alphas, betas,
-                                   final, grad_out)
+        grads = ctx.gradient_fn(log_probs, lengths, extended, skip, s_counts, alphas, final,
+                                grad_out)
         return grads, None, None, None, None, None, None
 
 
@@ -206,7 +224,7 @@ def ctc_loss(log_probs: torch.Tensor, logit_lengths: torch.Tensor, labels: torch
     recursions (any device). Same arguments as the JAX `ctc_loss`."""
     check_inputs(log_probs, labels)
     return CtcLoss.apply(log_probs, logit_lengths, labels, label_lengths, blank,
-                         alpha_reference, beta_reference)
+                         forward_reference, gradient_reference)
 
 
 def ctc_loss_from_logits(logits: torch.Tensor, logit_lengths: torch.Tensor,

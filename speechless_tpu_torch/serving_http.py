@@ -100,12 +100,25 @@ class DynamicBatcher(MicroBatcher):
             audio, want_timestamps, _ = pending.payload
             result = {"text": text, "confidence": confidence}
             if want_timestamps:
-                words = words_from_frame_tokens(
-                    self.backend.frame_tokens(audio), self.backend.codec,
-                    self.backend.blank_index, self.backend.seconds_per_frame)
-                result["words"] = [{"word": word, "start_s": round(start, 4),
-                                    "end_s": round(end, 4)} for word, start, end in words]
+                try:
+                    result["words"] = self._timestamps(audio)
+                except Exception as error:  # fails this request, not the co-batched ones
+                    pending.error = error
+                    continue
             pending.result = result
+
+    def _timestamps(self, audio: np.ndarray) -> List[dict]:
+        """The request's words with start and end seconds; a `ValueError` from
+        ``backend.frame_tokens`` (a backend without the frame path) is a 501."""
+        try:
+            frames = self.backend.frame_tokens(audio)
+        except ValueError as error:
+            raise RequestError(501, str(error))
+        words = words_from_frame_tokens(frames, self.backend.codec,
+                                        self.backend.blank_index,
+                                        self.backend.seconds_per_frame)
+        return [{"word": word, "start_s": round(start, 4), "end_s": round(end, 4)}
+                for word, start, end in words]
 
 
 def _parse_audio(content_type: str, body: bytes) -> np.ndarray:

@@ -1,13 +1,17 @@
 """The port's CTC loss (`speechless_tpu_torch.ops.ctc` and the kernel wrappers of
 `ops.ctc_kernels` on CPU tensors) against the JAX package's `ctc_loss` (the `lax.scan`
 recursion), `ctc_loss_pallas` (the TPU kernels, in interpret mode as
-`tests/test_ctc_pallas.py` runs them) and `torch.nn.functional.ctc_loss`.
+`tests/test_ctc_pallas.py` runs them) and `torch.nn.functional.ctc_loss`; and plain
+models of the CUDA kernels' orders (their thread layout of the states, their per-class
+summation of the gradient) against the plain recursions.
 
 Tolerances: loss rtol 1e-5 (fp32 log-sum-exp chains of up to 140 steps, summed in
 another order); gradients rtol 1e-4 / atol 1e-5 (the occupancy contraction sums the
 states in another order); α on the valid region (t < length, s < 2U+1) atol 1e-5
 relative to its magnitude; against `F.ctc_loss` (another algorithm, float64 there) loss
-rtol 2e-4 and gradient atol 2e-4, as `tests/test_ctc.py` holds the JAX loss.
+rtol 2e-4 and gradient atol 2e-4, as `tests/test_ctc.py` holds the JAX loss; the
+layout models bitwise (same arithmetic, only the neighbours' source differs); the
+summation-order model atol 1e-6 (fp32 sums of occupancies at most 1 in another order).
 """
 import functools
 import re
@@ -193,12 +197,210 @@ def test_wrappers_run_the_plain_versions_on_cpu_and_count_no_launch():
     extended, skip = ctc.extended_labels(torch.from_numpy(labels), 5)
     args = (torch.from_numpy(log_probs), torch.from_numpy(lengths), extended, skip,
             torch.from_numpy(2 * label_lengths + 1))
-    before = (ctc_kernels.ctc_alpha.launches, ctc_kernels.ctc_beta.launches)
-    assert torch.equal(ctc_kernels.ctc_alpha(*args), ctc.alpha_reference(*args))
-    assert torch.equal(ctc_kernels.ctc_beta(*args), ctc.beta_reference(*args))
-    assert (ctc_kernels.ctc_alpha.launches, ctc_kernels.ctc_beta.launches) == before
+    alphas = ctc.alpha_reference(*args)
+    final = ctc.final_log_prob(alphas[-1], args[4])
+    grad_out = torch.from_numpy(_weights(3))
+    betas = ctc.beta_reference(*args)
+    want = ctc.occupancy_gradient(args[0], args[1], extended, args[4], alphas, betas, final,
+                                  grad_out)
+    before = (ctc_kernels.ctc_alpha.launches, ctc_kernels.ctc_beta_grad.launches)
+    got_alphas, got_final = ctc_kernels.ctc_alpha(*args)
+    assert torch.equal(got_alphas, alphas) and torch.equal(got_final, final)
+    assert torch.equal(ctc_kernels.ctc_beta_grad(*args, alphas, final, grad_out), want)
+    got_grad, got_betas = ctc_kernels.ctc_beta_grad(*args, alphas, final, grad_out,
+                                                    with_betas=True)
+    assert torch.equal(got_grad, want) and torch.equal(got_betas, betas)
+    assert (ctc_kernels.ctc_alpha.launches, ctc_kernels.ctc_beta_grad.launches) == before
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ctc_kernels.ctc_alpha(*(a.to("meta") for a in args))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ctc_kernels.ctc_beta_grad(*(a.to("meta") for a in (*args, alphas, final, grad_out)))
+
+
+# ---- plain models of the kernels' orders (csrc/ctc_alpha.cu, csrc/ctc_beta_grad.cu) ----
+# The kernels run on the card only; these models repeat, on the CPU, what their layout
+# changes: which thread owns which state and where a neighbour's value comes from
+# (ctc_common.cuh's published slots), and in which order the gradient's class sums are
+# taken. The arithmetic of each state is the plain versions' own.
+
+def _states_per_thread(s_count):
+    """The K the C entry points pick: the least power of two with S / K <= 1024."""
+    return next(k for k in (1, 2, 4, 8, 16) if s_count <= 1024 * k)
+
+
+def _alpha_slot(s, k):
+    return s if k == 1 else 2 * (s // k) + s % k - (k - 2)
+
+
+def _beta_slot(s, k):
+    return s if k == 1 else 2 * (s // k) + s % k
+
+
+def _publish(values, k):
+    """(B, threads, K) -> (B, 2 * threads): what each thread leaves for its neighbours
+    (its last two states for alpha, its first two for beta; its one state for K = 1)."""
+    batch, threads, _ = values.shape
+    published = torch.full((batch, 2 * threads), ctc.NEG_INF)
+    if k == 1:
+        published[:, :threads] = values[:, :, 0]
+    else:
+        published[:, 0::2], published[:, 1::2] = values[:, :, 0], values[:, :, 1]
+    return published
+
+
+def _edge(published, states, slot, s_count, k):
+    """(B, threads): the published value of state ``states[i]`` for thread i, NEG_INF
+    where the state lies outside [0, S)."""
+    inside = [0 <= s < s_count for s in states]
+    index = torch.tensor([slot(s, k) if ok else 0 for s, ok in zip(states, inside)])
+    return torch.where(torch.tensor(inside), published[:, index], ctc.NEG_INF)
+
+
+def _alpha_model(log_probs, lengths, extended, skip, s_counts, k):
+    """K1's layout: thread i owns states iK .. iK+K-1; s-1 and s-2 across a thread edge
+    come from the previous thread's published last two (two threads back for K = 1)."""
+    batch, t_max, _ = log_probs.shape
+    s_count = extended.shape[1]
+    threads = -(-s_count // k)
+    pad = threads * k - s_count
+    emit = F.pad(ctc.emissions(log_probs, extended), (0, pad)).view(batch, t_max, threads, k)
+    s_index = torch.arange(threads * k).view(threads, k)
+    live = s_index[None] < s_counts[:, None, None]
+    can_skip = F.pad(skip, (0, pad)).view(batch, threads, k)
+    value = torch.where(live & (s_index[None] < 2), emit[:, 0], ctc.NEG_INF)
+    alphas = [value.reshape(batch, -1)[:, :s_count]]
+    firsts = [i * k for i in range(threads)]
+    for t in range(1, t_max):
+        published = _publish(value[:, :, k - 2:] if k > 1 else value, k)
+        edge1 = _edge(published, [f - 1 for f in firsts], _alpha_slot, s_count, k)
+        edge2 = _edge(published, [f - 2 for f in firsts], _alpha_slot, s_count, k)
+        new = value.clone()
+        for j in range(k - 1, -1, -1):
+            advance = value[:, :, j - 1] if j >= 1 else edge1
+            back2 = value[:, :, j - 2] if j >= 2 else (edge1 if j == 1 else edge2)
+            skipped = torch.where(can_skip[:, :, j], back2, ctc.NEG_INF)
+            stepped = ctc._logsumexp3(value[:, :, j], advance, skipped) + emit[:, t, :, j]
+            new[:, :, j] = torch.where(live[:, :, j], stepped, value[:, :, j])
+        value = torch.where((t < lengths)[:, None, None], new, value)
+        alphas.append(value.reshape(batch, -1)[:, :s_count])
+    return torch.stack(alphas)
+
+
+def _beta_model(log_probs, lengths, extended, skip, s_counts, k):
+    """The fused backward's layout: as K1's, with s+1 and s+2 across a thread edge from
+    the next thread's published first two (its published values are scored = β + E)."""
+    batch, t_max, _ = log_probs.shape
+    s_count = extended.shape[1]
+    threads = -(-s_count // k)
+    pad = threads * k - s_count
+    emit = F.pad(ctc.emissions(log_probs, extended), (0, pad)).view(batch, t_max, threads, k)
+    s_index = torch.arange(threads * k).view(threads, k)
+    in_range = s_index < s_count
+    live = s_index[None] < s_counts[:, None, None]
+    skip_from = F.pad(skip, (0, pad + 2))[:, 2:].view(batch, threads, k)
+    terminal = F.pad(ctc.beta_terminal(s_counts, s_count), (0, pad),
+                     value=ctc.NEG_INF).view(batch, threads, k)
+    scored = torch.where(in_range, terminal + emit[:, t_max - 1], ctc.NEG_INF)
+    betas = [None] * t_max
+    nexts = [(i + 1) * k for i in range(threads)]
+    for t in range(t_max - 1, -1, -1):
+        published = _publish(scored[:, :, :2], k)
+        edge1 = _edge(published, nexts, _beta_slot, s_count, k)
+        edge2 = _edge(published, [n + 1 for n in nexts], _beta_slot, s_count, k)
+        value = torch.full_like(scored, ctc.NEG_INF)
+        for j in range(k):
+            advance = scored[:, :, j + 1] if j + 1 < k else edge1
+            ahead2 = scored[:, :, j + 2] if j + 2 < k else (edge1 if j + 2 == k else edge2)
+            skipped = torch.where(skip_from[:, :, j], ahead2, ctc.NEG_INF)
+            stepped = ctc._logsumexp3(scored[:, :, j], advance, skipped)
+            stepped = torch.where((t == lengths - 1)[:, None], terminal[:, :, j], stepped)
+            value[:, :, j] = torch.where(live[:, :, j], stepped, ctc.NEG_INF)
+        scored = torch.where(in_range, value + emit[:, t], ctc.NEG_INF)
+        betas[t] = value.reshape(batch, -1)[:, :s_count]
+    return torch.stack(betas)
+
+
+@pytest.mark.parametrize("s_count,k", [(1, 1), (2, 1), (3, 1), (31, 1), (32, 1), (33, 1),
+                                       (385, 1), (1201, 2), (385, 4), (385, 16)])
+def test_kernel_state_layout_model_equals_the_plain_recursions(s_count, k):
+    """α and β of the kernels' thread layout (K states a thread, edges through the
+    published slots) equal `alpha_reference` bitwise and `beta_reference` bitwise on
+    each row's valid frames, at the S that cross lane and warp edges and the K the
+    entry points pick (plus K = 4 and 16 at S = 385)."""
+    u_max = s_count // 2  # 2U+1 states, cut to S where S is even
+    rng = np.random.default_rng(s_count + k)
+    batch, t_max, classes = 3, 12, 6
+    labels = np.full((batch, u_max), -1, np.int32)
+    label_lengths = np.array([u_max, u_max // 2, max(u_max - 1, 0)], np.int32)
+    for row, n in enumerate(label_lengths):
+        labels[row, :n] = rng.integers(0, classes - 1, n)
+    if u_max >= 2:
+        labels[0, 1] = labels[0, 0]  # a repeat: no skip there
+    lengths = np.array([t_max, t_max - 3, 1], np.int32)
+    log_probs = _log_probs(rng, batch, t_max, classes)
+    extended, skip = ctc.extended_labels(torch.from_numpy(labels), classes - 1)
+    extended, skip = extended[:, :s_count].contiguous(), skip[:, :s_count].contiguous()
+    args = (torch.from_numpy(log_probs), torch.from_numpy(lengths), extended, skip,
+            torch.from_numpy(np.minimum(2 * label_lengths + 1, s_count)))
+    if k == 1 or s_count > 1024:
+        assert k == _states_per_thread(s_count)
+    assert torch.equal(_alpha_model(*args, k), ctc.alpha_reference(*args))
+    got, want = _beta_model(*args, k), ctc.beta_reference(*args)
+    valid = torch.arange(t_max)[:, None] < torch.from_numpy(lengths)[None, :]
+    assert torch.equal(got[valid], want[valid])
+
+
+def _class_sum_model(log_probs, lengths, extended, s_counts, alphas, betas, final,
+                     grad_out):
+    """The fused backward's summation order: γ = exp((α + β) - logZ) of each row's live
+    states, sorted by class (stable), summed in segments of at most L positions of one
+    class (the least L >= 16 with L * L >= S), then each class's segments in order;
+    -sum * grad_out for t < length, 0 * grad_out after."""
+    batch, t_max, class_count = log_probs.shape
+    segment = 16
+    while segment * segment < extended.shape[1]:
+        segment += 1
+    grad = torch.zeros_like(log_probs)
+    for row in range(batch):
+        live = int(s_counts[row])
+        gamma = torch.exp((alphas[:, row, :live] + betas[:, row, :live]) - final[row])
+        order = torch.sort(extended[row, :live], stable=True).indices.tolist()
+        classes = extended[row, :live].tolist()
+        for c in range(class_count):
+            members = [s for s in order if classes[s] == c]
+            total = torch.zeros(t_max)
+            for begin in range(0, len(members), segment):
+                part = torch.zeros(t_max)
+                for s in members[begin:begin + segment]:
+                    part = part + gamma[:, s]
+                total = total + part
+            grad[row, :, c] = -total * grad_out[row]
+        grad[row, max(int(lengths[row]), 0):] = 0.0 * grad_out[row]
+    return grad
+
+
+CLASS_SUM_CASES = dict(CASES, wide_s385=lambda: _random_case(8, 2, 400, 192, 29))
+
+
+@pytest.mark.parametrize("case", sorted(CLASS_SUM_CASES))
+def test_class_sum_order_model_equals_occupancy_gradient(case):
+    """The fused backward's per-class summation order gives `occupancy_gradient`'s
+    gradient within 1e-6 (another order of fp32 sums of occupancies at most 1), also at
+    the bench's S = 385, where a segment holds 20 positions."""
+    log_probs, lengths, labels, label_lengths = (torch.from_numpy(x)
+                                                 for x in CLASS_SUM_CASES[case]())
+    extended, skip = ctc.extended_labels(labels, log_probs.shape[2] - 1)
+    s_counts = (2 * label_lengths + 1).to(torch.int32)
+    args = (log_probs, lengths, extended, skip, s_counts)
+    alphas, betas = ctc.alpha_reference(*args), ctc.beta_reference(*args)
+    final = ctc.final_log_prob(alphas[-1], s_counts)
+    grad_out = torch.from_numpy(_weights(len(lengths)))
+    want = ctc.occupancy_gradient(log_probs, lengths, extended, s_counts, alphas, betas,
+                                  final, grad_out)
+    got = _class_sum_model(log_probs, lengths, extended, s_counts, alphas, betas, final,
+                           grad_out)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
 
 
 def test_kernel_entry_points_match_their_ctypes_signatures():

@@ -24,7 +24,9 @@ from speechless_tpu.serving import Transcriber as JaxTranscriber
 from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
 from speechless_tpu_torch.models import wav2letter as w2l
 from speechless_tpu_torch.serving import Transcriber, words_from_frame_tokens
-from speechless_tpu_torch.serving_http import TranscriptionServer, _parse_audio
+from speechless_tpu_torch.serving_http import (DynamicBatcher, RequestError,
+                                               TranscriptionServer, _parse_audio)
+from speechless_tpu_torch.utils.microbatch import PendingItem
 
 torch.backends.cudnn.allow_tf32 = False
 
@@ -178,6 +180,27 @@ def test_http_status_codes(server):
     assert status == 200 and payload["session"]
     assert _request(server.port, "/v1/transcribe", b"not json")[0] == 400
     assert _request(server.port, "/v1/transcribe", b"\x00", "text/plain")[0] == 415
+
+
+def test_timestamps_failure_fails_its_request_alone():
+    """Two requests in one batch, one asking for timestamps from a backend whose
+    `frame_tokens` raises `ValueError`: the other keeps its text, the failing one gets a
+    501 (as the JAX package's batcher does)."""
+
+    class NoFrameTokens:
+        def transcribe_batch(self, audios, batch_size):
+            return [("text {}".format(i), 0.5) for i in range(len(audios))]
+
+        def frame_tokens(self, audio):
+            raise ValueError("no frame path")
+
+    batch = [PendingItem((np.zeros(160, np.float32), want, None))
+             for want in (False, True)]
+    DynamicBatcher(NoFrameTokens())._serve(batch)
+    assert batch[0].error is None and batch[0].result == {"text": "text 0",
+                                                          "confidence": 0.5}
+    assert batch[1].result is None
+    assert isinstance(batch[1].error, RequestError) and batch[1].error.status == 501
 
 
 @pytest.mark.parametrize("kenlm", [True, False], ids=["lm_beam", "no_lm"])
