@@ -53,8 +53,10 @@ source, all started together) and prints ptxas's registers and spills, then:
 * phase D (streaming, on phase B's transcriber and LM): the stitch-and-rank kernel
   (`stream_stitch`) against `stitch_reference` on the same CUDA tensors at N=16 streams,
   F=32 (and 25) frames, r=32 lanes, max_len=512, with count-0 streams, streams near
-  capacity and dead lanes, and once past the kernel's shared-memory staging (F=128,
-  r=64): every output equal, scores bitwise; timed with CUDA events.
+  capacity and dead lanes, at F=128 r=64, and at the edges: F=1, every frame emitting,
+  exit lengths below the entry length, max_len reached, NaN scores, max_len=510 and
+  r=512: every output equal, scores bitwise; the kernel's device time per launch
+  (CUDA events behind a device sleep), the wrapper's and the plain version's.
   Then `KernelBeamStreamDecoder` (W=25, word LM) takes 16 serving-shape streams of 513
   frames by `feed_batch` in 32-frame pieces, on the kernels (one span launch and one
   stitch launch a piece round) and on the plain loop: tokens identical, scores within
@@ -83,10 +85,14 @@ source, all started together) and prints ptxas's registers and spills, then:
   without skipping against the span kernel's no-LM beam (tokens equal), the router's
   skip route (one K3 launch, the plain version's tokens), the backtrace kernel
   (`beam_backtrace`) against `backtrace_tokens` on K3's (a) and phase A's span outputs
-  (tokens and counts equal; times and bound), ``POST /v1/transcribe?nbest=5``
-  against a direct `transcribe_nbest`, a lexicon-constrained `Transcriber` on 16 x 8 s
-  (every word in the LM's vocabulary), the plain batched beam twice on the card
-  (bitwise) and on the card against the CPU (tokens equal).
+  and on seeded rows (r=1024; five starts a row, the n-best form; T = 1, 33 and 1401;
+  max_len below the counts and past T; rows emitting on every frame): tokens and counts
+  equal, device times and bound. ``POST /v1/transcribe?nbest=5`` against a direct
+  `transcribe_nbest` (one backtrace launch a request), a lexicon-constrained
+  `Transcriber` on 16 x 8 s (every word in the LM's vocabulary, one backtrace launch a
+  dispatch), the plain batched beam twice on the card (bitwise) and on the card
+  against the CPU (lexicon tokens equal; the n-best list's tokens equal and scores
+  within 1e-4).
 * with ``--profile`` only: the split of one 16 x 8 s `transcribe_batch` into features,
   model and beam, single-request latencies, and the device's busy share and kernel
   counts from one `torch.profiler` trace (``chiprun_out/profile.json``); and the split of
@@ -145,6 +151,33 @@ def cuda_ms(fn, iterations: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iterations
+
+
+def device_ms(fn, iterations: int) -> float:
+    """Mean device milliseconds per launch of ``fn`` over ``iterations`` launches queued
+    behind a device sleep long enough to cover the host's issuing them, so that they run
+    back to back on the device whatever the host takes per call (for kernels shorter
+    than their launch's host cost). Fails if the host did not keep ahead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    sleep_s = 2.0 * iterations * (time.perf_counter() - start) + 0.005
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * 2e9))  # cycles: at least sleep_s at clocks <= 2 GHz
+    issued = time.perf_counter()
+    begin.record()
+    for _ in range(iterations):
+        fn()
+    end.record()
+    issued = time.perf_counter() - issued
+    torch.cuda.synchronize()
+    check(issued < sleep_s, "device_ms: issuing {} launches took {:.4f} s, longer than the "
+          "{:.4f} s the device slept".format(iterations, issued, sleep_s))
+    return begin.elapsed_time(end) / iterations
 
 
 def random_step_inputs(rng, batch, r, k, classes, max_len, device):
@@ -1120,30 +1153,45 @@ HTTP_SESSIONS = ("beam",) * 6 + ("beam_pipelined", "greedy_final")
 HTTP_SECONDS, HTTP_CHUNK_S = 8.0, 0.5
 
 
-def stitch_case(rng, streams, frames, lanes, max_len, classes, device):
+def stitch_case(rng, streams, frames, lanes, max_len, classes, device, kind="serving"):
     """Seeded stitch inputs: valid backpointers (parents in [0, lanes), 60 % of the
     chars -1), 20 % dead lanes (length 0, score NEG_INF), streams 0-1 with count 0
     (identity pointers, no chars), streams 2-3 entering near capacity, and exit lengths
-    that are each lane's entry length plus its emissions, as the beam step gives."""
+    that are each lane's entry length plus its emissions, as the beam step gives. Edge
+    kinds: ``every_frame_emits`` (no -1 chars past stream 1), ``exit_below_entry`` (exit
+    lengths 1-3 below the ancestor's entry length), ``max_len_reached`` (entries within
+    2 of max_len, exits capped there) and ``nan_scores`` (NaN scores in three streams,
+    one all NaN)."""
     import torch
 
     parents = rng.integers(0, lanes, (streams, frames, lanes)).astype(np.int32)
     chars = rng.integers(0, classes - 1, (streams, frames, lanes)).astype(np.int32)
-    chars[rng.random(chars.shape) < 0.6] = -1
+    if kind != "every_frame_emits":
+        chars[rng.random(chars.shape) < 0.6] = -1
     parents[:2], chars[:2] = np.arange(lanes, dtype=np.int32), -1
     prev_len = rng.integers(0, max_len - frames + 1, (streams, lanes)).astype(np.int32)
     prev_len[2:4] = max_len - frames - rng.integers(0, 3, (2, lanes))
+    if kind == "max_len_reached":
+        prev_len = (max_len - rng.integers(0, 3, (streams, lanes))).astype(np.int32)
     tokens = rng.integers(0, classes - 1, (streams, lanes, max_len)).astype(np.int32)
     tokens[np.arange(max_len)[None, None, :] >= prev_len[..., None]] = -1
     lane, emitted = np.tile(np.arange(lanes), (streams, 1)), np.zeros((streams, lanes), int)
     for t in range(frames - 1, -1, -1):
         emitted += np.take_along_axis(chars[:, t], lane, 1) >= 0
         lane = np.take_along_axis(parents[:, t], lane, 1)
-    new_len = (np.take_along_axis(prev_len, lane, 1) + emitted).astype(np.int32)
+    entry = np.take_along_axis(prev_len, lane, 1)
+    new_len = entry + emitted
+    if kind == "exit_below_entry":
+        new_len = entry - rng.integers(1, 4, entry.shape)
+    new_len = np.clip(new_len, 0, max_len).astype(np.int32)
     final = rng.normal(-50.0, 10.0, (streams, lanes)).astype(np.float32)
     dead = rng.random((streams, lanes)) < 0.2
     dead[:, 0] = False
     new_len[dead], final[dead] = 0, -1e30
+    if kind == "nan_scores":
+        final[2, [3, lanes - 2]] = np.nan
+        final[3] = np.nan
+        final[4, 0] = -np.inf
     return [torch.from_numpy(x).to(device)
             for x in (parents, chars, tokens, prev_len, new_len, final)]
 
@@ -1179,55 +1227,64 @@ def serving_posteriors(rng, streams, frames, classes, blank):
 
 def check_stitch_kernel(rng, device, classes):
     """`stream_stitch` (CUDA) against `stitch_reference` on the same CUDA tensors at the
-    serving shape: every output equal, scores bitwise. CUDA-event times of the raw
-    kernel, the wrapper and the plain version, and the least time by bytes."""
+    serving shape and at seeded edge shapes: rows and best rows equal, scalars bitwise.
+    The kernel's device time per launch (launches queued behind a device sleep), the
+    wrapper's time per call, the plain version's, and the least time by bytes."""
     import torch
 
-    from speechless_tpu_torch.ops import _kernels
     from speechless_tpu_torch.ops.decode_incremental_kernel import (stitch_reference,
                                                                     stream_stitch)
 
     lanes = 32
     max_abs_err = 0.0
-    # Four cases at the serving shape (F=32 and 25), and one whose backpointers (F=128,
-    # r=64: 64 KB) exceed the 47 KB the kernel stages, so it reads them from device
-    # memory instead.
-    shapes = [(STREAM_N, STREAM_CF - 7 * (trial % 2), lanes) for trial in range(4)]
-    for trial, (streams, frames, width) in enumerate(shapes + [(4, 128, 64)]):
-        args = stitch_case(rng, streams, frames, width, STREAM_MAX_LEN, classes, device)
+    # Four cases at the serving shape (F=32 and 25); one whose backpointers (F=128,
+    # r=64: 64 KB) take the kernel's larger staging; the edges: one frame, every frame
+    # emitting, exits below the entry length, max_len reached, NaN scores, a max_len
+    # that is no multiple of 4 (the kernel's one-word copies), 512 lanes, and
+    # backpointers too large to stage (F=128, r=256: 256 KB), read from device memory.
+    shapes = [(STREAM_N, STREAM_CF - 7 * (trial % 2), lanes, STREAM_MAX_LEN, "serving")
+              for trial in range(4)]
+    shapes += [(4, 128, 64, STREAM_MAX_LEN, "serving"),
+               (STREAM_N, 1, lanes, STREAM_MAX_LEN, "serving"),
+               (STREAM_N, STREAM_CF, lanes, STREAM_MAX_LEN, "every_frame_emits"),
+               (STREAM_N, STREAM_CF, lanes, STREAM_MAX_LEN, "exit_below_entry"),
+               (STREAM_N, STREAM_CF, lanes, STREAM_MAX_LEN, "max_len_reached"),
+               (STREAM_N, STREAM_CF, lanes, STREAM_MAX_LEN, "nan_scores"),
+               (STREAM_N, STREAM_CF, lanes, 510, "serving"),
+               (4, 8, 512, 64, "serving"), (4, 128, 256, 256, "serving")]
+    for trial, (streams, frames, width, max_len, kind) in enumerate(shapes):
+        args = stitch_case(rng, streams, frames, width, max_len, classes, device, kind)
         kernel, plain = stream_stitch(*args), stitch_reference(*args)
         torch.cuda.synchronize()
         for name, got, want in zip(("rows", "best rows", "scalars"), kernel, plain):
-            check(got.dtype == want.dtype and torch.equal(got, want),
-                  "stitch trial {}: {} differ".format(trial, name))
-        max_abs_err = max(max_abs_err, float((kernel[2] - plain[2]).abs().max()))
-    stream_stitch.launches = 0
+            check(got.dtype == want.dtype and torch.equal(got.view(torch.int32),
+                                                          want.view(torch.int32)),
+                  "stitch trial {} ({}, F={} r={} max_len={}): {} differ".format(
+                      trial, kind, frames, width, max_len, name))
+        finite = torch.isfinite(plain[2])
+        max_abs_err = max(max_abs_err, float((kernel[2] - plain[2])[finite].abs().max()))
     args = stitch_case(rng, STREAM_N, STREAM_CF, lanes, STREAM_MAX_LEN, classes, device)
-    outputs = [torch.empty_like(args[2]),
-               torch.empty((STREAM_N, STREAM_MAX_LEN), dtype=torch.int32, device=device),
-               torch.empty((STREAM_N, 3), dtype=torch.float32, device=device)]
-    raw = (*(t.data_ptr() for t in args + outputs), STREAM_N, STREAM_CF, lanes,
-           STREAM_MAX_LEN, torch.cuda.current_stream().cuda_stream)
-    entry = _kernels.function("stream_stitch")
-    ms = cuda_ms(lambda: check(entry(*raw) == 0, "raw stitch launch failed"), 2000)
+    ms = device_ms(lambda: stream_stitch(*args), 500)
     wrapper_ms = cuda_ms(lambda: stream_stitch(*args), 500)
     plain_ms = cuda_ms(lambda: stitch_reference(*args), 20)
+    outputs = stream_stitch(*args)
     for got, want in zip(outputs, stitch_reference(*args)):
-        check(torch.equal(got, want), "raw stitch launches disagree with the plain version")
+        check(torch.equal(got, want), "timed stitch launches disagree with the plain version")
     # Least time: what this run's data needs read once (`stitch_bytes`) and each output
     # written once; the kernel's arithmetic (a few integer operations per backpointer
     # and per output word) is negligible beside its bytes.
     moved = stitch_bytes(args[0], args[3], outputs)
     bound_ms, bound_by = bound(moved, 0.0)
-    print("phase D stitch: kernel == plain (rows, best rows, scalars bitwise) over 4 "
-          "seeded cases at N={} F={}/{} r={} max_len={} (count-0 streams, streams near "
-          "capacity, dead lanes) and one unstaged case at N=4 F=128 r=64; kernel {:.5f} "
-          "ms per launch on the device, wrapper "
-          "{:.5f} ms per call, plain {:.4f} ms, bound {:.6f} ms ({}: {} bytes needed of "
-          "the {} in the tensors)".format(
-              STREAM_N, STREAM_CF, STREAM_CF - 7, lanes, STREAM_MAX_LEN, ms, wrapper_ms,
-              plain_ms, bound_ms, bound_by, moved,
-              sum(t.numel() * t.element_size() for t in args + outputs)))
+    print("phase D stitch: kernel == plain (rows, best rows, scalars bitwise) over {} "
+          "seeded cases: N={} F={}/{} r={} max_len={} (count-0 streams, streams near "
+          "capacity, dead lanes), N=4 F=128 r=64, F=1, every frame emitting, exits below "
+          "the entry length, max_len reached, NaN scores, max_len=510, N=4 F=8 r=512, N=4 "
+          "F=128 r=256 max_len=256 (unstaged); "
+          "kernel {:.5f} ms per launch on the device, wrapper {:.5f} ms per call, plain "
+          "{:.4f} ms, bound {:.6f} ms ({}: {} bytes needed of the {} in the tensors)".format(
+              len(shapes), STREAM_N, STREAM_CF, STREAM_CF - 7, lanes, STREAM_MAX_LEN, ms,
+              wrapper_ms, plain_ms, bound_ms, bound_by, moved,
+              sum(t.numel() * t.element_size() for t in args + list(outputs))))
     return {"max_abs_err": max_abs_err, "ms": ms, "wrapper_ms": wrapper_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1663,32 +1720,82 @@ def check_prefix_beam(name, log_probs, lengths, blank, beam_width, k, skip, devi
     return result, got
 
 
-def check_backtrace(name, parents, chars, best, counts, max_len, iterations):
+def check_backtrace(name, parents, chars, best, counts, max_len, iterations=0):
     """`beam_backtrace` (the kernel) against `backtrace_tokens` (plain PyTorch) on the
-    same CUDA tensors: tokens and counts equal. CUDA-event times of both and the least
-    time by bytes: two words a frame along each row's path, best and count read once,
-    the tokens and counts written once."""
+    same CUDA tensors: tokens and counts equal. With ``iterations``, the kernel's device
+    time per launch (launches queued behind a device sleep), the wrapper's time per
+    call, the plain version's, and the least time by bytes: two words a frame along
+    each start's path, each start and count read once, the tokens written once."""
     import torch
 
     from speechless_tpu_torch.ops.beam_common import backtrace_tokens, beam_backtrace
 
+    best, counts = best.to(torch.int32), counts.to(torch.int32)
     got = beam_backtrace(parents, chars, best, counts, max_len)
     want = backtrace_tokens(parents, chars, best, counts, max_len)
     for label, g, w in zip(("tokens", "counts"), got, want):
         check(g.dtype == w.dtype and torch.equal(g, w),
               "beam_backtrace {}: {} differ from the plain version".format(name, label))
-    ms = cuda_ms(lambda: beam_backtrace(parents, chars, best, counts, max_len), iterations)
+    if not iterations:
+        return None
+    ms = device_ms(lambda: beam_backtrace(parents, chars, best, counts, max_len), iterations)
+    call_ms = cuda_ms(lambda: beam_backtrace(parents, chars, best, counts, max_len),
+                      iterations)
     plain_ms = cuda_ms(lambda: backtrace_tokens(parents, chars, best, counts, max_len), 5)
-    batch, t_max, _ = parents.shape
-    moved = 4 * (2 * batch * t_max + 2 * batch) + sum(t.numel() * t.element_size()
-                                                      for t in got)
+    t_max = parents.shape[1]
+    moved = 4 * (2 * best.numel() * t_max + 2 * best.numel()) + got[0].numel() * 4
     bound_ms, bound_by = bound(moved, 0.0)
-    print("phase E beam_backtrace {}: B={} T={} max_len={}: kernel == plain (tokens, "
-          "counts); kernel {:.4f} ms per launch, plain {:.3f} ms, bound {:.6f} ms ({}: {} "
-          "bytes)".format(name, batch, t_max, max_len, ms, plain_ms, bound_ms, bound_by,
-                          moved))
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": 0.0}
+    print("phase E beam_backtrace {}: B={} T={} r={} starts {} max_len={}: kernel == plain "
+          "(tokens, counts); kernel {:.5f} ms per launch on the device, {:.5f} ms per "
+          "wrapper call, plain {:.3f} ms, bound {:.6f} ms ({}: {} bytes)".format(
+              name, parents.shape[0], t_max, parents.shape[2], tuple(best.shape), max_len,
+              ms, call_ms, plain_ms, bound_ms, bound_by, moved))
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": 0.0}
+
+
+def backtrace_case(rng, batch, t_max, lanes, starts, device):
+    """Seeded backpointers (parents in [0, lanes), 60 % of the chars -1, row 0 emitting
+    on every frame), ``starts`` final lanes a row ((B,) when 1) and counts: the emitted
+    count, off by up to 2, 0 on the last row and past T on the first."""
+    import torch
+
+    from speechless_tpu_torch.ops.beam_common import backtrace_tokens
+
+    parents = rng.integers(0, lanes, (batch, t_max, lanes)).astype(np.int32)
+    chars = rng.integers(0, 28, (batch, t_max, lanes)).astype(np.int32)
+    chars[1:][rng.random(chars[1:].shape) < 0.6] = -1
+    best = rng.integers(0, lanes, (batch, starts)).astype(np.int32)
+    parents, chars, best = (torch.from_numpy(x).to(device) for x in (parents, chars, best))
+    full = torch.full((batch,), t_max, device=device)
+    emitted = torch.stack([(backtrace_tokens(parents, chars, best[:, s], full, t_max)[0]
+                            >= 0).sum(-1) for s in range(starts)], 1)
+    counts = emitted + torch.from_numpy(rng.integers(-2, 3, (batch, starts))).to(device)
+    counts[-1, 0], counts[0, -1] = 0, t_max + 3
+    counts = counts.clamp(min=0).to(torch.int32)
+    if starts == 1:
+        best, counts = best[:, 0].contiguous(), counts[:, 0].contiguous()
+    return parents, chars, best, counts
+
+
+def check_backtrace_edges(rng, device):
+    """The backtrace kernel on seeded rows: 1024 lanes (timed), five starts a row (the
+    n-best form, timed), T = 1, 33 and 1401 frames, max_len below the counts and above
+    T; the first row of each emits on every frame. Returns the timed cases."""
+    timed = {}
+    timed["r1024"] = check_backtrace("r=1024", *backtrace_case(rng, 16, 513, 1024, 1, device),
+                                     513, 100)
+    timed["nbest5"] = check_backtrace("n-best form", *backtrace_case(rng, 1, 513, 32, 5,
+                                                                     device), 256, 200)
+    for t_max in (1, 33, 1401):
+        for starts in (1, 3):
+            case = backtrace_case(rng, 4, t_max, 32, starts, device)
+            for max_len in (max(1, t_max // 3), t_max + 7):
+                check_backtrace("T={}".format(t_max), *case, max_len)
+    print("phase E beam_backtrace edges: kernel == plain at T = 1, 33, 1401 (r=32, one and "
+          "three starts a row, max_len below the counts and past T, rows emitting on every "
+          "frame)")
+    return timed
 
 
 def phase_e(device, transcriber, batch, lm_directory, vocabulary, span_outputs):
@@ -1699,7 +1806,7 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary, span_outputs):
     lexicon-constrained batches, repeatability, the card against the CPU)."""
     import torch
 
-    from speechless_tpu_torch.ops.beam_common import backtrace_tokens
+    from speechless_tpu_torch.ops.beam_common import backtrace_tokens, beam_backtrace
     from speechless_tpu_torch.ops.decode_beam import beam_search_decode, beam_search_nbest
     from speechless_tpu_torch.ops.decode_lm import beam_search_decode_frames
     from speechless_tpu_torch.ops.decode_whole import beam_search_decode_whole, prefix_beam
@@ -1756,14 +1863,15 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary, span_outputs):
                              served.shape[1])
     check(torch.equal(tokens, plain[0]) and torch.equal(counts, plain[1]),
           "the router's skip route and the plain K3 give other tokens")
-    backtraces = {"k3": check_backtrace("on K3 (a)", parents, chars, best.to(torch.int32),
+    backtraces = {"k3": check_backtrace("on K3 (a)", parents, chars, best,
                                         lens.gather(1, best[:, None])[:, 0],
-                                        served.shape[1], 50)}
+                                        served.shape[1], 200)}
     carry, span_parents, span_chars, tail = span_outputs
     span_best = (torch.logaddexp(carry[0], carry[1]) + carry[5] + tail).argmax(dim=1)
     backtraces["span"] = check_backtrace(
         "on the span (word LM)", span_parents, span_chars, span_best,
-        carry[4].gather(1, span_best[:, None])[:, 0], span_parents.shape[1], 50)
+        carry[4].gather(1, span_best[:, None])[:, 0], span_parents.shape[1], 200)
+    backtraces.update(check_backtrace_edges(rng, device))
     # The no-LM routes end to end on (a) (synchronized host clock, mean of 3 after one).
     def wall_s(fn, runs=3):
         fn()
@@ -1790,7 +1898,8 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary, span_outputs):
               int(whole[1].sum()), launches, routes["k3_skip_s"], routes["k3_exact_s"],
               routes["span_no_lm_s"], routes["plain_beam_s"]))
 
-    # The plain batched beam: n-best over HTTP, against a direct call.
+    # The plain batched beam: n-best over HTTP, against a direct call; one backtrace
+    # launch a request.
     audio = batch[0]
     want = transcriber.transcribe_nbest(audio, NBEST)
     server = TranscriptionServer(transcriber, port=0, max_batch=16, max_wait_ms=20.0)
@@ -1798,12 +1907,17 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary, span_outputs):
     try:
         body = json.dumps({"pcm": audio.tolist(), "sample_rate": 16000}).encode()
         seconds = []
+        beam_backtrace.launches = 0
         for _ in range(3):
             status, payload, elapsed = http_request(
                 server.port, "/v1/transcribe?nbest={}".format(NBEST), body)
             seconds.append(elapsed)
+        torch.cuda.synchronize()
+        plain_launches = {"nbest_requests": beam_backtrace.launches}
     finally:
         server.stop()
+    check(plain_launches["nbest_requests"] == 3, "3 ?nbest={} requests launched the "
+          "backtrace {} times".format(NBEST, plain_launches["nbest_requests"]))
     check(status == 200, "?nbest={} answered {}".format(NBEST, status))
     check([(h["text"], h["score"]) for h in payload["hypotheses"]]
           == [(text, round(score, 4)) for text, score in want],
@@ -1816,9 +1930,15 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary, span_outputs):
                           kenlm_directory=lm_directory, lexicon_constrained=True)
     lexicon.transcribe_batch(batch[:2])
     torch.cuda.synchronize()
+    beam_backtrace.launches = 0
     start = time.perf_counter()
     texts = lexicon.transcribe_batch(batch)
     lexicon_s = time.perf_counter() - start
+    plain_launches["lexicon_batch"] = beam_backtrace.launches
+    dispatches = len(list(grouped_padded_batches(batch, lexicon._bucket, 16)))
+    check(plain_launches["lexicon_batch"] == dispatches, "the lexicon batch's {} "
+          "dispatches launched the backtrace {} times".format(
+              dispatches, plain_launches["lexicon_batch"]))
     words = [text.split(" ") for text, _ in texts]
     check(all(w in vocabulary for row in words for w in row[:-1] if w)
           and all(any(v.startswith(row[-1]) for v in vocabulary) for row in words),
@@ -1840,13 +1960,24 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary, span_outputs):
                                 **lexicon_options)
     check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
           "the plain beam's tokens on the card and on the CPU differ")
-    numbers = {"nbest_request_s": sorted(seconds)[1], "lexicon_batch_s": lexicon_s}
+    # The n-best list of the served posteriors, card against CPU: tokens and counts
+    # equal, scores within 1e-4 relative (PERF.md section 2).
+    cpu_nbest = beam_search_nbest(served.cpu(), frames.cpu(), blank, NBEST,
+                                  word_lm=transcriber.word_lm.to("cpu"), lm_weight=0.8,
+                                  **options)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(nbest_runs[0][:2], cpu_nbest[:2]))
+          and torch.allclose(nbest_runs[0][2].cpu(), cpu_nbest[2], rtol=1e-4, atol=0.0),
+          "the n-best lists on the card and on the CPU differ")
+    numbers = {"nbest_request_s": sorted(seconds)[1], "lexicon_batch_s": lexicon_s,
+               "plain_beam_launches": plain_launches}
     print("phase E plain beam: ?nbest={} answered 200 with the direct call's {} "
           "hypotheses (request {:.3f} s, median of 3); lexicon transcribe_batch 16 x 8 s "
-          "{:.3f} s, every word in the LM's vocabulary ({} words); n-best twice on the "
-          "card bitwise equal; the lexicon beam on the peaky batch equal on card and CPU "
-          "({} tokens)".format(NBEST, len(want), numbers["nbest_request_s"], lexicon_s,
-                               sum(len(row) for row in words), int(on_cpu[1].sum())))
+          "{:.3f} s, every word in the LM's vocabulary ({} words); backtrace launches: {} "
+          "(one a request, one a dispatch); n-best twice on the card bitwise equal and "
+          "equal to the CPU's (tokens; scores within 1e-4); the lexicon beam on the peaky "
+          "batch equal on card and CPU ({} tokens)".format(
+              NBEST, len(want), numbers["nbest_request_s"], lexicon_s,
+              sum(len(row) for row in words), plain_launches, int(on_cpu[1].sum())))
     numbers.update(routes, cases=cases, launches=launches, backtraces=backtraces)
     return numbers
 

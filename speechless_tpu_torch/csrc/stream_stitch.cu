@@ -3,7 +3,7 @@
 //
 // Replaces the stitch and the ranking of the TPU kernel path
 // speechless_tpu/ops/decode_incremental_pallas.py::_pallas_stream_core (lines 124-178;
-// the frame loop before them runs the beam-step kernel, csrc/lm_beam_step.cu). For each
+// the frame loop before them runs the span kernel, csrc/lm_beam_span.cu). For each
 // stream n and lane l, with the chunk's F frames of backpointers (parent lane, emitted
 // char or -1):
 //   * walk back from lane l through the F frames to its ancestor lane a at chunk entry,
@@ -16,15 +16,20 @@
 // The plain PyTorch twin is speechless_tpu_torch/ops/decode_incremental_kernel.py::
 // stitch_reference.
 //
-// What bounds it on the H100: a dependent pointer chase, not bytes. The function must
-// move the entry buffers in and the new buffers out (N * r * max_len * 8 bytes, 1 MB at
-// the serving shape: 0.3 us at 3.35 TB/s), but each lane's walk is F dependent loads.
-// What the design does about it: one block per stream. The chunk's backpointers (8 KB
-// at F=32, r=32) are staged in shared memory, so the chase reads shared memory, and
-// each thread walks one lane twice: once for the ancestor and the emission count, once
-// to write its emitted chars straight to their final places (the count fixes where the
-// walk's last char goes). The rows' copied prefixes and -1 tails are then written by
-// the whole block, row by row, with neighbouring threads on neighbouring addresses.
+// What bounds it on the H100: latency. The function must move the entry buffers' live
+// prefixes in and the new buffers out (1.2 MB at the serving shape: 0.36 us at
+// 3.35 TB/s), behind a chase of F dependent backpointer reads per lane. The design:
+//   * a stream's rows are spread over several CTAs, one warp a row (at N=16, r=32: 8
+//     CTAs of 4 warps a stream, 128 CTAs), so all rows are in flight at once;
+//   * each CTA stages the stream's backpointers (8 KB at F=32, r=32) and the small
+//     inputs (entry and exit lengths, scores) in shared memory by cp.async, behind
+//     one barrier; no later step waits on a read from device memory for a length;
+//   * each warp ranks the lanes itself from the staged scores (a warp reduction), so
+//     the best lane is known before any row is written, and lane 0 chases its row's
+//     lane back through shared memory, keeping the emitted chars in shared memory;
+//   * the warp then writes its row in 16-byte vectors (the ancestor's prefix read in
+//     16-byte vectors, the emitted chars, the tail, -1 from new_len on), and the warp
+//     of the best lane writes the same vectors to best_rows.
 // The new buffers are a second array: a lane reads other lanes' entry rows, so the
 // kernel never writes in place. Allocates nothing.
 #include <climits>
@@ -33,10 +38,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-// Dynamic shared memory a launch may take without opting in (48 KB less room for the
-// kernel's static word).
-constexpr int kStagedBytes = 47 * 1024;
+constexpr int kSharedLimit = 227 * 1024;  // dynamic shared memory a block may opt into
+
+struct Layout {
+  int ctas;        // CTAs a stream
+  int warps;       // warps (rows) a CTA
+  int staged;      // backpointers staged in shared memory (else read from device memory)
+  int shared_bytes;
+};
 
 // a ranks before b in torch.argmax's order: larger first, NaN largest.
 __device__ __forceinline__ bool ranks_before(float a, int ia, float b, int ib) {
@@ -46,132 +55,188 @@ __device__ __forceinline__ bool ranks_before(float a, int ia, float b, int ib) {
   return ia < ib;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void copy_async4(void* shared, const void* global) {
+  const unsigned address = static_cast<unsigned>(__cvta_generic_to_shared(shared));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(address), "l"(global)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async16(void* shared, const void* global) {
+  const unsigned address = static_cast<unsigned>(__cvta_generic_to_shared(shared));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(address), "l"(global)
+               : "memory");
+}
+
+// Copy `count` contiguous words into shared memory (16 bytes a copy where the source
+// allows it; `shared` is 16-byte aligned), not waited for.
+__device__ void stage(int* shared, const int* global, int count) {
+  if ((reinterpret_cast<size_t>(global) & 15) == 0 && (count & 3) == 0) {
+    for (int i = 4 * threadIdx.x; i < count; i += 4 * blockDim.x)
+      copy_async16(shared + i, global + i);
+  } else {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) copy_async4(shared + i, global + i);
+  }
+}
+
+// One row element: the ancestor's prefix, the emitted chars, the tail, -1 from stop on.
+__device__ __forceinline__ int element(int j, int old, int entry, int count, int stop,
+                                       int tail, const int* packed_reversed) {
+  if (j >= stop) return -1;
+  if (j < entry) return old;
+  if (j < entry + count) return packed_reversed[count - 1 - (j - entry)];
+  return tail;
+}
+
+// kVector words of a row from position j (-1s where `live` is false), and their store.
+template <int kVector>
+__device__ __forceinline__ int4 load_words(const int* row, int j, bool live) {
+  if (!live) return make_int4(-1, -1, -1, -1);
+  if (kVector == 4) return *reinterpret_cast<const int4*>(row + j);
+  return make_int4(row[j], -1, -1, -1);
+}
+template <int kVector>
+__device__ __forceinline__ void store_words(int* row, int j, int4 words) {
+  if (kVector == 4) {
+    *reinterpret_cast<int4*>(row + j) = words;
+  } else {
+    row[j] = words.x;
+  }
+}
+
+// Vectors a lane reads of its row's entry prefix before the rank (512 words at kVector
+// 4), so that the reads are in flight while the warp ranks.
+constexpr int kReadAhead = 4;
+
+// kVector: 4 where max_len is a multiple of 4 (16-byte row copies), else 1. kStaged:
+// the backpointers staged in shared memory (else the chase reads device memory); a
+// template argument, so that the staged chase compiles to shared-memory loads.
+template <int kVector, bool kStaged>
+__global__ void __launch_bounds__(1024)
 stream_stitch_kernel(const int* __restrict__ parents, const int* __restrict__ chars,
                      const int* __restrict__ tokens, const int* __restrict__ prev_len,
                      const int* __restrict__ new_len, const float* __restrict__ final_score,
                      int* __restrict__ rows, int* __restrict__ best_rows,
                      float* __restrict__ scalars, int frames, int lanes, int max_len,
-                     bool staged) {
-  extern __shared__ int shared[];
-  int* ancestor = shared;            // [lanes]
-  int* emitted = ancestor + lanes;   // [lanes]
-  int* last_char = emitted + lanes;  // [lanes]: the lane's latest emitted char
-  __shared__ int best_lane;
+                     Layout layout) {
+  extern __shared__ __align__(16) int shared[];
+  const int n = blockIdx.x / layout.ctas;
+  const int part = blockIdx.x - n * layout.ctas;
+  const int warp = threadIdx.x >> 5, lane_id = threadIdx.x & 31;
+  const int lane_words = (lanes + 3) & ~3;
+  int* entry_len = shared;                                          // [lanes]
+  int* exit_len = entry_len + lane_words;                           // [lanes]
+  float* scores = reinterpret_cast<float*>(exit_len + lane_words);  // [lanes]
+  int* packed = reinterpret_cast<int*>(scores + lane_words);        // [warps][frames]
+  int* staged_parents = packed + ((layout.warps * frames + 3) & ~3);
+  int* staged_chars = staged_parents + ((frames * lanes + 3) & ~3);
+  const int pointers = frames * lanes;
+  const int* row_parents = parents + static_cast<size_t>(n) * pointers;
+  const int* row_chars = chars + static_cast<size_t>(n) * pointers;
 
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t pointers = static_cast<size_t>(frames) * lanes;
-  const int* row_parents = parents + n * pointers;
-  const int* row_chars = chars + n * pointers;
-  if (staged) {
-    int* staged_parents = last_char + lanes;
-    int* staged_chars = staged_parents + pointers;
-    for (size_t i = tid; i < pointers; i += blockDim.x) {
-      staged_parents[i] = row_parents[i];
-      staged_chars[i] = row_chars[i];
-    }
-    row_parents = staged_parents;
-    row_chars = staged_chars;
-    __syncthreads();
+  stage(entry_len, prev_len + static_cast<size_t>(n) * lanes, lanes);
+  stage(exit_len, new_len + static_cast<size_t>(n) * lanes, lanes);
+  stage(reinterpret_cast<int*>(scores),
+        reinterpret_cast<const int*>(final_score) + static_cast<size_t>(n) * lanes, lanes);
+  if (kStaged) {
+    stage(staged_parents, row_parents, pointers);
+    stage(staged_chars, row_chars, pointers);
   }
-  const int* entry_len = prev_len + static_cast<size_t>(n) * lanes;
-  const int* exit_len = new_len + static_cast<size_t>(n) * lanes;
-  const float* scores = final_score + static_cast<size_t>(n) * lanes;
-  const int* old_rows = tokens + static_cast<size_t>(n) * lanes * max_len;
-  int* new_rows = rows + static_cast<size_t>(n) * lanes * max_len;
-
-  // 1. Each lane's ancestor at chunk entry, its emission count and its latest char.
-  for (int lane = tid; lane < lanes; lane += blockDim.x) {
-    int b = lane, count = 0, latest = -1;
-    for (int t = frames - 1; t >= 0; --t) {
-      const int c = row_chars[t * lanes + b];
-      if (c >= 0) {
-        if (count == 0) latest = c;
-        ++count;
-      }
-      b = min(max(row_parents[t * lanes + b], 0), lanes - 1);
-    }
-    ancestor[lane] = b;
-    emitted[lane] = count;
-    last_char[lane] = latest;
-  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  // 2. Each lane's emitted chars, walked again from the end: the i-th from the end is
-  //    packed[count - 1 - i], at position entry + count - 1 - i.
-  for (int lane = tid; lane < lanes; lane += blockDim.x) {
-    const int count = emitted[lane];
-    const int entry = entry_len[ancestor[lane]];
-    const int stop = min(exit_len[lane], max_len);
-    int* out = new_rows + static_cast<size_t>(lane) * max_len;
-    int b = lane, i = 0;
-    for (int t = frames - 1; t >= 0 && i < count; --t) {
-      const int c = row_chars[t * lanes + b];
-      if (c >= 0) {
-        const int position = entry + count - 1 - i;
-        if (position < stop) out[position] = c;
-        ++i;
-      }
-      b = min(max(row_parents[t * lanes + b], 0), lanes - 1);
+  const int lane = part * layout.warps + warp;  // this warp's row
+  if (lane >= lanes) return;
+
+  // The chase: this row's ancestor at chunk entry and its emitted chars, latest first.
+  const int* chase_parents = kStaged ? staged_parents : row_parents;
+  const int* chase_chars = kStaged ? staged_chars : row_chars;
+  int* packed_reversed = packed + warp * frames;
+  int ancestor = lane, count = 0;
+  if (lane_id == 0) {
+    for (int t = frames - 1; t >= 0; --t) {
+      // Both reads before the store, which the compiler may not move them past.
+      const int c = chase_chars[t * lanes + ancestor];
+      const int parent = chase_parents[t * lanes + ancestor];
+      if (c >= 0) packed_reversed[count++] = c;
+      ancestor = min(max(parent, 0), lanes - 1);
     }
   }
-
-  // 3. Everything else of every row, by the whole block: the entry prefix copied from
-  //    the ancestor's old row, -1 from new_len on, and past the packed chars
-  //    packed[F-1] (-1 unless every frame emitted).
-  for (int lane = 0; lane < lanes; ++lane) {
-    const int a = ancestor[lane];
-    const int entry = entry_len[a];
-    const int count = emitted[lane];
-    const int stop = exit_len[lane];
-    const int tail = count == frames ? last_char[lane] : -1;
-    const int* source = old_rows + static_cast<size_t>(a) * max_len;
-    int* out = new_rows + static_cast<size_t>(lane) * max_len;
-    for (int j = tid; j < max_len; j += blockDim.x) {
-      if (j >= stop) {
-        out[j] = -1;
-      } else if (j < entry) {
-        out[j] = source[j];
-      } else if (j >= entry + count) {
-        out[j] = tail;
-      }  // else: an emitted char, written in step 2
-    }
+  ancestor = __shfl_sync(0xffffffffu, ancestor, 0);
+  count = __shfl_sync(0xffffffffu, count, 0);
+  __syncwarp();
+  const int entry = entry_len[ancestor];
+  const int stop = exit_len[lane];
+  const int* old_row = tokens + (static_cast<size_t>(n) * lanes + ancestor) * max_len;
+  int4 old[kReadAhead];
+#pragma unroll
+  for (int k = 0; k < kReadAhead; ++k) {
+    const int j = kVector * (lane_id + 32 * k);
+    old[k] = load_words<kVector>(old_row, j, j < max_len && j < entry && j < stop);
   }
 
-  // 4. The best lane (first of the largest scores) and the longest live length.
-  if (tid < 32) {
-    float best_score = -CUDART_INF_F;
-    int best = INT_MAX, longest = 0;
-    for (int lane = tid; lane < lanes; lane += 32) {
-      if (ranks_before(scores[lane], lane, best_score, best)) {
-        best_score = scores[lane];
-        best = lane;
-      }
-      longest = max(longest, exit_len[lane]);
+  // The best lane (first of the largest scores) and the longest live length, ranked by
+  // every warp from the staged scores while its reads are in flight.
+  float best_score = -CUDART_INF_F;
+  int best = INT_MAX, longest = 0;
+  for (int l = lane_id; l < lanes; l += 32) {
+    if (ranks_before(scores[l], l, best_score, best)) {
+      best_score = scores[l];
+      best = l;
     }
-    for (int offset = 16; offset > 0; offset >>= 1) {
-      const float other_score = __shfl_down_sync(0xffffffffu, best_score, offset);
-      const int other = __shfl_down_sync(0xffffffffu, best, offset);
-      longest = max(longest, __shfl_down_sync(0xffffffffu, longest, offset));
-      if (other != INT_MAX && ranks_before(other_score, other, best_score, best)) {
-        best_score = other_score;
-        best = other;
-      }
-    }
-    if (tid == 0) {
-      best_lane = best;
-      scalars[3 * n] = static_cast<float>(exit_len[best]);
-      scalars[3 * n + 1] = best_score;
-      scalars[3 * n + 2] = static_cast<float>(longest);
+    longest = max(longest, exit_len[l]);
+  }
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const float other_score = __shfl_xor_sync(0xffffffffu, best_score, offset);
+    const int other = __shfl_xor_sync(0xffffffffu, best, offset);
+    longest = max(longest, __shfl_xor_sync(0xffffffffu, longest, offset));
+    if (other != INT_MAX && ranks_before(other_score, other, best_score, best)) {
+      best_score = other_score;
+      best = other;
     }
   }
-  __syncthreads();  // the rows and best_lane are visible to the whole block
+  if (part == 0 && warp == 0 && lane_id == 0) {
+    scalars[3 * n] = static_cast<float>(exit_len[best]);
+    scalars[3 * n + 1] = best_score;
+    scalars[3 * n + 2] = static_cast<float>(longest);
+  }
 
-  // 5. The best lane's new row.
-  const int* best_row = new_rows + static_cast<size_t>(best_lane) * max_len;
-  int* out = best_rows + static_cast<size_t>(n) * max_len;
-  for (int j = tid; j < max_len; j += blockDim.x) out[j] = best_row[j];
+  // The row, and the best row from the same registers.
+  const int tail = count == frames ? packed_reversed[0] : -1;
+  int* out = rows + (static_cast<size_t>(n) * lanes + lane) * max_len;
+  int* best_out = lane == best ? best_rows + static_cast<size_t>(n) * max_len : nullptr;
+  auto write = [&](int j, int4 words) {
+    int4 value;
+    value.x = element(j, words.x, entry, count, stop, tail, packed_reversed);
+    if (kVector == 4) {
+      value.y = element(j + 1, words.y, entry, count, stop, tail, packed_reversed);
+      value.z = element(j + 2, words.z, entry, count, stop, tail, packed_reversed);
+      value.w = element(j + 3, words.w, entry, count, stop, tail, packed_reversed);
+    }
+    store_words<kVector>(out, j, value);
+    if (best_out) store_words<kVector>(best_out, j, value);
+  };
+#pragma unroll
+  for (int k = 0; k < kReadAhead; ++k) {
+    const int j = kVector * (lane_id + 32 * k);
+    if (j < max_len) write(j, old[k]);
+  }
+  for (int j = kVector * (lane_id + 32 * kReadAhead); j < max_len; j += kVector * 32)
+    write(j, load_words<kVector>(old_row, j, j < entry && j < stop));
+}
+
+// The launch layout: one warp a row, at least 4 and at most 32 warps a CTA, up to 8
+// CTAs a stream (more where r > 256); the backpointers staged where they fit.
+bool plan(int frames, int lanes, Layout* layout) {
+  const int warps = min(32, max(4, (lanes + 7) / 8));
+  const int lane_words = (lanes + 3) & ~3;
+  const long long small = 3LL * lane_words + ((static_cast<long long>(warps) * frames + 3) & ~3LL);
+  const long long pointer_words = 2LL * ((static_cast<long long>(frames) * lanes + 3) & ~3LL);
+  if (small * 4 > kSharedLimit) return false;
+  layout->warps = warps;
+  layout->ctas = (lanes + warps - 1) / warps;
+  layout->staged = (small + pointer_words) * 4 <= kSharedLimit;
+  layout->shared_bytes = static_cast<int>((layout->staged ? small + pointer_words : small) * 4);
+  return true;
 }
 
 }  // namespace
@@ -179,23 +244,34 @@ stream_stitch_kernel(const int* __restrict__ parents, const int* __restrict__ ch
 // C entry point (loaded with ctypes). parents, chars (N, F, r) int32; tokens (N, r,
 // max_len) int32; prev_len, new_len (N, r) int32; final_score (N, r) fp32; outputs rows
 // (N, r, max_len) int32 (not aliasing tokens), best_rows (N, max_len) int32, scalars
-// (N, 3) fp32; all contiguous on one device. One block per stream on `stream`; returns
-// the launch's cudaError_t (0 = success), or cudaErrorInvalidValue for F < 1 or more
-// lanes than the per-lane shared arrays hold.
+// (N, 3) fp32; all contiguous on one device. Several CTAs per stream on `stream`;
+// returns the launch's cudaError_t (0 = success), or cudaErrorInvalidValue for F < 1
+// or a chunk whose per-row chase buffers do not fit in shared memory.
 extern "C" int stream_stitch(const int* parents, const int* chars, const int* tokens,
                              const int* prev_len, const int* new_len,
                              const float* final_score, int* rows, int* best_rows,
                              float* scalars, int streams, int frames, int lanes,
                              int max_len, void* stream) {
-  const int lane_bytes = 3 * lanes * static_cast<int>(sizeof(int));
-  if (frames < 1 || lane_bytes > kStagedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  Layout layout;
+  if (frames < 1 || lanes < 1 || !plan(frames, lanes, &layout))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (streams == 0) return 0;
-  const long long staged_bytes =
-      lane_bytes + 2LL * frames * lanes * static_cast<long long>(sizeof(int));
-  const bool staged = staged_bytes <= kStagedBytes;
-  stream_stitch_kernel<<<streams, kThreads, staged ? staged_bytes : lane_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const bool vector = (max_len & 3) == 0;
+  const int variant = 2 * vector + layout.staged;
+  void (*const kernels[4])(const int*, const int*, const int*, const int*, const int*,
+                           const float*, int*, int*, float*, int, int, int, Layout) = {
+      stream_stitch_kernel<1, false>, stream_stitch_kernel<1, true>,
+      stream_stitch_kernel<4, false>, stream_stitch_kernel<4, true>};
+  static bool opted_in[4] = {false, false, false, false};
+  if (!opted_in[variant]) {
+    const cudaError_t status = cudaFuncSetAttribute(
+        kernels[variant], cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedLimit);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    opted_in[variant] = true;
+  }
+  kernels[variant]<<<static_cast<unsigned>(streams) * layout.ctas, 32 * layout.warps,
+                     layout.shared_bytes, static_cast<cudaStream_t>(stream)>>>(
       parents, chars, tokens, prev_len, new_len, final_score, rows, best_rows, scalars,
-      frames, lanes, max_len, staged);
+      frames, lanes, max_len, layout);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,7 +27,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "lm_beam_span": [_P] * 31 + [_I] * 15 + [_F] * 3 + [_P],
     "lm_beam_step": [_P] * 15 + [_I] * 10 + [_P],
-    "beam_backtrace": [_P] * 6 + [_I] * 4 + [_P],
+    "beam_backtrace": [_P] * 5 + [_I] * 5 + [_P],
     "prefix_beam": [_P] * 7 + [_I] * 10 + [_F, _P],
     "ctc_alpha": [_P] * 7 + [_I] * 4 + [_P],
     "ctc_beta_grad": [_P] * 10 + [_I] * 4 + [_P],

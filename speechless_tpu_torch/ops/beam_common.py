@@ -29,35 +29,38 @@ def backtrace_tokens(parents: torch.Tensor, emit_chars: torch.Tensor, best: torc
     """Rebuild each row's winning prefix from per-frame backpointers.
 
     ``parents``/``emit_chars`` are ``(B, T, W)`` records of (parent beam, emitted char or
-    -1); ``best`` ``(B,)`` the winning final beams; ``counts`` ``(B,)`` their prefix
-    lengths; T must be at least 1. Returns ``tokens (B, max_decoded_length) int32``
-    (-1 padded) and counts."""
+    -1); ``best`` ``(B,)`` the winning final beams, or ``(B, n)``: n starts a row, each
+    walking its row's pointers (an n-best list); ``counts`` of ``best``'s shape, their
+    prefix lengths; T must be at least 1. Returns ``tokens (B[, n],
+    max_decoded_length) int32`` (-1 padded) and counts."""
     batch, t_max, _ = parents.shape
-    beam = best.to(torch.int64)
+    beam = best.reshape(batch, -1).to(torch.int64)                     # (B, n)
     path = []
     for t in range(t_max - 1, -1, -1):
-        index = beam[:, None]
-        path.append(emit_chars[:, t].gather(1, index)[:, 0])
-        beam = parents[:, t].gather(1, index)[:, 0].to(torch.int64)
-    path_chars = torch.stack(path[::-1], dim=1)
-    t_range = torch.arange(t_max, device=parents.device)[None, :]
+        path.append(emit_chars[:, t].gather(1, beam))
+        beam = parents[:, t].gather(1, beam).to(torch.int64)
+    path_chars = torch.stack(path[::-1], dim=2)                        # (B, n, T)
+    t_range = torch.arange(t_max, device=parents.device)
     # Front-compact the emitted characters in time order.
-    order = torch.argsort(torch.where(path_chars >= 0, t_range, t_range + t_max), dim=1)
-    packed = path_chars.gather(1, order)
-    out = torch.arange(max_decoded_length, device=parents.device)[None, :]
-    picked = packed.gather(1, torch.clamp(out, max=t_max - 1).expand(batch, -1))
+    order = torch.argsort(torch.where(path_chars >= 0, t_range, t_range + t_max), dim=2)
+    packed = path_chars.gather(2, order)
+    out = torch.arange(max_decoded_length, device=parents.device)
+    picked = packed.gather(2, torch.clamp(out, max=t_max - 1).expand(
+        packed.shape[:2] + (max_decoded_length,)))
     counts = counts.to(torch.int32)
-    tokens = torch.where(out < counts[:, None], picked, picked.new_full((), -1))
-    return tokens.to(torch.int32), counts
+    tokens = torch.where(out < counts.reshape(picked.shape[:2] + (1,)), picked,
+                         picked.new_full((), -1))
+    return tokens.to(torch.int32).reshape(best.shape + (max_decoded_length,)), counts
 
 
 def beam_backtrace(parents: torch.Tensor, emit_chars: torch.Tensor, best: torch.Tensor,
                    counts: torch.Tensor, max_decoded_length: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`backtrace_tokens` on the device: one launch of the backtrace kernel for CUDA
-    tensors, `backtrace_tokens` itself for CPU tensors. Same contract;
-    ``beam_backtrace.launches`` counts kernel launches. A build or launch failure
-    raises."""
+    tensors, `backtrace_tokens` itself for CPU tensors. Same contract, ``best`` and
+    ``counts`` ``(B,)`` or ``(B, n)``; ``beam_backtrace.launches`` counts kernel
+    launches. A build or launch failure raises, as does a shape the kernel refuses
+    (a row whose staging does not fit in shared memory)."""
     if parents.device.type == "cpu":
         return backtrace_tokens(parents, emit_chars, best, counts, max_decoded_length)
     if parents.device.type != "cuda":
@@ -70,21 +73,21 @@ def beam_backtrace(parents: torch.Tensor, emit_chars: torch.Tensor, best: torch.
     emit_chars = emit_chars.to(torch.int32).contiguous()
     if emit_chars.shape != parents.shape or emit_chars.device != parents.device:
         raise ValueError("beam_backtrace: parents and chars must be (B, T, r) on one device")
+    if best.shape != counts.shape or best.shape[:1] != (batch,) or best.dim() > 2:
+        raise ValueError("beam_backtrace: best and counts must be (B,) or (B, n)")
+    starts = best.shape[1] if best.dim() == 2 else 1
     best = best.to(device=parents.device, dtype=torch.int32).contiguous()
     counts = counts.to(device=parents.device, dtype=torch.int32).contiguous()
-    if best.shape != (batch,) or counts.shape != (batch,):
-        raise ValueError("beam_backtrace: best and counts must be (B,)")
-    path = torch.empty((batch, t_max), dtype=torch.int32, device=parents.device)
-    tokens = torch.empty((batch, max_decoded_length), dtype=torch.int32,
+    tokens = torch.empty(best.shape + (max_decoded_length,), dtype=torch.int32,
                          device=parents.device)
     with torch.cuda.device(parents.device):
         status = _kernels.function("beam_backtrace")(
-            *(t.data_ptr() for t in (parents, emit_chars, best, counts, path, tokens)),
-            batch, t_max, lanes, max_decoded_length,
+            *(t.data_ptr() for t in (parents, emit_chars, best, counts, tokens)),
+            batch, t_max, lanes, starts, max_decoded_length,
             torch.cuda.current_stream().cuda_stream)
     if status != 0:
-        raise RuntimeError("beam_backtrace kernel launch failed with CUDA error {}".format(
-            status))
+        raise RuntimeError("beam_backtrace kernel launch failed with CUDA error {} "
+                           "(T={}, r={}, starts={})".format(status, t_max, lanes, starts))
     beam_backtrace.launches += 1
     return tokens, counts
 

@@ -2,9 +2,11 @@
 
 It serves every route the kernel beams do not: the char-table LM (``lm_table``),
 lexicon-constrained search, unpruned search and n-best lists. It is no Pallas kernel in
-the JAX package, so it stays plain PyTorch on whatever device its tensors live on. The
-JAX ``vmap`` over utterances is the leading batch dimension here, its ``lax.scan`` over
-frames a Python loop.
+the JAX package, so its frame loop stays plain PyTorch on whatever device its tensors
+live on; the backtrace is `beam_common.beam_backtrace` (one launch of the backtrace
+kernel on CUDA tensors, every n-best start reading its row's pointers). The JAX ``vmap``
+over utterances is the leading batch dimension here, its ``lax.scan`` over frames a
+Python loop.
 
 * Beams are (rolling prefix hash, log P ending in blank, log P ending in non-blank, last
   char, length) plus the LM registers; each frame expands every beam by the stay case
@@ -26,7 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..lm.char_ngram import advance_context
-from .beam_common import NEG_INF, backtrace_tokens, word_bonuses
+from .beam_common import NEG_INF, beam_backtrace, word_bonuses
 from .decode_lm import _shift_left
 
 INT32_MAX = 2 ** 31 - 1
@@ -298,20 +300,19 @@ def _beam_search(log_probs, lengths, blank, beam_width, max_decoded_length, lm_t
         final = final + tail_bonus.view(batch, beam_width).to(torch.float32)
     if not nbest:
         best = final.argmax(dim=1)
-        return backtrace_tokens(parents, chars, best,
-                                state.lengths.gather(1, best[:, None])[:, 0],
-                                max_decoded_length)
+        return beam_backtrace(parents, chars, best,
+                              state.lengths.gather(1, best[:, None])[:, 0],
+                              max_decoded_length)
     # Live beams are distinct prefixes (the merge collapses equal hashes), so the top n
     # final beams are an honest n-best list; dead ones come back empty.
     top_scores, top_beams = torch.sort(final, dim=1, descending=True, stable=True)
     top_scores, top_beams = top_scores[:, :nbest], top_beams[:, :nbest]
-    tokens, token_counts = backtrace_tokens(
-        parents.repeat_interleave(nbest, dim=0), chars.repeat_interleave(nbest, dim=0),
-        top_beams.reshape(-1), state.lengths.gather(1, top_beams).reshape(-1),
-        max_decoded_length)
+    tokens, token_counts = beam_backtrace(parents, chars, top_beams,
+                                          state.lengths.gather(1, top_beams),
+                                          max_decoded_length)
     alive = top_scores > NEG_INF / 2
-    tokens = torch.where(alive[..., None], tokens.view(batch, nbest, -1), -1)
-    token_counts = torch.where(alive, token_counts.view(batch, nbest), 0)
+    tokens = torch.where(alive[..., None], tokens, -1)
+    token_counts = torch.where(alive, token_counts, 0)
     return tokens.to(torch.int32), token_counts.to(torch.int32), top_scores
 
 

@@ -156,8 +156,8 @@ def _c_parameters(name):
                       "class_count", "blank", "beam_width", "max_len", "space_index",
                       "trie_classes", "bi_size", "tri_size", "unk_id", "lm_weight",
                       "word_count_weight", "valid_word_count_weight", "stream"]),
-    ("beam_backtrace", ["parents", "chars", "best", "counts", "path", "tokens", "batch",
-                        "t_max", "r", "max_len", "stream"])])
+    ("beam_backtrace", ["parents", "chars", "best", "counts", "tokens", "batch", "t_max",
+                        "r", "starts", "max_len", "stream"])])
 def test_span_and_backtrace_entry_points_match_their_signatures(name, names):
     """The C entry points take, in the order the wrappers pass them, the pointers, ints
     and floats that `_kernels.SIGNATURES` declares (nothing compiles them on the CPU)."""
