@@ -63,16 +63,29 @@ source, all started together) and prints ptxas's registers and spills, then:
   1e-6 relative, and equal to the offline `beam_search_decode_lm` over the same frames;
   a synchronized run splits a piece round into the span kernel, the stitch and the
   rest, and one more runs on the kernels while another thread decodes offline (the
-  same results; the time per round). Last, 8 concurrent HTTP stream
-  sessions on the card (6 ``beam``, 1 ``beam_pipelined``, 1 greedy with
-  ``final_decode``), each fed 8 s in 0.5 s chunks and finished: every reply 200, each
-  beam final equal to a plain-loop replay of the rows its beam consumed, the two-pass
-  final equal to the offline transcript, the span and stitch kernels launched during
-  the run and the per-frame step never;
-  driven twice (cold: the first windows of each batch size and length; warm: a new
-  server in the same process, the run whose launches are reported). Prints feed
-  latency p50/p95 (greedy, beam), the slowest feeds and batcher dispatches, when each
-  finish ran, and the launches. With
+  same results; the time per round). Then 8 concurrent HTTP stream sessions on the
+  card, each fed 8 s in 0.5 s chunks and finished, on three pools: the host pool (6
+  ``beam``, 1 ``beam_pipelined``, 1 greedy with ``final_decode``), the device pool of
+  ``serve --device-streams`` in its posterior mode (the same sessions) and in its
+  resident mode (7 ``beam``, 1 greedy with ``final_decode``; the beam carries stay on
+  the card and advance inside the feed dispatch): every reply 200, the two-pass final
+  equal to the offline transcript, the span and stitch kernels launched during the run
+  and the per-frame step never; in the posterior modes each beam final equal to a
+  plain-loop replay of the rows its beam consumed, in the resident mode each beam final
+  equal to the same audio through the host pool's sync beam (on a transcriber whose
+  length bucket is the pool's window, so that both run the model on the same shape).
+  Each pool is driven twice (cold: the first windows of each batch size and length;
+  warm: a new server in the same process, the run whose launches are reported; the
+  resident pass's on a line of its own). Prints feed latency p50/p95 (greedy, beam)
+  of the three warm passes side by side, the slowest feeds and batcher dispatches,
+  when each finish ran, and the launches. Then the split of a resident dispatch of 16
+  beam sessions at the 8 s window (beam_cf 40) by CUDA events between synchronized
+  stage boundaries: the host's inputs, the row update, the features, the model, the
+  softmax and slice, the packing, the span kernel, the ranking, the stitch kernel, the
+  carries' write-back and the fetch, beside the unsynchronized dispatch's wall. Last, a
+  lexicon-constrained stream session on the card (the plain-step stream decoder, its
+  stitch on the kernel) equal to the rows it consumed through the same decoder on the
+  CPU, and that decoder's 16-stream piece round. With
   ``--profile``, one piece round under `torch.profiler`
   (``chiprun_out/profile_stream.json``).
 * phase E (offline decoding, on phase B's transcriber and LM): the whole-utterance
@@ -1150,6 +1163,7 @@ def split_train_step(config, state, batch, parts, runs: int = 5):
 STREAM_N, STREAM_CF, STREAM_MAX_LEN, STREAM_FRAMES = 16, 32, 512, 513
 SCORE_RTOL = 1e-6     # kernel vs plain-step stream decoder scores, relative
 HTTP_SESSIONS = ("beam",) * 6 + ("beam_pipelined", "greedy_final")
+HTTP_RESIDENT_SESSIONS = ("beam",) * 7 + ("greedy_final",)  # resident has no pipelining
 HTTP_SECONDS, HTTP_CHUNK_S = 8.0, 0.5
 
 
@@ -1464,12 +1478,78 @@ def http_request(port: int, path: str, body: bytes = b"",
         return response.status, json.loads(response.read()), time.perf_counter() - start
 
 
-def phase_d_http(transcriber, make_audio, label):
-    """Eight concurrent `/v1/stream` sessions on the card: 6 beam, 1 beam_pipelined and
-    1 greedy with final_decode, each fed 8 s in 0.5 s chunks, then finished. Every reply
-    must be 200; each beam session's final must equal a replay of the rows its beam
-    consumed through the plain-step decoder, and the two-pass final the offline
-    transcript. Returns the launch counts of this run and the feed latencies."""
+def record_resident_blocks(pool, sessions, consumed):
+    """Record, per session, the log-posterior block (its valid rows) that each resident
+    dispatch advanced the session's carry over: the rows the dispatch's advance range
+    picked (`_resident_advance`) and the blocks handed to `advance_in_program`."""
+    session_of = {pool._sessions[sid]._row: sid for sid in sessions}
+    decoder, current = pool._resident_decoder, {}
+    advance_range, advance = pool._resident_advance, decoder.advance_in_program
+
+    def recording_range(payloads):
+        out = advance_range(payloads)
+        current["rows"] = [payloads[slot][0] for slot in out[2]]
+        return out
+
+    def recording_advance(state, log_probs, counts):
+        for row, block, count in zip(current["rows"], log_probs.cpu().numpy(), counts):
+            if row in session_of:
+                consumed.setdefault(session_of[row], []).append(block[:count].copy())
+        return advance(state, log_probs, counts)
+
+    pool._resident_advance = recording_range
+    decoder.advance_in_program = recording_advance
+
+
+def resident_against_host_pool(transcriber, audios, chunk, http_finals):
+    """Each audio alone, fed in ``chunk``-sample pieces and finished, through a resident
+    device pool and through the host pool's sync beam, on a transcriber whose length
+    bucket is the pool's window: both run the features and the model on (1, window)
+    rows, so the posteriors and the finals must agree. (In the concurrent HTTP pass a
+    dispatch's row count varies, and fp32 convolutions of another batch size may differ
+    in the last bits.) Returns how many of ``http_finals`` equal these finals."""
+    import copy
+
+    from speechless_tpu_torch.serving_device_stream import DeviceStreamingPool
+    from speechless_tpu_torch.serving_streaming import StreamingSessionPool
+
+    resident = DeviceStreamingPool(transcriber, beam_mode="resident")
+    twin = copy.copy(transcriber)
+    twin.sample_buckets = (resident.window,)
+    host = StreamingSessionPool(twin)
+    resident.start()
+    host.start()
+    equal = 0
+    try:
+        for audio, http_final in zip(audios, http_finals):
+            finals = []
+            for pool in (resident, host):
+                sid = pool.create(partial_decode="beam")
+                for start in range(0, len(audio), chunk):
+                    pool.feed(sid, audio[start:start + chunk])
+                finals.append(pool.finish(sid))
+            check(finals[0] == finals[1] and finals[0], "alone, the resident final {!r} "
+                  "!= the host pool's sync beam {!r}".format(*finals))
+            equal += http_final == finals[0]
+    finally:
+        resident.stop()
+        host.stop()
+    return equal
+
+
+def phase_d_http(transcriber, make_audio, label, device_streams=False,
+                 beam_mode="posterior"):
+    """Eight concurrent `/v1/stream` sessions on the card, each fed 8 s in 0.5 s chunks,
+    then finished: on the host pool (6 beam, 1 beam_pipelined, 1 greedy with
+    final_decode), or with ``device_streams`` on the device pool (`serve
+    --device-streams`: warmed, then the same sessions; ``beam_mode="resident"`` runs 7
+    beam sessions, the mode has no pipelined one). Every reply must be 200 and the
+    two-pass final the offline transcript, and each beam final must equal a replay of
+    the rows its beam consumed (resident: the blocks its carry advanced over inside the
+    dispatches) through the plain-step decoder. Resident mode also holds each beam
+    session's audio, alone, against the host pool's sync beam
+    (`resident_against_host_pool`). Returns the launch counts of this run and the feed
+    latencies."""
     import torch
 
     from speechless_tpu_torch.ops import decode_lm
@@ -1477,15 +1557,21 @@ def phase_d_http(transcriber, make_audio, label):
         KernelBeamStreamDecoder, stitch_reference, stream_stitch)
     from speechless_tpu_torch.serving_http import TranscriptionServer
 
-    audios = [make_audio(HTTP_SECONDS) for _ in HTTP_SESSIONS]
+    resident = beam_mode == "resident"
+    modes = HTTP_RESIDENT_SESSIONS if resident else HTTP_SESSIONS
+    audios = [make_audio(HTTP_SECONDS) for _ in modes]
     chunk = int(HTTP_CHUNK_S * 16000)
-    server = TranscriptionServer(transcriber, port=0, max_batch=16, max_wait_ms=20.0)
+    server = TranscriptionServer(transcriber, port=0, max_batch=16, max_wait_ms=20.0,
+                                 device_streams=device_streams, beam_mode=beam_mode)
+    pool = server.streams
+    if device_streams:
+        pool.warm_up()  # as `serve --device-streams` does before it binds
     server.start()
     consumed, finals, latencies = {}, {}, {"greedy": [], "beam": []}
     statuses, finishes = [], []  # finishes: (mode, start s, seconds)
     try:
         sessions = []
-        for mode in HTTP_SESSIONS:
+        for mode in modes:
             body = ({"partial_decode": "greedy", "final_decode": True}
                     if mode == "greedy_final" else {"partial_decode": mode})
             status, payload, _ = http_request(server.port, "/v1/stream",
@@ -1493,10 +1579,11 @@ def phase_d_http(transcriber, make_audio, label):
             statuses.append(status)
             sid = payload["session"]
             sessions.append(sid)
-            if mode == "greedy_final":
-                continue
+            if mode == "greedy_final" or resident:
+                continue  # resident blocks are recorded in the dispatch, below
             # Record the rows each advance consumes (the beam_advance_fn seam).
-            stream = server.streams._sessions[sid].stream
+            session = pool._sessions[sid]
+            stream = getattr(session, "stream", session)  # host pool: the transcriber
             log = consumed.setdefault(sid, [])
             seam = "_beam_submit" if mode == "beam_pipelined" else "_beam_advance"
             original = getattr(stream, seam)
@@ -1507,9 +1594,12 @@ def phase_d_http(transcriber, make_audio, label):
 
             setattr(stream, seam, recording)
 
+        if resident:
+            record_resident_blocks(pool, sessions, consumed)
+
         def run(index):
             sid, audio = sessions[index], audios[index]
-            kind = "greedy" if HTTP_SESSIONS[index] == "greedy_final" else "beam"
+            kind = "greedy" if modes[index] == "greedy_final" else "beam"
             for feed, start in enumerate(range(0, len(audio), chunk)):
                 status, _, seconds = http_request(
                     server.port, "/v1/stream/" + sid,
@@ -1522,16 +1612,21 @@ def phase_d_http(transcriber, make_audio, label):
                                                     "/v1/stream/{}/finish".format(sid))
             statuses.append(status)
             finals[sid] = payload
-            finishes.append((HTTP_SESSIONS[index], round(began - origin, 3),
-                             round(seconds, 4)))
+            finishes.append((modes[index], round(began - origin, 3), round(seconds, 4)))
 
-        # Every dispatch of the three stream batchers: (start s, seconds, batch size,
-        # work: audio samples of the windows, or frames of the advances).
+        if device_streams:
+            advance_batcher = None if resident else pool._get_beam_batcher()
+            batchers = [("feed", pool.batcher)] + (
+                [] if resident else [("advance", advance_batcher)])
+        else:
+            advance_batcher = pool.beam_batcher
+            batchers = [("window", pool.batcher), ("posterior", pool.posterior_batcher),
+                        ("advance", advance_batcher)]
+        # Every dispatch of the stream batchers: (start s, seconds, batch size, work:
+        # audio samples of the windows or chunks, or frames of the advances).
         dispatches = {}
         origin = time.perf_counter()
-        for name, batcher in (("window", server.streams.batcher),
-                              ("posterior", server.streams.posterior_batcher),
-                              ("advance", server.streams.beam_batcher)):
+        for name, batcher in batchers:
             def logged(batch, serve=batcher._serve, log=dispatches.setdefault(name, [])):
                 start = time.perf_counter()
                 try:
@@ -1552,8 +1647,8 @@ def phase_d_http(transcriber, make_audio, label):
         launches = {"lm_beam_span": decode_lm.lm_span.launches,
                     "stream_stitch": stream_stitch.launches,
                     "lm_beam_step": decode_lm.lm_step.launches}
-        advance_metrics = server.streams.beam_batcher.metrics()
-        served = server.streams.beam_batcher.decoder
+        metrics = (pool.batcher if resident else advance_batcher).metrics()
+        served = pool._resident_decoder if resident else advance_batcher.decoder
     finally:
         server.stop()
     check(len(finals) == len(sessions), "a stream session did not finish")
@@ -1562,9 +1657,12 @@ def phase_d_http(transcriber, make_audio, label):
     check(launches["lm_beam_span"] > 0 and launches["stream_stitch"] > 0
           and launches["lm_beam_step"] == 0,
           "the stream sessions launched the kernels {}".format(launches))
-
-    # Replay every beam session's consumed rows, advance by advance, through the
-    # plain-step decoder (the sessions together by feed_batch: exact per stream).
+    check(isinstance(served, KernelBeamStreamDecoder), "the stream beam is not on the "
+          "kernel decoder: {}".format(type(served).__name__))
+    beam_sids = [sid for sid, mode in zip(sessions, modes) if mode != "greedy_final"]
+    # Replay every beam session's consumed rows (resident: the blocks its carry advanced
+    # over inside the dispatches), advance by advance, through the plain-step decoder
+    # (the sessions together by feed_batch: exact per stream).
     plain = KernelBeamStreamDecoder(
         blank=served.blank, beam_width=served.beam_width,
         max_decoded_length=served.max_decoded_length, chunk_frames=served.chunk_frames,
@@ -1573,7 +1671,6 @@ def phase_d_http(transcriber, make_audio, label):
         valid_word_count_weight=served.valid_word_count_weight,
         prune_classes=served.prune_classes, device=served.device,
         step=decode_lm.lm_step_reference, stitch=stitch_reference)
-    beam_sids = list(consumed)
     states = [plain.init_state() for _ in beam_sids]
     results = [None] * len(beam_sids)
     empty = np.zeros((0, transcriber.blank_index + 1), np.float32)
@@ -1589,14 +1686,19 @@ def phase_d_http(transcriber, make_audio, label):
                                                     merge_repeated=False)
         check(finals[sid]["text"] == replay, "session {}: final {!r} != plain replay "
               "{!r}".format(sid, finals[sid]["text"], replay))
-    two_pass = sessions[HTTP_SESSIONS.index("greedy_final")]
-    offline = transcriber.transcribe_audio(audios[HTTP_SESSIONS.index("greedy_final")])
+    host_equal = None
+    if resident:
+        host_equal = resident_against_host_pool(
+            transcriber, [audios[sessions.index(sid)] for sid in beam_sids], chunk,
+            [finals[sid]["text"] for sid in beam_sids])
+    two_pass = sessions[modes.index("greedy_final")]
+    offline = transcriber.transcribe_audio(audios[modes.index("greedy_final")])
     check(finals[two_pass]["text"] == offline, "two-pass final {!r} != offline {!r}".format(
         finals[two_pass]["text"], offline))
     torch.cuda.synchronize()
-    numbers = {"launches": launches, "advances": advance_metrics["advances"],
-               "advance_batches": advance_metrics["batches"],
-               "frames_consumed": sum(len(r) for sid in beam_sids for r in consumed[sid])}
+    numbers = {"launches": launches, "dispatch_batches": metrics["batches"],
+               "http_finals_equal_lone": host_equal,
+               "frames_consumed": sum(len(r) for sid in consumed for r in consumed[sid])}
     for kind, values in latencies.items():
         values = sorted(values)
         numbers[kind + "_feed_p50_s"] = values[len(values) // 2][0]
@@ -1606,37 +1708,284 @@ def phase_d_http(transcriber, make_audio, label):
     numbers["slowest_dispatches"] = {name: sorted(log, key=lambda d: -d[1])[:3]
                                      for name, log in dispatches.items()}
     numbers["finishes"] = sorted(finishes, key=lambda f: f[1])
-    print("phase D HTTP ({} pass): {} sessions (6 beam, 1 beam_pipelined, 1 greedy + "
-          "final_decode) x {} feeds of {} s on {}: every reply 200; the 7 beam finals "
-          "equal their plain-step replays ({} frames), the two-pass final the offline "
-          "transcript; {} advances in {} batches; feed latency greedy p50 {:.4f} s p95 "
-          "{:.4f} s, beam p50 {:.4f} s p95 {:.4f} s; slowest [s, feed index] greedy {} "
-          "beam {}; launches lm_beam_span {} stream_stitch {}; finals: {}".format(
-              label, len(sessions), int(HTTP_SECONDS / HTTP_CHUNK_S), HTTP_CHUNK_S,
-              transcriber.device, numbers["frames_consumed"], numbers["advances"],
-              numbers["advance_batches"], numbers["greedy_feed_p50_s"],
-              numbers["greedy_feed_p95_s"], numbers["beam_feed_p50_s"],
-              numbers["beam_feed_p95_s"], numbers["greedy_slowest_feeds"],
-              numbers["beam_slowest_feeds"], launches["lm_beam_span"],
-              launches["stream_stitch"], [finals[sid]["text"][:24] for sid in sessions]))
-    print("phase D HTTP ({} pass) slowest dispatches [start s, seconds, batch, work]: {}; "
-          "finishes [mode, start s, seconds]: {}".format(
-              label, numbers["slowest_dispatches"], numbers["finishes"]))
+    pool_name = ("device pool, " + beam_mode) if device_streams else "host pool"
+    held = "equal their plain-step replays ({} frames)".format(numbers["frames_consumed"])
+    if resident:
+        held += ("; alone, each session's audio gave the same final on the resident "
+                 "pool as on the host pool's sync beam ({} of {} HTTP finals equal to "
+                 "them)".format(host_equal, len(beam_sids)))
+    print("phase D HTTP ({}, {} pass): {} sessions ({}) x {} feeds of {} s on {}: every "
+          "reply 200; the {} beam finals {}, the two-pass final the offline transcript; "
+          "{} {} in {} batches; feed latency greedy p50 {:.4f} s p95 {:.4f} s, beam p50 "
+          "{:.4f} s p95 {:.4f} s; slowest [s, feed index] greedy {} beam {}; launches "
+          "lm_beam_span {} stream_stitch {} lm_beam_step {}; finals: {}".format(
+              pool_name, label, len(sessions), ", ".join(modes),
+              int(HTTP_SECONDS / HTTP_CHUNK_S), HTTP_CHUNK_S, transcriber.device,
+              len(beam_sids), held, metrics["feeds" if resident else "advances"],
+              "feeds" if resident else "advances", metrics["batches"],
+              numbers["greedy_feed_p50_s"], numbers["greedy_feed_p95_s"],
+              numbers["beam_feed_p50_s"], numbers["beam_feed_p95_s"],
+              numbers["greedy_slowest_feeds"], numbers["beam_slowest_feeds"],
+              launches["lm_beam_span"], launches["stream_stitch"],
+              launches["lm_beam_step"], [finals[sid]["text"][:24] for sid in sessions]))
+    print("phase D HTTP ({}, {} pass) slowest dispatches [start s, seconds, batch, work]: "
+          "{}; finishes [mode, start s, seconds]: {}".format(
+              pool_name, label, numbers["slowest_dispatches"], numbers["finishes"]))
     return numbers
 
 
-def phase_d(device, transcriber, make_audio, profile_path=None):
+SPLIT_STAGES = ("inputs", "row_update", "features", "model", "softmax_slice",
+                "packing", "span", "ranking", "stitch", "write_back", "fetch")
+
+
+def split_resident_feed(transcriber, make_audio):
+    """One resident dispatch of 16 beam sessions at the 8 s window (``beam_cf=40``), split
+    into stages: 16 sessions are fed 0.5 s chunks in lockstep, one 16-row dispatch a
+    round. On the even rounds of the last eight, the dispatch synchronizes at every
+    stage boundary and times each stage by CUDA events and by the host clock: the
+    host's inputs (the chunks, the advance range, the uploads), the row update, the
+    features, the model, the softmax and slice of the advance blocks (with the carries'
+    reset and gather), the packing of the frames, the span kernel, the ranking, the
+    stitch kernel, the write-back of the carries, and the fetch (one copy to the host
+    after the last launch). The odd rounds run unsynchronized: their dispatch wall by
+    the host clock."""
+    import torch
+
+    from speechless_tpu_torch import serving_device_stream as sds
+    from speechless_tpu_torch.ops import decode_incremental_kernel, decode_lm
+    from speechless_tpu_torch.ops.decode_incremental_kernel import stream_stitch
+
+    streams, rounds = 16, int(HTTP_SECONDS / HTTP_CHUNK_S)
+    chunk = int(HTTP_CHUNK_S * 16000)
+    pool = sds.DeviceStreamingPool(transcriber, max_sessions=streams, max_batch=streams,
+                                   max_wait_ms=500.0, beam_mode="resident")
+    decoder = pool._resident_decoder
+    pool.warm_up()
+    sessions = [pool.create_stream(partial_decode="beam") for _ in range(streams)]
+    marks, plain_walls, timing = [], [], {"on": False}
+
+    def mark(name):
+        if timing["on"]:
+            torch.cuda.synchronize()
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks[-1].append((name, time.perf_counter(), event))
+
+    def marked(fn, before, after=None):
+        def run(*args, **kwargs):
+            mark(before)
+            out = fn(*args, **kwargs)
+            if after is not None:
+                mark(after)
+            return out
+        return run
+
+    def dispatch(group, real=pool._dispatch):
+        # Session 0 rides every round's dispatch; its total moves only after it. The
+        # flushes at finish carry empty pieces.
+        feed = (sessions[0]._total // chunk if len(group) == streams
+                and all(len(item.payload[1]) for item in group) else -1)
+        timed = feed >= rounds - 8
+        timing["on"] = timed and feed % 2 == 0
+        if timing["on"]:
+            marks.append([])
+        start = time.perf_counter()
+        try:
+            mark("inputs")
+            real(group)
+            mark("end")
+        finally:
+            if timed and not timing["on"]:
+                plain_walls.append(time.perf_counter() - start)
+            timing["on"] = False
+
+    model = transcriber.model
+    features, span_function = sds.features_batch, decode_incremental_kernel.span_function
+    pool._dispatch = dispatch
+    pool._feed = marked(pool._feed, "row_update", "fetch")
+    sds.features_batch = marked(features, "features")
+    model.forward = marked(model.forward, "model", "softmax_slice")
+    decoder.advance_in_program = marked(decoder.advance_in_program, "packing",
+                                        "write_back")
+    decode_incremental_kernel.span_function = lambda step: marked(
+        decode_lm.lm_span, "span", "ranking")
+    decoder._stitch_fn = marked(stream_stitch, "stitch")
+    audios = [make_audio(HTTP_SECONDS) for _ in range(streams)]
+    barrier = threading.Barrier(streams)
+    errors = []
+
+    def run(i):
+        try:
+            for r in range(rounds):
+                barrier.wait(timeout=300)
+                sessions[i].feed(audios[i][r * chunk:(r + 1) * chunk])
+            sessions[i].finish()
+        except Exception as error:  # noqa: BLE001 — reported by the check below
+            errors.append(error)
+            barrier.abort()
+
+    pool.start()
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(streams)]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=600)
+    finally:
+        pool.stop()
+        sds.features_batch = features
+        del model.forward
+        decode_incremental_kernel.span_function = span_function
+    check(not errors and not any(thread.is_alive() for thread in threads),
+          "the split run failed: {}".format(errors[:1]))
+    check(all(session.text for session in sessions), "a split session has no text")
+    order = list(SPLIT_STAGES) + ["end"]
+    complete = [m for m in marks if [name for name, _, _ in m] == order]
+    check(len(complete) == 4 and len(plain_walls) == 4,
+          "{} timed and {} plain 16-row dispatches (marks {})".format(
+              len(complete), len(plain_walls), [[n for n, _, _ in m] for m in marks][:2]))
+    split = {}
+    for i, stage in enumerate(SPLIT_STAGES):
+        split[stage + "_ms"] = float(np.mean(
+            [m[i][2].elapsed_time(m[i + 1][2]) for m in complete]))
+        split[stage + "_wall_ms"] = float(np.mean(
+            [(m[i + 1][1] - m[i][1]) * 1e3 for m in complete]))
+    split["synchronized_wall_ms"] = float(np.mean(
+        [(m[-1][1] - m[0][1]) * 1e3 for m in complete]))
+    split["dispatch_wall_ms"] = float(np.median(plain_walls)) * 1e3
+    print("phase D resident feed split ({} streams, {} s window, beam_cf {}, mean of {} "
+          "synchronized 16-row dispatches; CUDA events between the stage boundaries, ms, "
+          "the host clock in brackets): {}; synchronized dispatch {:.3f} ms; "
+          "unsynchronized dispatch wall (median of {}) {:.3f} ms".format(
+              streams, pool.window / 16000, pool._beam_cf, len(complete),
+              ", ".join("{} {:.4f} [{:.4f}]".format(stage, split[stage + "_ms"],
+                                                    split[stage + "_wall_ms"])
+                        for stage in SPLIT_STAGES),
+              split["synchronized_wall_ms"], len(plain_walls), split["dispatch_wall_ms"]))
+    return split
+
+
+def check_lexicon_stream(device, transcriber, lm_directory, make_audio):
+    """A lexicon-constrained stream session on the card (`beam_decoder_for` routes it to
+    the plain-step `decode_incremental.BeamStreamDecoder`, whose stitch is the kernel):
+    8 s in 0.5 s chunks, finished; the rows its beam consumed, fed to the same decoder
+    on the CPU, give the same transcript; every completed word is in the vocabulary.
+    Then the decoder's piece round: 16 serving-shape streams, one 32-frame piece each
+    by `feed_batch` (W=25), three rounds timed by the host clock around a synchronize."""
+    import torch
+
+    from speechless_tpu_torch.ops.decode_incremental import BeamStreamDecoder
+    from speechless_tpu_torch.ops.decode_incremental_kernel import stream_stitch
+    from speechless_tpu_torch.serving import Transcriber
+    from speechless_tpu_torch.serving_streaming import StreamingTranscriber
+
+    lexicon = Transcriber(transcriber.config, serving_params(transcriber.config),
+                          transcriber.codec.allowed_characters, device=device,
+                          kenlm_directory=lm_directory, lexicon_constrained=True)
+    stream = StreamingTranscriber(lexicon, partial_decode="beam")
+    decoder = stream._beam_decoder
+    check(type(decoder) is BeamStreamDecoder and decoder.lexicon_constrained,
+          "the lexicon stream runs on {}".format(type(decoder).__name__))
+    consumed = []
+    advance = stream._beam_advance
+
+    def recording(state, rows):
+        consumed.append(np.array(rows, copy=True))
+        return advance(state, rows)
+
+    stream._beam_advance = recording
+    audio = make_audio(HTTP_SECONDS)
+    stream_stitch.launches = 0
+    start = time.perf_counter()
+    text = stream.transcribe_stream(audio, int(HTTP_CHUNK_S * 16000))
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - start
+    launches = stream_stitch.launches
+    check(launches > 0, "the lexicon stream launched no stitch")
+    cpu = BeamStreamDecoder(
+        blank=decoder.blank, beam_width=decoder.beam_width,
+        max_decoded_length=decoder.max_decoded_length, chunk_frames=decoder.chunk_frames,
+        word_lm=decoder.word_lm, lm_weight=decoder.lm_weight,
+        word_count_weight=decoder.word_count_weight,
+        valid_word_count_weight=decoder.valid_word_count_weight,
+        prune_classes=decoder.prune_classes, lexicon_constrained=True, device="cpu")
+    state = cpu.init_state()
+    for rows in consumed:
+        state, result = cpu.feed(state, rows)
+    cpu_text = lexicon.codec.decode_graphemes(result.tokens.tolist(), merge_repeated=False)
+    check(text == cpu_text, "lexicon stream: card {!r} != CPU {!r}".format(text, cpu_text))
+    vocabulary = {word for sentence in readme_sentences() for word in sentence.split()}
+    words = text.split(" ")
+    check(all(word in vocabulary for word in words[:-1] if word),
+          "a lexicon stream word left the vocabulary: {!r}".format(text))
+    check(bool(text.strip()), "the lexicon stream decoded nothing")
+    rng = np.random.default_rng(SEED + 6)
+    classes = lexicon.blank_index + 1
+    log_probs = serving_posteriors(rng, STREAM_N, 3 * STREAM_CF, classes,
+                                   lexicon.blank_index)
+    piece_decoder = BeamStreamDecoder(
+        blank=lexicon.blank_index, beam_width=25, max_decoded_length=STREAM_MAX_LEN,
+        chunk_frames=STREAM_CF, word_lm=lexicon.word_lm, lm_weight=0.8,
+        prune_classes=8, lexicon_constrained=True, device=device)
+    states = [piece_decoder.init_state() for _ in range(STREAM_N)]
+    walls = []
+    for p in range(3):
+        pieces = [row[p * STREAM_CF:(p + 1) * STREAM_CF] for row in log_probs]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        states = [s for s, _ in piece_decoder.feed_batch(states, pieces)]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    numbers = {"session_s": session_s, "stitch_launches": launches,
+               "frames": sum(len(rows) for rows in consumed),
+               "piece_round_ms": float(np.median(walls)) * 1e3}
+    print("phase D lexicon stream: {} s in {} s chunks on {} ({} frames, {} stitch "
+          "launches) in {:.3f} s, its text equal to the same rows through the decoder on "
+          "the CPU, every completed word in the vocabulary: {!r}; piece round of the "
+          "plain-step lexicon decoder ({} streams x {} frames, W=25, median of 3): {:.2f} "
+          "ms".format(HTTP_SECONDS, HTTP_CHUNK_S, device, numbers["frames"], launches,
+                      session_s, text[:48], STREAM_N, STREAM_CF,
+                      numbers["piece_round_ms"]))
+    return numbers
+
+
+def phase_d(device, transcriber, make_audio, lm_directory, profile_path=None):
     """The streaming slice: the stitch kernel, the stream decoder on the kernels, and
-    the HTTP stream sessions, twice: on a fresh server (the first windows of each batch
-    size and length meet cold convolution shapes) and again on a new server in the same
-    process (warm). The second pass is the main path whose launches are reported."""
+    the HTTP stream sessions on the host pool, the device pool's posterior mode and its
+    resident mode, each twice: on a fresh server (the first windows of each batch size
+    and length meet cold convolution shapes) and again on a new server in the same
+    process (warm). The warm passes are the main paths whose launches are reported.
+    Then the split of a resident dispatch and a lexicon-constrained stream session."""
     rng = np.random.default_rng(SEED + 4)
     blank = transcriber.blank_index
     stitch = check_stitch_kernel(rng, device, blank + 1)
     decoder = check_stream_decoder(rng, device, blank, transcriber.word_lm, profile_path)
-    cold = phase_d_http(transcriber, make_audio, "cold")
-    http = phase_d_http(transcriber, make_audio, "warm")
-    return {"stitch": stitch, "decoder": decoder, "http": http, "http_cold": cold}
+    passes, seconds = {}, {}
+    for name, options in (("http", {}), ("device", {"device_streams": True}),
+                          ("resident", {"device_streams": True,
+                                        "beam_mode": "resident"})):
+        start = time.perf_counter()
+        passes[name + "_cold"] = phase_d_http(transcriber, make_audio, "cold", **options)
+        passes[name] = phase_d_http(transcriber, make_audio, "warm", **options)
+        seconds[name + " passes"] = time.perf_counter() - start
+    print("phase D launches in the warm resident pass (the device pool's main path): "
+          "lm_beam_span {lm_beam_span}, stream_stitch {stream_stitch}, lm_beam_step "
+          "{lm_beam_step}".format(**passes["resident"]["launches"]))
+    print("phase D feed latency, warm passes of one call (s): " + "; ".join(
+        "{} greedy p50 {:.4f} p95 {:.4f}, beam p50 {:.4f} p95 {:.4f}".format(
+            name, numbers["greedy_feed_p50_s"], numbers["greedy_feed_p95_s"],
+            numbers["beam_feed_p50_s"], numbers["beam_feed_p95_s"])
+        for name, numbers in (("host pool", passes["http"]),
+                              ("device pool posterior", passes["device"]),
+                              ("device pool resident", passes["resident"]))))
+    start = time.perf_counter()
+    split = split_resident_feed(transcriber, make_audio)
+    seconds["split"] = time.perf_counter() - start
+    lexicon = check_lexicon_stream(device, transcriber, lm_directory, make_audio)
+    seconds["lexicon"] = time.perf_counter() - start - seconds["split"]
+    print("phase D wall (s): " + ", ".join("{} {:.1f}".format(name, value)
+                                           for name, value in seconds.items()))
+    return dict(passes, stitch=stitch, decoder=decoder, split=split, lexicon=lexicon)
 
 
 # ---- phase E: offline decoding -----------------------------------------------------
@@ -2007,7 +2356,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a")
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
+    print(card)
     # PyTorch's defaults, left as they are: the port's features and model turn TF32
     # off themselves (speechless_tpu_torch/precision.py).
     print("torch {} CUDA {}; {} x {}; process-wide TF32 flags: matmul {} cudnn {}".format(
@@ -2041,7 +2391,7 @@ def main() -> None:
         if args.profile:
             phase_profile(transcriber, batch, short_audio,
                           ROOT / "chiprun_out" / "profile.json")
-        streaming = phase_d(device, transcriber, make_audio,
+        streaming = phase_d(device, transcriber, make_audio, Path(lm_directory),
                             ROOT / "chiprun_out" / "profile_stream.json"
                             if args.profile else None)
         offline = phase_e(device, transcriber, batch, Path(lm_directory),
@@ -2053,6 +2403,7 @@ def main() -> None:
 
     ctc = train["ctc"]
     backtrace = offline["backtraces"]["span"]
+    print(card)  # again beside the summary: the long output's head may be cut
     print("summary: span kernel {:.4f} ms per 16 x 513 launch ({:.2f} us per frame; "
           "no LM {:.4f} ms); step entry {:.5f} ms per frame on the sorted network, {:.5f} "
           "ms on the rank network; transcribe_batch 16 x 8 s {:.4f} s; stream piece round "

@@ -115,11 +115,18 @@ def main(argv=None) -> None:
     p_serve.add_argument("--no-warm-up", action="store_true",
                          help="skip running every length bucket once before binding")
     p_serve.add_argument("--device-streams", action="store_true",
-                         help="device-resident streaming sessions (not ported yet)")
+                         help="device-resident streaming sessions: every session's window "
+                              "stays on the device")
     p_serve.add_argument("--beam-mode", choices=("posterior", "resident"),
                          default="posterior",
-                         help="'resident' keeps the beam carry in the device pool (not "
-                              "ported yet)")
+                         help="'resident' keeps every beam session's carry in the device "
+                              "pool and advances it inside the feed (needs "
+                              "--device-streams)")
+    p_serve.add_argument("--beam-engine", choices=("auto", "xla", "pallas"),
+                         default="auto",
+                         help="stream beam decoder: 'pallas' the span and stitch kernels, "
+                              "'xla' the plain batched beam step, 'auto' the kernels "
+                              "whenever they express the search")
     p_transcribe = sub.add_parser("transcribe", help="transcribe wav files offline")
     p_transcribe.add_argument("files", nargs="+", help="audio files (wav)")
     _model_args(p_transcribe)
@@ -144,9 +151,12 @@ def main(argv=None) -> None:
     if args.command == "transcribe":
         _transcribe(args, p_transcribe)
         return
-    if args.device_streams or args.beam_mode == "resident":
-        p_serve.error("--device-streams and --beam-mode resident (device-resident "
-                      "streaming sessions) are not ported yet (ROADMAP.md, item 11)")
+    if args.beam_mode == "resident" and not args.device_streams:
+        p_serve.error("--beam-mode resident needs --device-streams (the beam carry lives "
+                      "in the pooled device state)")
+    if args.beam_engine == "pallas" and args.lexicon:
+        p_serve.error("--beam-engine pallas has no lexicon constraint: lexicon stream "
+                      "sessions take --beam-engine xla (or auto)")
 
     from .serving_http import TranscriptionServer
 
@@ -154,9 +164,14 @@ def main(argv=None) -> None:
     transcriber = _transcriber(args)
     if not args.no_warm_up:
         transcriber.warm_up()
-    TranscriptionServer(transcriber, host=args.host, port=args.port,
-                        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-                        max_queue=args.max_queue).serve_forever()
+    server = TranscriptionServer(transcriber, host=args.host, port=args.port,
+                                 max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+                                 max_queue=args.max_queue,
+                                 device_streams=args.device_streams,
+                                 beam_engine=args.beam_engine, beam_mode=args.beam_mode)
+    if args.device_streams and not args.no_warm_up:
+        server.streams.warm_up()
+    server.serve_forever()
 
 
 if __name__ == "__main__":

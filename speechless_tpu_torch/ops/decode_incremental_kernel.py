@@ -19,20 +19,19 @@ One chunk advance of N streams (`stream_advance`) runs as follows:
   rebuilds every lane's token buffer from the chunk's backpointers and picks each
   stream's best lane with its (length, score, longest live length).
 
-`KernelBeamStreamDecoder` runs that advance on the host's schedule: piece slicing,
-rollover and `feed_batch`. Per-stream state is the kernel carry (pb, pnb, hash, last,
-len, lm[, trie node, word context], each with r lanes) plus the (r, max_len) token
-buffer, on the decoder's device.
+`StreamDecoderBase` runs an advance on the host's schedule: piece slicing, rollover
+and `feed_batch`. `KernelBeamStreamDecoder` is its advance on `stream_advance`, with
+per-stream state the kernel carry (pb, pnb, hash, last, len, lm[, trie node, word
+context], each with r lanes) plus the (r, max_len) token buffer, on the decoder's
+device; `decode_incremental.BeamStreamDecoder` is its advance on the plain batched
+beam step, for the searches the span kernel does not express (`kernel_beam_supported`).
 
 Beam partials are not append-only: later audio may re-rank the best hypothesis, so
 each feed returns the full current best prefix (callers replace, not append). Frames
 fed are consumed for good: callers feed only frames whose receptive field is complete.
 
 The TPU version padded the rows to a multiple of 8 sublanes and capped the alphabet at
-128 packed lanes; the port's kernels take any row count and class count. Not ported:
-the JAX package's XLA streaming step (`decode_incremental.py` on `decode_jax._beam_step`,
-whose port is `decode_beam._beam_step`), and with it char-table LM fusion, unpruned and
-``lexicon_constrained`` streams (ROADMAP.md, section 3: streaming).
+128 packed lanes; the port's kernels take any row count and class count.
 """
 import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -42,7 +41,7 @@ import torch
 
 from . import _kernels
 from .beam_common import next_pow2
-from .decode_lm import fresh_carry, pack_frames, span_function
+from .decode_lm import MAX_LANES, fresh_carry, pack_frames, span_function
 
 DEFAULT_DEVICE = "cuda:0"  # the card unless the caller asks for the CPU
 
@@ -207,23 +206,34 @@ def state_from_jax(beams, device) -> List[torch.Tensor]:
     return stacked
 
 
+def kernel_beam_supported(class_count: int, prune_classes: Optional[int],
+                          beam_width: int) -> bool:
+    """Whether `KernelBeamStreamDecoder` expresses this search as it is configured: the
+    packed frame row holds the top ``prune_classes`` classes (an unpruned search has no
+    such row), and the span kernel runs one thread per candidate lane, at most
+    `decode_lm.MAX_LANES` of them (``(k + 1) * r`` padded to a power of two)."""
+    if prune_classes is None:
+        return False
+    k = min(prune_classes, class_count)
+    return next_pow2((k + 1) * next_pow2(max(beam_width, 8))) <= MAX_LANES
+
+
 def _host(x) -> np.ndarray:
     """A device tensor as a numpy array on the host."""
     return x.cpu().numpy()
 
 
-class KernelBeamStreamDecoder:
-    """Streaming prefix-beam decoder on `stream_advance`: the span kernel and the
-    stitch-and-rank kernel once per chunk on CUDA, their plain versions on the CPU. Construct once per decoder configuration, then `init_state()` per stream and
-    `feed(state, log_probs)` with each newly finalized frame range. The decoder holds
-    no per-stream state, so one instance serves any number of streams.
+class StreamDecoderBase:
+    """The host half of a streaming prefix-beam decoder: per-stream state, piece
+    slicing, rollover and `feed_batch`. A subclass gives its fresh carry
+    (`stacked_fresh_state`) and its one-piece advance of N stacked streams
+    (`advance_in_program`). The decoder holds no per-stream state, so one instance
+    serves any number of streams: `init_state()` per stream, then `feed(state,
+    log_probs)` with each newly finalized frame range.
 
     ``chunk_frames`` is the frame capacity of one advance: feeds are cut into pieces of
     at most ``chunk_frames`` frames (the last zero-padded and masked). ``device`` holds
-    the state and runs the advance (the word LM is moved there). ``step`` (a one-frame
-    function for the plain frame loop instead of the span kernel) and ``stitch`` run the
-    plain versions on CUDA tensors. ``prune_classes=None`` becomes 8, as in the JAX kernel decoder: the beam
-    step expands the frame's top classes only.
+    the state and runs the advance.
 
     Unbounded streams: the carried token buffer is (lanes, ``max_decoded_length``), and
     the beam step forbids extending a prefix at capacity, so a transcript that outgrew
@@ -235,12 +245,8 @@ class KernelBeamStreamDecoder:
     apart.
     """
 
-    def __init__(self, blank: int, beam_width: int = 25,
-                 max_decoded_length: int = 512, chunk_frames: int = 128,
-                 lm_weight: float = 0.8, word_lm=None, word_count_weight: float = 0.0,
-                 valid_word_count_weight: float = 2.3,
-                 prune_classes: Optional[int] = 8, device=DEFAULT_DEVICE,
-                 step=None, stitch=stream_stitch):
+    def __init__(self, blank: int, beam_width: int, max_decoded_length: int,
+                 chunk_frames: int, device):
         if chunk_frames < 1:
             raise ValueError("chunk_frames must be >= 1")
         if chunk_frames > max_decoded_length:
@@ -254,13 +260,6 @@ class KernelBeamStreamDecoder:
         self.max_decoded_length = max_decoded_length
         self.chunk_frames = chunk_frames
         self.device = torch.device(device)
-        self.lm_weight = float(lm_weight)
-        self.word_lm = None if word_lm is None else word_lm.to(self.device)
-        self.word_count_weight = float(word_count_weight)
-        self.valid_word_count_weight = float(valid_word_count_weight)
-        self.prune_classes = 8 if prune_classes is None else prune_classes
-        self._r = next_pow2(max(beam_width, 8))
-        self._step_fn, self._stitch_fn = step, stitch
         # Load counters: how many feed/feed_batch calls ran and how many
         # chunk_frames-piece rounds they cost (pieces > feeds means sessions fell
         # behind the live cadence and caught up in multi-piece advances). Threads that
@@ -269,17 +268,26 @@ class KernelBeamStreamDecoder:
         self.stat_piece_rounds = 0
         self._stat_lock = threading.Lock()
 
+    def stacked_fresh_state(self, n: int) -> List[torch.Tensor]:
+        """``n`` fresh carries as one stacked state (leading dimension ``n``): the
+        carry leaves and the token buffer, the layout `advance_in_program` takes."""
+        raise NotImplementedError
+
+    def advance_in_program(self, stacked_state: Sequence[torch.Tensor],
+                           log_probs: torch.Tensor, counts):
+        """One piece advance of N streams on the decoder's device: ``stacked_state``
+        in `stacked_fresh_state`'s layout, ``log_probs`` ``(N, F, C)`` on the device,
+        ``counts`` ``(N,)`` valid frames per row on the host (0 is an exact no-op).
+        Returns ``(new stacked state, best rows (N, max_len) int32, scalars (N, 3)
+        fp32)`` with scalars (best length, best score, longest live length). It reads
+        nothing back to the host, so a caller that stacks its carries (the device pool's
+        resident feed) runs it between its own launches."""
+        raise NotImplementedError
+
     def _count(self, pieces: int) -> None:
         with self._stat_lock:
             self.stat_feeds += 1
             self.stat_piece_rounds += pieces
-
-    def stacked_fresh_state(self, n: int) -> List[torch.Tensor]:
-        """``n`` fresh carries as one stacked state (leading dimension ``n``), the
-        layout `stream_advance` takes."""
-        return fresh_carry(n, self._r, self.word_lm, self.device) + [
-            torch.full((n, self._r, self.max_decoded_length), -1, dtype=torch.int32,
-                       device=self.device)]
 
     def _fresh_beam(self) -> tuple:
         return tuple(leaf[0] for leaf in self.stacked_fresh_state(1))
@@ -291,16 +299,10 @@ class KernelBeamStreamDecoder:
 
     def _step(self, beams: list, batch_lp: np.ndarray, valid: np.ndarray):
         """One-piece advance of N streams: ``(new_beams (N tuples), best rows
-        (N, max_len), scalars (N, 3))`` with scalars (best length, best score, longest
-        live length)."""
+        (N, max_len), scalars (N, 3))``."""
         stacked = [torch.stack(leaves) for leaves in zip(*beams)]
-        new, rows, scalars = stream_advance(
-            stacked, torch.from_numpy(batch_lp).to(self.device), valid, blank=self.blank,
-            beam_width=self.beam_width, max_decoded_length=self.max_decoded_length,
-            word_lm=self.word_lm, lm_weight=self.lm_weight,
-            word_count_weight=self.word_count_weight,
-            valid_word_count_weight=self.valid_word_count_weight,
-            prune_classes=self.prune_classes, step=self._step_fn, stitch=self._stitch_fn)
+        new, rows, scalars = self.advance_in_program(
+            stacked, torch.from_numpy(batch_lp).to(self.device), valid)
         return [tuple(leaf[i] for leaf in new) for i in range(len(beams))], rows, scalars
 
     def feed(self, state: BeamStreamState,
@@ -415,3 +417,46 @@ class KernelBeamStreamDecoder:
             out.append((BeamStreamState(beams[i], committed[i], committed_score[i]),
                         BeamStreamResult(full, committed_score[i] + live_score)))
         return out
+
+
+class KernelBeamStreamDecoder(StreamDecoderBase):
+    """Streaming prefix-beam decoder on `stream_advance`: the span kernel and the
+    stitch-and-rank kernel once per chunk on CUDA, their plain versions on the CPU
+    (the port of `PallasBeamStreamDecoder`). Its carry has r = next_pow2(max(W, 8))
+    lanes. See `StreamDecoderBase` for the per-stream surface and rollover.
+
+    ``step`` (a one-frame function for the plain frame loop instead of the span kernel)
+    and ``stitch`` run the plain versions on CUDA tensors. ``prune_classes=None``
+    becomes 8, as in the JAX kernel decoder: the beam step expands the frame's top
+    classes only (`serving_streaming.beam_decoder_for` sends unpruned searches to
+    `decode_incremental.BeamStreamDecoder` instead).
+    """
+
+    def __init__(self, blank: int, beam_width: int = 25,
+                 max_decoded_length: int = 512, chunk_frames: int = 128,
+                 lm_weight: float = 0.8, word_lm=None, word_count_weight: float = 0.0,
+                 valid_word_count_weight: float = 2.3,
+                 prune_classes: Optional[int] = 8, device=DEFAULT_DEVICE,
+                 step=None, stitch=stream_stitch):
+        super().__init__(blank, beam_width, max_decoded_length, chunk_frames, device)
+        self.lm_weight = float(lm_weight)
+        self.word_lm = None if word_lm is None else word_lm.to(self.device)
+        self.word_count_weight = float(word_count_weight)
+        self.valid_word_count_weight = float(valid_word_count_weight)
+        self.prune_classes = 8 if prune_classes is None else prune_classes
+        self._r = next_pow2(max(beam_width, 8))
+        self._step_fn, self._stitch_fn = step, stitch
+
+    def stacked_fresh_state(self, n: int) -> List[torch.Tensor]:
+        return fresh_carry(n, self._r, self.word_lm, self.device) + [
+            torch.full((n, self._r, self.max_decoded_length), -1, dtype=torch.int32,
+                       device=self.device)]
+
+    def advance_in_program(self, stacked_state, log_probs, counts):
+        return stream_advance(
+            stacked_state, log_probs, counts, blank=self.blank,
+            beam_width=self.beam_width, max_decoded_length=self.max_decoded_length,
+            word_lm=self.word_lm, lm_weight=self.lm_weight,
+            word_count_weight=self.word_count_weight,
+            valid_word_count_weight=self.valid_word_count_weight,
+            prune_classes=self.prune_classes, step=self._step_fn, stitch=self._stitch_fn)

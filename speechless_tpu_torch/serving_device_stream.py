@@ -1,0 +1,1038 @@
+"""Device-resident streaming: every session's audio window lives on the transcriber's
+device (port of `speechless_tpu/serving_device_stream.py`, for live transcribers).
+
+The host pool (`serving_streaming.py`) sends each session's whole window (seconds of
+audio) to the device on every feed and stacks each beam session's carry on the host.
+Here the pooled state stays on the device between feeds:
+
+* all sessions' windows are rows of one tensor, ``(max_sessions+1, window)`` fp32, with
+  their valid lengths ``(max_sessions+1,)`` int32; the spare row ``max_sessions`` is the
+  sink that `DeviceStreamingPool.warm_up` feeds;
+* a feed uploads only its chunk. One fused dispatch (`_build_feed_fn`) appends each
+  chunk to its session's row (the shift quantized to the output frame grid, so absolute
+  frame positions stay valid across drops, as on the host path), runs the features and
+  the model on the updated rows, and returns per-frame argmax tokens (plus, for beam
+  sessions, log posteriors, or in resident mode the beam's best row);
+* ``beam_mode="resident"`` keeps every beam session's carry on the device too: the
+  dispatch advances it over the frames the emission rule finalizes, with the span and
+  stitch kernels (`decode_incremental_kernel.KernelBeamStreamDecoder`) or the plain
+  batched step (`decode_incremental.BeamStreamDecoder`).
+
+Emission semantics match `serving_streaming.StreamingTranscriber` (frames within
+``margin_s`` of the right edge are withheld; CTC collapse carries across windows). The
+one difference: the device window always keeps the trailing ``window_s`` of audio,
+more left context than the host path keeps after an emission drop, so the per-window
+z-norm sees closer-to-offline statistics. Streams shorter than one window decode as on
+the host path.
+
+Unlike the JAX pool, a dispatch runs only the rows it feeds: PyTorch compiles nothing
+per shape, so padding every dispatch to ``max_batch`` rows would be wasted work. One
+batcher thread owns the pooled tensors. Not ported: the AOT-bundle backend
+(ROADMAP.md, item 13).
+"""
+import threading
+import time
+import uuid
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .features.spectrogram import features_batch, frame_count
+from .models import wav2letter as w2l
+from .serving_streaming import (BeamAdvanceBatcher, UnknownSessionError, WordAssembler,
+                                _check_window, _DeferredAdvance, beam_decoder_for,
+                                collapse_new_frames, offline_final_pass)
+from .utils.microbatch import MicroBatcher, PendingItem
+
+_POISONED_MESSAGE = ("stream lost: a device dispatch failed and the pool state was "
+                     "reset; create a new session")
+
+DEFAULT_POST_ROWS = 40
+
+# Advance-range limit for non-beam rows of a resident dispatch: so negative that
+# (limit - buffer_start) // spf never reaches a valid frame, and far from int32
+# overflow when window-sized starts are subtracted.
+_NO_EMIT_LIMIT = -(2 ** 30)
+
+
+def _build_feed_fn(transcriber, window: int, chunk_cap: int, spf: int,
+                   post_rows: Optional[int] = None, beam_decoder=None):
+    """The fused append-and-decode over the pooled windows.
+
+    The window feed is ``(buffers (S+1, W), lengths (S+1,), rows (B,), chunks (B, cap),
+    chunk_lens (B,), resets (B,), post_starts=None) -> (tokens (B, F) int32, counts
+    (B,), new_lens (B,), log_probs)``, all device tensors; it writes the updated rows
+    of ``buffers`` and ``lengths`` in place. ``post_starts`` None computes no
+    posteriors (a dispatch without beam sessions); else ``log_probs`` is the ``(B,
+    post_rows, C)`` block of log posteriors starting at each row's ``post_starts``
+    (clamped into the window). The block is sliced before the softmax, which is per
+    frame, so its rows equal the full window's. ``post_rows`` None slices the whole
+    window.
+
+    The append shift is quantized up to ``spf`` (samples per output frame) so every
+    row's window start stays on the absolute frame grid: the sessions mirror the same
+    integer arithmetic on the host (`mirror_append`).
+
+    With ``beam_decoder`` the resident feed is ``(buffers, lengths, beam_state, rows,
+    chunks, chunk_lens, resets, reset_rows, advance) -> (tokens, counts, new_lens,
+    best_rows, scalars)``: ``beam_state`` is the pooled stacked carries
+    (`stacked_fresh_state(S+1)`'s layout, whatever the decoder's lanes); the carries of
+    ``reset_rows`` restart fresh first; ``advance`` None skips the beam, else it is
+    ``(slots (m,), block_index (m, cf), valid (m,) host ints)``: the batch slots whose
+    beams advance, the window frames of each one's advance block of ``cf`` rows (the
+    first valid frame at row 0) and its valid frame count. Their carries advance
+    through ``beam_decoder.advance_in_program`` and are written back; ``best_rows``
+    ``(m, max_len)`` and ``scalars`` ``(m, 3)`` follow ``slots``."""
+    config, model = transcriber.config, transcriber.model
+    device = transcriber.device
+    positions = torch.arange(window, device=device)
+    chunk_positions = torch.arange(chunk_cap, device=device)
+    frames = _window_frames(config, window)
+    block_rows = torch.arange(post_rows or frames, device=device)
+
+    def feed_core(buffers, lengths, rows, chunks, chunk_lens, resets):
+        length = torch.where(resets, 0, lengths[rows])
+        ext = torch.cat([buffers[rows], torch.zeros_like(chunks)], dim=1)
+        # The chunk arrives zero-masked beyond chunk_len, so the fixed-size write puts
+        # zeros over the (already zero) tail.
+        ext.scatter_(1, length[:, None].long() + chunk_positions, chunks)
+        total = length + chunk_lens
+        overflow = torch.clamp(total - window, min=0)
+        shift = (overflow + spf - 1) // spf * spf
+        # shift <= chunk_cap (a multiple of spf, and overflow <= chunk_len <= chunk_cap),
+        # so the window read below never runs past the extension: a clamp there would
+        # silently break the frame alignment.
+        new_bufs = ext.gather(1, shift[:, None].long() + positions)
+        new_lens = (total - shift).to(torch.int32)
+        new_bufs = torch.where(positions < new_lens[:, None], new_bufs, 0.0)
+        buffers[rows] = new_bufs
+        lengths[rows] = new_lens
+        feats, frame_counts = features_batch(new_bufs, torch.clamp(new_lens, min=1))
+        logits = model(feats)
+        tokens = logits.argmax(dim=-1).to(torch.int32)
+        return tokens, w2l.prediction_lengths(config, frame_counts), new_lens, logits
+
+    def block(logits, index):
+        """Rows ``index`` (B', n) of each row's frames, log-softmaxed."""
+        return torch.log_softmax(
+            logits.gather(1, index[..., None].expand(-1, -1, logits.shape[2])), dim=-1)
+
+    if beam_decoder is not None:
+        fresh = beam_decoder.stacked_fresh_state(1)
+
+        def feed_fn(buffers, lengths, beam_state, rows, chunks, chunk_lens, resets,
+                    reset_rows, advance):
+            tokens, counts, new_lens, logits = feed_core(buffers, lengths, rows, chunks,
+                                                         chunk_lens, resets)
+            if len(reset_rows):
+                # Before the advance: a reused row's carry must not reach it.
+                for leaf, fresh_leaf in zip(beam_state, fresh):
+                    leaf[reset_rows] = fresh_leaf
+            if advance is None:
+                return tokens, counts, new_lens, None, None
+            slots, block_index, valid = advance
+            session_rows = rows[slots]
+            new_state, best_rows, scalars = beam_decoder.advance_in_program(
+                [leaf[session_rows] for leaf in beam_state],
+                block(logits[slots], block_index), valid)
+            for leaf, new in zip(beam_state, new_state):
+                leaf[session_rows] = new
+            return tokens, counts, new_lens, best_rows, scalars
+        return feed_fn
+
+    def feed_fn(buffers, lengths, rows, chunks, chunk_lens, resets, post_starts=None):
+        tokens, counts, new_lens, logits = feed_core(buffers, lengths, rows, chunks,
+                                                     chunk_lens, resets)
+        if post_starts is None:
+            return tokens, counts, new_lens, None
+        start = torch.clamp(post_starts, 0, frames - len(block_rows))
+        return tokens, counts, new_lens, block(logits, start[:, None] + block_rows)
+    return feed_fn
+
+
+def _window_frames(config, window: int) -> int:
+    """The feed's logits frame count for a full ``window``-sample row, from the conv
+    arithmetic: the features' frames, then each layer's SAME-padded stride."""
+    frames = frame_count(window)
+    for spec in config.layers:
+        frames = -(-frames // spec.stride)
+    return frames
+
+
+def _fetch(*tensors) -> List[np.ndarray]:
+    """Device tensors (int32 or float32) as numpy arrays through one copy to the host:
+    every copy waits for the device, so the dispatch pays one wait."""
+    flat = torch.cat([t.reshape(-1).view(torch.int32) if t.dtype == torch.float32
+                      else t.reshape(-1).to(torch.int32) for t in tensors]).cpu().numpy()
+    out, offset = [], 0
+    for t in tensors:
+        part = flat[offset:offset + t.numel()]
+        offset += t.numel()
+        if t.dtype == torch.float32:
+            part = part.view(np.float32)
+        out.append(part.reshape(tuple(t.shape)))
+    return out
+
+
+def quantize_pool_dims(samples_per_frame: int, window_s: float,
+                       chunk_cap_s: float) -> Tuple[int, int]:
+    """``(window, chunk_cap)`` in samples, aligned to the output frame grid."""
+    spf = samples_per_frame
+    window = int(window_s * 16000) // spf * spf
+    chunk_cap = max(int(chunk_cap_s * 16000) // spf, 1) * spf
+    return window, chunk_cap
+
+
+def _check_post_rows(post_rows: int, frames: int) -> int:
+    """Validate and clamp the posterior block size: at least 12 rows, at most the
+    window's frame count (the slice offset is clamped to ``frames - post_rows``). The
+    slack over the per-dispatch beam piece holds by construction:
+    `DeviceStreamingPool.beam_piece_cap` derives the piece cap from ``post_rows``."""
+    post_rows = int(post_rows)
+    if post_rows < 12:
+        raise ValueError("post_rows must be >= 12 (got {})".format(post_rows))
+    return min(post_rows, frames)
+
+
+def mirror_append(length: int, chunk_len: int, window: int, spf: int,
+                  reset: bool = False) -> Tuple[int, int]:
+    """Host mirror of the device append arithmetic: ``(new_length, shift)``."""
+    if reset:
+        length = 0
+    total = length + chunk_len
+    overflow = max(0, total - window)
+    shift = -(-overflow // spf) * spf
+    return total - shift, shift
+
+
+class _DeviceFeedBatcher(MicroBatcher):
+    """One thread owns the pooled device state: it collects (row, chunk) feeds from all
+    sessions and serves them with one fused dispatch. No other thread ever touches the
+    pooled tensors."""
+
+    item_noun = "feeds"
+
+    def __init__(self, pool: "DeviceStreamingPool", max_batch: int,
+                 max_wait_ms: float):
+        super().__init__(max_batch=max_batch, max_wait_ms=max_wait_ms,
+                         name="device-stream-batcher")
+        self._pool = pool
+
+    def _serve(self, batch: List[PendingItem]) -> None:
+        # A session's feeds serialize on its lock, so duplicate rows in one batch do
+        # not happen in normal operation; a duplicate would make the row writes
+        # order-dependent, so split rather than corrupt a window.
+        served: Dict[int, bool] = {}
+        group: List[PendingItem] = []
+        for item in batch:
+            row = item.payload[0]
+            if row in served:
+                self._pool._dispatch(group)
+                served, group = {}, []
+            served[row] = True
+            group.append(item)
+        if group:
+            self._pool._dispatch(group)
+
+
+class DeviceStreamingSession:
+    """Host-side mirror of one device-resident streaming window. Same surface as
+    `serving_streaming.StreamingTranscriber`: ``feed() -> newly final text``,
+    ``finish() -> remaining text``, ``.text``."""
+
+    def __init__(self, pool: "DeviceStreamingPool", row: int,
+                 final_decode: bool = False, partial_beam: bool = False,
+                 beam_pipelined: bool = False):
+        self._pool = pool
+        self._row = row
+        self._spf = pool.spf
+        self._blank = pool.blank_index
+        self._codec = pool.codec
+        self._final_decode = final_decode
+        self._partial_beam = partial_beam
+        self._beam_pipelined = beam_pipelined
+        self._beam_resident = partial_beam and pool.beam_mode == "resident"
+        if self._beam_resident:
+            # The carry lives in the pool's device state and advances inside the feed
+            # dispatch; the host keeps the committed prefix (tokens rolled out when the
+            # buffer fills), the fetched live best, and the reset flag the next
+            # dispatch applies to this row.
+            self._committed = np.zeros(0, np.int32)
+            self._committed_score = 0.0
+            self._live_tokens = np.zeros(0, np.int32)
+            self._live_score = 0.0
+            self._pending_beam_reset = True  # a reused row starts from a fresh carry
+            self._beam_tokens = np.zeros(0, np.int32)
+        elif partial_beam:
+            # The pool's decoder, per-session state, advances coalesced through the
+            # pool's BeamAdvanceBatcher (as on the host pool). The batcher's `started`
+            # flag is read per advance, so a session created before `pool.start()`
+            # takes the batched path once the pool starts.
+            self._beam_batcher = pool._get_beam_batcher()
+            self._beam_decoder = self._beam_batcher.decoder
+            if beam_pipelined:
+                self._beam_inflight = None
+                self._beam_pending = []
+            self._beam_state = self._beam_decoder.init_state()
+            self._beam_tokens = np.zeros(0, np.int32)
+        self._audio_parts: List[np.ndarray] = []
+        self._pending_reset = True
+        self._total = 0     # absolute samples fed
+        self._length = 0    # mirror of the device row's valid length
+        self._emit_sample = 0
+        self._carry = -1
+        self._parts: List[str] = []
+        self._words = WordAssembler(pool.codec, pool.spf)
+        self._finished = False
+        self._poisoned = False
+        # The session owns its lock and idle stamp (feeds serialize here whether they
+        # arrive through the pool or this object); the pool's reaper reads both.
+        self.lock = threading.Lock()
+        self.last_used = time.time()
+
+    @property
+    def text(self) -> str:
+        """Live transcript: the emitted greedy parts, or the incremental beam's current
+        best (beam sessions: replace semantics, later audio can re-rank it)."""
+        if self._partial_beam:
+            return self._codec.decode_graphemes(self._beam_tokens.tolist(),
+                                                merge_repeated=False)
+        return "".join(self._parts)
+
+    @property
+    def greedy_text(self) -> str:
+        """The append-only greedy transcript (`.text` in greedy mode; beam sessions
+        still accumulate it, it drives the word timestamps)."""
+        return "".join(self._parts)
+
+    @property
+    def final_up_to_s(self) -> float:
+        """Absolute stream time (seconds) up to which the transcript is final (16 kHz).
+        Beam sessions report 0.0 while live and the stream's duration after
+        `finish()`."""
+        if self._partial_beam:
+            return self._total / 16000.0 if self._finished else 0.0
+        return self._emit_sample / 16000.0
+
+    @property
+    def greedy_final_up_to_s(self) -> float:
+        """The greedy emission horizon (seconds): it bounds the word timestamps."""
+        return self._emit_sample / 16000.0
+
+    def feed(self, chunk: np.ndarray) -> str:
+        """Append ``chunk`` to the device window and return newly finalized text.
+        Chunks longer than the pool's ``chunk_cap`` split into several dispatches."""
+        with self.lock:
+            try:
+                return self._feed_locked(chunk)
+            finally:
+                self.last_used = time.time()
+
+    def feed_with_text(self, chunk: np.ndarray) -> Tuple[str, str, float]:
+        """``(newly_finalized, full_text_so_far, final_up_to_s)``."""
+        state = self.feed_with_state(chunk)
+        return state["partial"], state["text"], state["final_up_to_s"]
+
+    def feed_with_state(self, chunk: np.ndarray) -> dict:
+        """``{"partial", "text", "final_up_to_s", "words"}`` from one locked call
+        (``words``: the word timestamps this feed finalized)."""
+        with self.lock:
+            try:
+                partial = self._feed_locked(chunk)
+                return {"partial": partial, "text": self.text,
+                        "final_up_to_s": self.final_up_to_s,
+                        "words": self._words.pop_new_words()}
+            finally:
+                self.last_used = time.time()
+
+    def _feed_locked(self, chunk: np.ndarray) -> str:
+        self._check_usable()
+        chunk = np.asarray(chunk, np.float32).ravel()
+        if self._final_decode:
+            self._audio_parts.append(chunk)
+        emitted: List[str] = []
+        cap = self._pool.chunk_cap
+        if self._partial_beam and (self._beam_resident
+                                   or self._pool.post_rows is not None):
+            # Posterior blocks / resident beam: pieces fit the per-dispatch block, so a
+            # dispatch's newly finalized rows always fit it (the emission cap in
+            # `_emit` is then a safety net at steady state).
+            cap = min(cap, self._pool.beam_piece_cap)
+        for start in range(0, max(len(chunk), 1), cap):
+            piece = chunk[start:start + cap]
+            if len(chunk) and not len(piece):
+                break
+            tokens, count, log_probs, post_start = self._dispatch(piece)
+            emitted.append(self._emit(tokens, count, flush=False,
+                                      log_probs=log_probs, post_start=post_start))
+        if self._partial_beam:
+            return self.text  # beam partials replace rather than append
+        return "".join(emitted)
+
+    def finish(self) -> str:
+        """Flush (decode the final margin too), free the device row, and return the
+        newly finalized text."""
+        with self.lock:
+            try:
+                return self._finish_locked()
+            finally:
+                self.last_used = time.time()
+
+    def finish_with_live_text(self) -> Tuple[str, str]:
+        """Flush and free the row; ``(final_text, live_text)``: the offline second pass
+        and the live transcript (the same for single-pass sessions)."""
+        state = self.finish_with_state()
+        return state["text"], state["live_text"]
+
+    def finish_with_state(self) -> dict:
+        """Flush and free the row; ``{"text", "live_text", "words"}``."""
+        with self.lock:
+            self._finish_locked()
+            live = self.text
+            full = self._finalize_inner() if self._final_decode else live
+            return {"text": full, "live_text": live,
+                    "words": self._words.pop_new_words()}
+
+    def _finish_locked(self) -> str:
+        if self._poisoned:
+            raise RuntimeError(_POISONED_MESSAGE)
+        if self._finished:
+            return ""
+        out = ""
+        if self._total:
+            while True:
+                before = self._emit_sample
+                tokens, count, log_probs, post_start = self._dispatch(
+                    np.zeros(0, np.float32), flush=True)
+                out += self._emit(tokens, count, flush=True, log_probs=log_probs,
+                                  post_start=post_start)
+                if not (self._partial_beam
+                        and (self._beam_resident or self._pool.post_rows is not None)):
+                    break
+                # Posterior blocks / resident beam: one flush dispatch drains at most
+                # one block of the withheld margin, so dispatch empty pieces until the
+                # emission horizon reaches the model's frame horizon.
+                horizon = (self._total - self._length) + count * self._spf
+                if self._emit_sample <= before or self._emit_sample >= horizon:
+                    break
+        self._words.flush()
+        self._finished = True
+        self._pool._release(self._row)
+        if self._partial_beam:
+            return self.text  # the final re-ranked best (replace semantics)
+        return out
+
+    def finalize(self) -> str:
+        """Two-pass final transcript: offline decode of the complete accumulated stream
+        (same contract as `StreamingTranscriber.finalize`)."""
+        with self.lock:
+            return self._finalize_inner()
+
+    def _finalize_inner(self) -> str:
+        if not self._final_decode:
+            raise ValueError("session was not created with final_decode=True")
+        return offline_final_pass(self._pool._transcriber, self._audio_parts)
+
+    def transcribe_stream(self, audio: np.ndarray, chunk_samples: int = 8000) -> str:
+        """Feed ``audio`` in fixed-size chunks and finish; returns the complete
+        transcript (`.text` after the flush: in beam modes `finish` returns the full
+        best, so appending it to earlier text would double the transcript)."""
+        for start in range(0, len(audio), chunk_samples):
+            self.feed(audio[start:start + chunk_samples])
+        self.finish()
+        return self.text
+
+    def _check_usable(self) -> None:
+        if self._poisoned:
+            raise RuntimeError(_POISONED_MESSAGE)
+        if self._finished:
+            raise RuntimeError("session is finished")
+
+    def _beam_limit(self, buffer_start: int, emit_limit: int) -> int:
+        """The emission limit capped at the end of this dispatch's advance block."""
+        f_lo = max(0, (self._emit_sample - buffer_start) // self._spf)
+        return min(emit_limit, buffer_start + (f_lo + self._pool._beam_cf) * self._spf)
+
+    def _dispatch(self, piece: np.ndarray, flush: bool = False):
+        mirrored, _ = mirror_append(self._length, len(piece), self._pool.window,
+                                    self._spf)
+        post_start = 0
+        info = 0
+        total_after = self._total + len(piece)
+        buffer_start = total_after - mirrored
+        if self._beam_resident:
+            # The dispatch advances this row's carry over the frames the emission rule
+            # will finalize. The range is integer arithmetic over lengths
+            # (`mirror_append` is deterministic and `collapse_new_frames`' horizon does
+            # not depend on token content), so it is known before dispatch.
+            raw_limit = (total_after + self._spf if flush
+                         else total_after - self._pool.margin)
+            info = (total_after, mirrored, self._emit_sample,
+                    self._beam_limit(buffer_start, raw_limit), self._pending_beam_reset)
+        elif self._partial_beam and self._pool.post_rows is not None:
+            # Newly finalized rows begin at the emission horizon; clamped so the block
+            # stays inside the window (as the device clamps it).
+            row_from = max(0, (self._emit_sample - buffer_start) // self._spf)
+            post_start = max(0, min(row_from,
+                                    self._pool.window_frames - self._pool.post_rows))
+            info = post_start
+        tokens, count, new_length, extra = self._pool.batcher.submit(
+            (self._row, piece, self._pending_reset, self._partial_beam, info))
+        self._pending_reset = False
+        if self._beam_resident:
+            self._pending_beam_reset = False
+        self._total = total_after
+        self._length = int(new_length)
+        if self._length != mirrored:
+            raise AssertionError("device window length {} diverged from host mirror {}"
+                                 .format(self._length, mirrored))
+        return np.asarray(tokens), int(count), extra, post_start
+
+    def _emit(self, tokens: np.ndarray, count: int, flush: bool,
+              log_probs=None, post_start: int = 0) -> str:
+        buffer_start = self._total - self._length  # spf-aligned by construction
+        emit_limit = self._total + self._spf if flush else self._total - self._pool.margin
+        if self._beam_resident:
+            # The cap `_dispatch` used, from the same horizon (`_emit_sample` has not
+            # moved yet), so host emission and the device advance stay in lockstep.
+            emit_limit = self._beam_limit(buffer_start, emit_limit)
+        elif self._partial_beam and self._pool.post_rows is not None:
+            # Never finalize past the fetched posterior block: the beam can only
+            # consume rows it has.
+            emit_limit = min(emit_limit, buffer_start
+                             + (post_start + self._pool.post_rows) * self._spf)
+        finalized_from = self._emit_sample
+        emissions, self._emit_sample, self._carry = collapse_new_frames(
+            tokens, count, buffer_start, self._spf, self._emit_sample, self._carry,
+            emit_limit, self._blank)
+        if self._beam_resident:
+            # The advance ran inside the dispatch. Lockstep check: the range the
+            # dispatch advanced over must end where host emission just ended.
+            f_hi = min(count, max(0, (emit_limit - buffer_start) // self._spf))
+            f_lo = max(0, (finalized_from - buffer_start) // self._spf)
+            expected = (buffer_start + f_hi * self._spf if f_hi > f_lo
+                        else finalized_from)
+            if self._emit_sample != expected:
+                raise AssertionError(
+                    "host emission horizon {} diverged from the device advance range "
+                    "[{}, {}) (expected {})".format(self._emit_sample, f_lo, f_hi,
+                                                     expected))
+            if f_hi > f_lo:
+                beam_row, scalars = log_probs
+                count_live = int(scalars[0])
+                self._live_tokens = np.asarray(beam_row[:count_live], np.int32)
+                self._live_score = float(scalars[1])
+                if (int(scalars[2]) + self._pool._beam_cf
+                        > self._pool._resident_decoder.max_decoded_length):
+                    # Rollover, as `StreamDecoderBase.feed`'s per-piece rule: any live
+                    # prefix could reach capacity within the next block. Commit the
+                    # best; the next dispatch restarts this row from a fresh carry.
+                    self._committed = np.concatenate([self._committed,
+                                                      self._live_tokens])
+                    self._committed_score += self._live_score
+                    self._live_tokens = np.zeros(0, np.int32)
+                    self._live_score = 0.0
+                    self._pending_beam_reset = True
+            self._beam_tokens = (np.concatenate([self._committed, self._live_tokens])
+                                 if self._committed.size else self._live_tokens)
+        elif self._partial_beam and self._emit_sample > finalized_from:
+            # Advance the carried beam over exactly the rows the greedy rule just
+            # finalized, as the host pool does; they lie inside the trailing device
+            # window (window > margin by construction). max(0, .): should a degenerate
+            # configuration shift unemitted audio out, the beam consumes the rows that
+            # are left rather than mis-sliced ones.
+            row_from = max(0, (finalized_from - buffer_start) // self._spf)
+            row_to = (self._emit_sample - buffer_start) // self._spf
+            rows = log_probs[row_from - post_start:row_to - post_start]
+            if self._beam_pipelined:
+                # Queue the rows and pump without blocking (see
+                # `StreamingTranscriber._pump_beam`).
+                if len(rows):
+                    self._beam_pending.append(rows)
+                self._pump_beam(block=False)
+            else:
+                self._beam_state, result = self._beam_advance(self._beam_state, rows)
+                self._beam_tokens = result.tokens
+        if flush and self._partial_beam and self._beam_pipelined:
+            self._drain_beam()  # the flush returns the complete transcript
+        if not emissions:
+            return ""
+        for token, start in emissions:
+            self._words.push(token, start)
+        part = self._codec.decode_graphemes([t for t, _ in emissions],
+                                            merge_repeated=False)
+        self._parts.append(part)
+        return part
+
+    def _beam_advance(self, state, rows):
+        """Batched advance when the pool's beam batcher runs, direct otherwise (read
+        per call, so sessions created before `pool.start()` adopt the batcher)."""
+        if self._beam_batcher.started:
+            return self._beam_batcher.submit(state, rows)
+        return self._beam_decoder.feed(state, rows)
+
+    def _beam_submit(self, state, rows):
+        """Pipelined submit (a handle with ``.wait()``), deferred to collection time
+        when no batcher thread serves advances yet."""
+        if self._beam_batcher.started:
+            return self._beam_batcher.submit_nowait(state, rows)
+        return _DeferredAdvance(self._beam_decoder.feed, state, rows)
+
+    def _pump_beam(self, block: bool) -> None:
+        """Collect the in-flight advance when done (or in any case with ``block``),
+        then submit one advance over every queued block of finalized rows."""
+        if self._beam_inflight is not None:
+            if not block and not getattr(self._beam_inflight, "ready", True):
+                return
+            self._collect_beam()
+        if self._beam_pending:
+            rows = (self._beam_pending[0] if len(self._beam_pending) == 1
+                    else np.concatenate(self._beam_pending))
+            self._beam_pending = []
+            self._beam_inflight = self._beam_submit(self._beam_state, rows)
+
+    def _drain_beam(self) -> None:
+        while self._beam_inflight is not None or self._beam_pending:
+            self._pump_beam(block=True)
+
+    def _collect_beam(self) -> None:
+        """Adopt the in-flight advance's state and best. A failed advance poisons the
+        session (the greedy horizon has moved past its rows, so resuming from the stale
+        carry would drop that audio) and releases its row at once, so that failures
+        cannot exhaust ``max_sessions`` before the reaper runs."""
+        if getattr(self, "_beam_inflight", None) is not None:
+            inflight, self._beam_inflight = self._beam_inflight, None
+            try:
+                self._beam_state, result = inflight.wait()
+            except BaseException:
+                self._poisoned = True
+                if not self._finished:
+                    self._finished = True
+                    self._pool._release(self._row)
+                raise
+            self._beam_tokens = result.tokens
+
+
+class DeviceStreamingPool:
+    """Many concurrent streaming sessions whose windows live in pooled device rows.
+
+    The surface of `serving_streaming.StreamingSessionPool` (create, feed,
+    feed_with_text, feed_with_state, text, finish, close, session_count, start, stop,
+    ``.batcher`` metrics): `serving_http.TranscriptionServer(device_streams=True)`
+    serves it over the same HTTP routes. A feed sends its chunk to the device and reads
+    back one token row; the window stays there.
+    """
+
+    def __init__(self, transcriber, window_s: float = 8.0, margin_s: float = 2.0,
+                 max_batch: int = 16, max_wait_ms: float = 20.0,
+                 chunk_cap_s: float = 1.0, idle_timeout_s: float = 300.0,
+                 max_sessions: int = 64, beam_partials: Optional[bool] = None,
+                 post_rows: Optional[int] = DEFAULT_POST_ROWS,
+                 beam_engine: str = "auto", beam_mode: str = "posterior",
+                 beam_opts: Optional[dict] = None):
+        """``beam_partials``: let sessions open live beam partials
+        (``create(partial_decode="beam")``); the feed then also returns log posteriors
+        for the dispatches that carry beam sessions. Default on.
+
+        ``post_rows``: the size of the posterior block a beam feed reads back (see
+        `_build_feed_fn`): the ~chunk of newly finalized rows the advance consumes
+        instead of the whole window. ``None`` returns the whole window.
+
+        ``beam_engine``: the beam decoder (``"auto"``, ``"xla"``, ``"pallas"``; see
+        `serving_streaming.beam_decoder_for`). ``beam_opts``: more of its arguments
+        (``chunk_frames``, ``max_decoded_length``).
+
+        ``beam_mode``: ``"posterior"``: beam sessions advance on the host's schedule
+        through the pool's `BeamAdvanceBatcher` (``partial_decode="beam_pipelined"``
+        too). ``"resident"``: every beam carry lives in the pool's device state and
+        advances inside the feed dispatch, in blocks of ``chunk_frames`` (default 40)
+        rows: no separate advance, partials never lag, and the final transcript equals
+        the posterior mode's sync beam."""
+        if beam_mode not in ("posterior", "resident"):
+            raise ValueError("beam_mode must be 'posterior' or 'resident', "
+                             "got {!r}".format(beam_mode))
+        if not hasattr(transcriber, "config"):
+            raise ValueError(
+                "device-resident streaming needs a live serving.Transcriber (exported "
+                "bundles are not ported: ROADMAP.md, item 13)")
+        self._transcriber = transcriber
+        self.codec = transcriber.codec
+        self.blank_index = transcriber.blank_index
+        spf = transcriber.samples_per_frame
+        self.spf = spf
+        self.device = transcriber.device
+        self.beam_partials = True if beam_partials is None else beam_partials
+        self.window, self.chunk_cap = quantize_pool_dims(spf, window_s, chunk_cap_s)
+        self.max_sessions = max_sessions
+        self.window_frames = _window_frames(transcriber.config, self.window)
+        self._prediction_ratio = transcriber.config.input_to_prediction_length_ratio
+        self.beam_mode = beam_mode
+        self._resident_decoder = None
+        self._beam_pool = None
+        if beam_mode == "resident":
+            if not self.beam_partials:
+                raise ValueError("beam_mode='resident' builds the beam into the feed "
+                                 "dispatch: it cannot be combined with "
+                                 "beam_partials=False")
+            # 40 rows = DEFAULT_POST_ROWS: the piece cap (`beam_piece_cap`) then cuts
+            # feeds as the posterior mode does. The rollover guard scales with this
+            # block, so posterior-mode equality at the rollover needs the same
+            # ``chunk_frames`` on both pools.
+            opts = dict(beam_opts or {})
+            self._beam_cf = max(12, min(int(opts.pop("chunk_frames", 40)),
+                                        self.window_frames))
+            if self._beam_cf > self.window_frames:
+                raise ValueError(
+                    "beam_mode='resident' advances blocks of at least 12 frames, but a "
+                    "{} s window has {} frames: use a longer window".format(
+                        window_s, self.window_frames))
+            self._resident_decoder = beam_decoder_for(
+                transcriber, chunk_frames=self._beam_cf, engine=beam_engine, **opts)
+            self.post_rows = None
+            self._feed = _build_feed_fn(transcriber, self.window, self.chunk_cap, spf,
+                                        beam_decoder=self._resident_decoder)
+        else:
+            self.post_rows = (_check_post_rows(post_rows, self.window_frames)
+                              if self.beam_partials and post_rows is not None else None)
+            self._feed = _build_feed_fn(transcriber, self.window, self.chunk_cap, spf,
+                                        post_rows=self.post_rows)
+        _check_window(self.window / 16000.0, margin_s)
+        self.margin = int(margin_s * 16000) // spf * spf
+        if self.window < self.margin + 4 * spf:
+            # The window must outrun the margin by a few frames, or a fast feeder could
+            # shift unemitted (pre-margin) audio out of the buffer.
+            raise ValueError("window too small for margin at this frame rate")
+        self._idle_timeout_s = idle_timeout_s
+        self._reset_device_state()
+        self._free = list(range(self.max_sessions))
+        self._sessions: Dict[str, DeviceStreamingSession] = {}
+        self._lock = threading.Lock()
+        self._beam_decoder = None
+        self._beam_batcher = None
+        self._beam_engine = beam_engine
+        self._beam_opts = beam_opts
+        self._beam_decoder_lock = threading.Lock()
+        self.batcher = _DeviceFeedBatcher(self, max_batch=max_batch,
+                                          max_wait_ms=max_wait_ms)
+
+    def _reset_device_state(self) -> None:
+        """Fresh pooled tensors: zero windows and lengths, fresh beam carries."""
+        rows = self.max_sessions + 1
+        self._buffers = torch.zeros((rows, self.window), dtype=torch.float32,
+                                    device=self.device)
+        self._lengths = torch.zeros((rows,), dtype=torch.int32, device=self.device)
+        if self._resident_decoder is not None:
+            self._beam_pool = self._resident_decoder.stacked_fresh_state(rows)
+
+    # -- lifecycle -------------------------------------------------------------------
+
+    def start(self) -> None:
+        self.batcher.start()
+        with self._beam_decoder_lock:
+            if self._beam_batcher is not None and not self._beam_batcher.started:
+                self._beam_batcher.start()
+
+    def stop(self) -> None:
+        self.batcher.stop()
+        with self._beam_decoder_lock:
+            if self._beam_batcher is not None:
+                self._beam_batcher.stop()
+        with self._lock:
+            for session in self._sessions.values():
+                session._poisoned = session._finished = True
+            self._sessions.clear()
+            self._free = list(range(self.max_sessions))
+
+    def warm_up(self) -> None:
+        """One feed of the sink row before traffic (the first dispatch of a shape
+        allocates and picks its convolution algorithms); in resident mode also one
+        empty advance, which builds the decoder's kernels. No session row is
+        touched."""
+        item = (self.max_sessions, np.zeros(0, np.float32), True, False, 0)
+        if self.batcher.started:
+            # Serving already: through the batcher thread, the pooled state's owner.
+            self.batcher.submit(item)
+        else:
+            self._dispatch([PendingItem(item)])
+        if self._resident_decoder is not None:
+            decoder = self._resident_decoder
+            with torch.no_grad():
+                decoder.advance_in_program(
+                    decoder.stacked_fresh_state(1),
+                    torch.zeros((1, self._beam_cf, self.blank_index + 1),
+                                device=self.device), np.zeros(1, np.int64))
+
+    def warm_up_beam(self) -> None:
+        """Build the beam decoder's kernels before beam traffic (the resident mode's
+        advance runs in the feed: `warm_up`)."""
+        if self.beam_mode == "resident":
+            self.warm_up()
+            return
+        if not self.beam_partials:
+            raise ValueError("this pool was constructed with beam_partials=False: its "
+                             "feed returns no posteriors")
+        decoder = self._get_beam_decoder()
+        decoder.feed(decoder.init_state(), np.zeros((0, self.blank_index + 1), np.float32))
+
+    # -- session surface (as StreamingSessionPool's) --------------------------------
+
+    def create(self, final_decode: bool = False,
+               partial_decode: str = "greedy") -> str:
+        """``final_decode``: two-pass session: `finish` also re-decodes the complete
+        audio through the offline path and returns that as the transcript.
+
+        ``partial_decode``: ``"beam"`` serves live partials from the incremental prefix
+        beam (each feed's text replaces the previous one); ``"beam_pipelined"``
+        (posterior mode only) overlaps the advances with the client's next chunks."""
+        if partial_decode not in ("greedy", "beam", "beam_pipelined"):
+            raise ValueError("partial_decode must be 'greedy', 'beam', or "
+                             "'beam_pipelined', got {!r}".format(partial_decode))
+        if partial_decode == "beam_pipelined" and self.beam_mode == "resident":
+            raise ValueError(
+                "beam_mode='resident' pools have no separate advance to pipeline: the "
+                "beam rides the feed dispatch itself; use partial_decode='beam' "
+                "(partials are already lag-free)")
+        beam = partial_decode in ("beam", "beam_pipelined")
+        if beam and not self.beam_partials:
+            raise ValueError("beam partials disabled: this pool was constructed with "
+                             "beam_partials=False (its feed returns no posteriors)")
+        with self._lock:
+            self._reap_locked()
+            if not self._free:
+                raise RuntimeError("session limit reached ({})".format(
+                    self.max_sessions))
+            row = self._free.pop()
+            session_id = uuid.uuid4().hex[:16]
+            self._sessions[session_id] = DeviceStreamingSession(
+                self, row, final_decode=final_decode, partial_beam=beam,
+                beam_pipelined=partial_decode == "beam_pipelined")
+            return session_id
+
+    def create_stream(self, final_decode: bool = False,
+                      partial_decode: str = "greedy") -> DeviceStreamingSession:
+        """Library-facing variant: returns the session object itself."""
+        return self._get(self.create(final_decode=final_decode,
+                                     partial_decode=partial_decode))
+
+    def _get_beam_decoder(self):
+        """The pool-wide decoder of posterior-mode beam sessions (per-session state
+        lives on the session), built at the first beam session. Its own lock: callers
+        may hold the pool lock (session construction inside `create`)."""
+        with self._beam_decoder_lock:
+            if self._beam_decoder is None:
+                self._beam_decoder = beam_decoder_for(self._transcriber,
+                                                      engine=self._beam_engine,
+                                                      **(self._beam_opts or {}))
+            return self._beam_decoder
+
+    def _get_beam_batcher(self) -> BeamAdvanceBatcher:
+        """The pool-wide `BeamAdvanceBatcher` over `_get_beam_decoder()`: advances of
+        concurrent beam sessions run as one `feed_batch`. Started with the pool."""
+        decoder = self._get_beam_decoder()
+        with self._beam_decoder_lock:
+            if self._beam_batcher is None:
+                self._beam_batcher = BeamAdvanceBatcher(
+                    decoder, max_batch=self.batcher.max_batch,
+                    max_wait_ms=self.batcher.max_wait_ms)
+                if self.batcher.started:
+                    self._beam_batcher.start()
+            return self._beam_batcher
+
+    def feed(self, session_id: str, chunk: np.ndarray) -> str:
+        return self.feed_with_text(session_id, chunk)[0]
+
+    def feed_with_text(self, session_id: str,
+                       chunk: np.ndarray) -> Tuple[str, str, float]:
+        return self._get(session_id).feed_with_text(chunk)
+
+    def feed_with_state(self, session_id: str, chunk: np.ndarray) -> dict:
+        return self._get(session_id).feed_with_state(chunk)
+
+    def text(self, session_id: str) -> str:
+        return self._get(session_id).text
+
+    def finish(self, session_id: str) -> str:
+        return self.finish_with_live_text(session_id)[0]
+
+    def finish_with_live_text(self, session_id: str) -> Tuple[str, str]:
+        """``(final_text, live_text)``, the same for single-pass sessions."""
+        state = self.finish_with_state(session_id)
+        return state["text"], state["live_text"]
+
+    def finish_with_state(self, session_id: str) -> dict:
+        """Flush and close; ``{"text", "live_text", "words"}``."""
+        session = self._get(session_id)
+        state = session.finish_with_state()
+        with self._lock:
+            self._sessions.pop(session_id, None)
+        return state
+
+    def close(self, session_id: str) -> None:
+        with self._lock:
+            session = self._sessions.pop(session_id, None)
+        if session is None:
+            return
+        # Under the session lock, so that a close racing a feed or finish cannot free
+        # the row while that call's dispatch is queued (a new session would get it and
+        # receive the old session's audio).
+        with session.lock:
+            if not session._finished:
+                session._finished = True
+                self._release(session._row)
+
+    @property
+    def session_count(self) -> int:
+        with self._lock:
+            return len(self._sessions)
+
+    @property
+    def beam_piece_cap(self) -> int:
+        """Per-dispatch piece cap (samples) of beam sessions with posterior blocks: a
+        few frames under ``post_rows`` so that one dispatch's newly finalized rows
+        (piece frames plus one carry or quantization frame) always fit the block; 40
+        rows give 32-frame pieces, one advance chunk. Resident pools use their advance
+        block (``_beam_cf``) instead."""
+        rows = self._beam_cf if self.beam_mode == "resident" else self.post_rows
+        return min(self.chunk_cap, max(4, rows - 8) * self.spf)
+
+    # -- internals -------------------------------------------------------------------
+
+    def _get(self, session_id: str) -> DeviceStreamingSession:
+        with self._lock:
+            self._reap_locked()
+            session = self._sessions.get(session_id)
+        if session is None:
+            raise UnknownSessionError(
+                "unknown or expired session {!r}".format(session_id))
+        return session
+
+    def _reap_locked(self) -> None:
+        cutoff = time.time() - self._idle_timeout_s
+        for stale in [sid for sid, s in self._sessions.items()
+                      if s.last_used < cutoff and not s.lock.locked()]:
+            # A held lock means a feed or finish is running: never reap a live stream.
+            session = self._sessions.pop(stale)
+            if not session._finished:
+                session._finished = True
+                self._free.append(session._row)  # the caller holds self._lock
+
+    def _release(self, row: int) -> None:
+        with self._lock:
+            self._free.append(row)
+
+    def _recover_after_failed_dispatch(self) -> None:
+        """Fresh pooled tensors, and every live session retired: a failed dispatch may
+        have written some rows and not others. The failed batch's waiters see the
+        error; later calls on old sessions raise 'stream lost'; new sessions start
+        clean. Runs on the batcher thread."""
+        self._reset_device_state()
+        with self._lock:
+            for session in self._sessions.values():
+                session._poisoned = session._finished = True
+            self._sessions.clear()
+            self._free = list(range(self.max_sessions))
+
+    def _frame_counts(self, new_lens: np.ndarray) -> np.ndarray:
+        """Host mirror of the feed's valid logits frames for windows of ``new_lens``
+        samples (the features on ``max(new_len, 1)`` samples, then the strides)."""
+        return frame_count(np.maximum(new_lens, 1)) // self._prediction_ratio
+
+    def _resident_advance(self, payloads: list):
+        """The rows to reset and the advance of one resident dispatch, from the host's
+        integers (no device sync): ``(reset_rows, advance, slots, host_counts)``
+        (`_build_feed_fn`; ``slots`` are the advancing batch slots on the host). A row
+        advances over the frames [f_lo, f_hi) that the emission rule finalizes; a
+        non-beam row gets the limit `_NO_EMIT_LIMIT`, which leaves its range empty."""
+        n = len(payloads)
+        totals = np.zeros(n, np.int64)
+        new_lens = np.zeros(n, np.int64)
+        emit_samples = np.zeros(n, np.int64)
+        emit_limits = np.full(n, _NO_EMIT_LIMIT, np.int64)
+        reset_rows = []
+        for i, (row, _, _, want_beam, info) in enumerate(payloads):
+            if want_beam:
+                totals[i], new_lens[i], emit_samples[i], emit_limits[i], reset = info
+                if reset:
+                    reset_rows.append(row)
+        counts = self._frame_counts(new_lens)
+        buffer_start = totals - new_lens
+        # Floor division, as the emission rule's: these differences may be negative.
+        f_lo = np.maximum(0, (emit_samples - buffer_start) // self.spf)
+        f_hi = np.minimum(counts, np.maximum(0, (emit_limits - buffer_start) // self.spf))
+        valid = np.maximum(0, f_hi - f_lo)
+        slots = np.flatnonzero(valid > 0)
+        advance = None
+        if slots.size:
+            cf = self._beam_cf
+            # The block starts inside the window: where the horizon rides the window's
+            # tail (flush drains) the start clamps, and the block is rolled so that the
+            # first valid frame is its row 0.
+            start = np.clip(f_lo[slots], 0, self.window_frames - cf)
+            shift = f_lo[slots] - start
+            block_index = start[:, None] + (np.arange(cf) + shift[:, None]) % cf
+            advance = (torch.from_numpy(slots).to(self.device),
+                       torch.from_numpy(block_index).to(self.device), valid[slots])
+        reset_rows = torch.as_tensor(reset_rows, dtype=torch.int64, device=self.device)
+        return reset_rows, advance, slots, counts
+
+    def _dispatch(self, group: List[PendingItem]) -> None:
+        """Serve one group of feeds (distinct rows) with a single fused dispatch and
+        one copy back to the host. Runs only on the batcher thread (or before it
+        starts), the pooled state's single owner."""
+        n = len(group)
+        payloads = [item.payload for item in group]
+        rows = np.zeros(n, np.int64)
+        chunks = np.zeros((n, self.chunk_cap), np.float32)
+        chunk_lens = np.zeros(n, np.int32)
+        resets = np.zeros(n, bool)
+        for i, (row, piece, reset, _, _) in enumerate(payloads):
+            rows[i] = row
+            chunks[i, :len(piece)] = piece
+            chunk_lens[i] = len(piece)
+            resets[i] = reset
+        any_beam = any(payload[3] for payload in payloads)
+        device = self.device
+        args = tuple(torch.from_numpy(array).to(device)
+                     for array in (rows, chunks, chunk_lens, resets))
+        resident = self.beam_mode == "resident"
+        extra_rows = None
+        try:
+            with torch.no_grad():
+                if resident:
+                    reset_rows, advance, slots, host_counts = self._resident_advance(
+                        payloads)
+                    tokens, counts, new_lens, best_rows, scalars = self._feed(
+                        self._buffers, self._lengths, self._beam_pool, *args,
+                        reset_rows, advance)
+                    fetched = _fetch(tokens, counts, new_lens, *(
+                        (best_rows, scalars) if advance is not None else ()))
+                else:
+                    post_starts = None
+                    if any_beam:
+                        post_starts = torch.as_tensor(
+                            [payload[4] for payload in payloads], dtype=torch.int64,
+                            device=device)
+                    tokens, counts, new_lens, log_probs = self._feed(
+                        self._buffers, self._lengths, *args, post_starts=post_starts)
+                    fetched = _fetch(tokens, counts, new_lens, *(
+                        (log_probs,) if log_probs is not None else ()))
+        except Exception:
+            # Some rows may have been written and others not: without recovery every
+            # later feed of every session would read a half-updated pool.
+            self._recover_after_failed_dispatch()
+            raise
+        tokens, counts, new_lens = fetched[:3]
+        if resident:
+            beam_slots = [i for i, payload in enumerate(payloads) if payload[3]]
+            if np.any(counts[beam_slots] != host_counts[beam_slots]):
+                raise AssertionError("device frame counts {} diverged from the host "
+                                     "mirror {}".format(counts, host_counts))
+            if advance is not None:
+                extra_rows = {int(slot): (fetched[3][j], fetched[4][j])
+                              for j, slot in enumerate(slots)}
+        elif len(fetched) > 3:
+            extra_rows = dict(enumerate(fetched[3]))
+        for i, item in enumerate(group):
+            extra = extra_rows.get(i) if extra_rows and item.payload[3] else None
+            item.result = (tokens[i], int(counts[i]), int(new_lens[i]), extra)

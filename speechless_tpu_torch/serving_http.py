@@ -25,8 +25,9 @@ Endpoints::
 
 ``?nbest=N`` answers 400 when N is not an integer, below 1 or above the beam width, or
 comes with ``timestamps``. Streaming sessions run on
-`serving_streaming.StreamingSessionPool`: 400 for a bad body or mode, 404 for an unknown
-session, 501 for a mode the backend cannot serve.
+`serving_streaming.StreamingSessionPool` (or, with ``device_streams``,
+`serving_device_stream.DeviceStreamingPool`): 400 for a bad body or mode, 404 for an
+unknown session, 501 for a mode the backend cannot serve.
 """
 import json
 import logging
@@ -173,15 +174,31 @@ def _parse_audio(content_type: str, body: bytes) -> np.ndarray:
                             "(raw float32 PCM)".format(content_type))
 
 
+class _HttpServer(ThreadingHTTPServer):
+    # socketserver listens with a backlog of 5. More simultaneous connects (stream
+    # sessions feeding at once) overflow it, and the clients' TCP retries them after a
+    # second: 1 s feeds on the card.
+    request_queue_size = 128
+    daemon_threads = True
+
+
 class TranscriptionServer:
     """A threaded HTTP server over a `serving.Transcriber`. ``port=0`` binds an
     ephemeral port (``server.port`` reports it). ``stream_window_s`` and
-    ``stream_margin_s`` configure the streaming sessions' `StreamingSessionPool`."""
+    ``stream_margin_s`` configure the streaming sessions' pool: the host pool
+    (`StreamingSessionPool`), or with ``device_streams`` the device pool
+    (`serving_device_stream.DeviceStreamingPool`: every session's window stays on the
+    device, and with ``beam_mode="resident"`` every beam carry too). ``beam_engine``
+    picks the beam sessions' decoder (`serving_streaming.beam_decoder_for`)."""
 
     def __init__(self, backend, host: str = "127.0.0.1", port: int = 8000,
                  max_batch: int = 16, max_wait_ms: float = 10.0,
                  stream_window_s: float = 8.0, stream_margin_s: float = 2.0,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None, device_streams: bool = False,
+                 beam_engine: str = "auto", beam_mode: str = "posterior"):
+        if beam_mode == "resident" and not device_streams:
+            raise ValueError("beam_mode='resident' needs device_streams=True (the beam "
+                             "carry lives in the pooled device state)")
         self.backend = backend
         # Bounded backlog (default 8 dispatches deep): past it the server sheds load
         # with 503 + Retry-After. 0 disables shedding (unbounded queue).
@@ -190,12 +207,23 @@ class TranscriptionServer:
         self.batcher = DynamicBatcher(backend, max_batch=max_batch,
                                       max_wait_ms=max_wait_ms,
                                       max_queue=max_queue or None)
-        self.streams = StreamingSessionPool(backend, window_s=stream_window_s,
-                                            margin_s=stream_margin_s,
-                                            max_batch=max_batch, max_wait_ms=max_wait_ms)
+        if device_streams:
+            from .serving_device_stream import DeviceStreamingPool
+
+            self.streams = DeviceStreamingPool(backend, window_s=stream_window_s,
+                                               margin_s=stream_margin_s,
+                                               max_batch=max_batch,
+                                               max_wait_ms=max_wait_ms,
+                                               beam_engine=beam_engine,
+                                               beam_mode=beam_mode)
+        else:
+            self.streams = StreamingSessionPool(backend, window_s=stream_window_s,
+                                                margin_s=stream_margin_s,
+                                                max_batch=max_batch,
+                                                max_wait_ms=max_wait_ms,
+                                                beam_engine=beam_engine)
         self.started_at = time.time()
-        self.httpd = ThreadingHTTPServer((host, port), self._handler_class())
-        self.httpd.daemon_threads = True
+        self.httpd = _HttpServer((host, port), self._handler_class())
         self._serve_thread: Optional[threading.Thread] = None
 
     @property

@@ -17,11 +17,12 @@ z-norm; a stream shorter than one window that is flushed by `finish()` decodes e
 like the offline path.
 
 Live beam partials (``partial_decode="beam"``): the incremental prefix beam
-(`ops/decode_incremental_kernel.py::KernelBeamStreamDecoder`, on the beam-step and
-stitch kernels on CUDA) advances over exactly the frames the greedy rule finalized,
-with the transcriber's word LM when it has one. Beam partials replace rather than
-append. ``"beam_pipelined"`` runs the same beam with the advances overlapping the
-client's next chunks.
+(`beam_decoder_for`: `ops/decode_incremental_kernel.py::KernelBeamStreamDecoder` on the
+span and stitch kernels on CUDA, or, for a lexicon-constrained or unpruned search,
+`ops/decode_incremental.py::BeamStreamDecoder`) advances over exactly the frames the
+greedy rule finalized, with the transcriber's word LM when it has one. Beam partials
+replace rather than append. ``"beam_pipelined"`` runs the same beam with the advances
+overlapping the client's next chunks.
 
 Multi-stream serving: `StreamingSessionPool` runs many concurrent sessions over one
 transcriber. Their window dispatches are micro-batched (`StreamingFrameBatcher`) and
@@ -33,8 +34,8 @@ Two-pass mode (``final_decode=True``): live greedy partials flow unchanged, and
 `finish` re-decodes the complete audio through the offline path (full-utterance z-norm
 and the word-LM beam when the transcriber has one).
 
-Not ported yet: the device-resident pool (`serving_device_stream.py`, ROADMAP.md
-item 11) and the XLA beam step (ROADMAP.md section 3).
+`serving_device_stream.DeviceStreamingPool` is the same surface with every session's
+window, and in its resident mode every beam carry, kept on the device.
 """
 import threading
 import time
@@ -142,30 +143,50 @@ def _check_window(window_s: float, margin_s: float) -> None:
 
 
 def beam_decoder_for(transcriber, chunk_frames: int = 32,
-                     max_decoded_length: int = 512):
+                     max_decoded_length: int = 512, engine: str = "auto"):
     """The incremental prefix-beam decoder for ``transcriber``'s decode configuration
-    (beam width, fusion weights, word LM, pruning), on its device:
-    `KernelBeamStreamDecoder` (the beam-step and stitch kernels for CUDA tensors, their
-    plain versions for CPU tensors). The decoder holds no per-stream state, so one
-    instance serves any number of sessions. A configuration it cannot express
-    (lexicon-constrained or unpruned search) raises `NotImplementedError`.
+    (beam width, fusion weights, word LM, lexicon constraint, pruning), on its device.
+    The decoder holds no per-stream state, so one instance serves any number of
+    sessions.
+
+    ``engine``: ``"pallas"`` is `KernelBeamStreamDecoder` (the span and stitch kernels
+    for CUDA tensors, their plain versions for CPU tensors; the name is the JAX
+    package's, whose kernel decoder ran in Pallas); ``"xla"`` is
+    `decode_incremental.BeamStreamDecoder` (the plain batched beam step, then the
+    stitch); ``"auto"`` takes the kernel decoder whenever it expresses the configuration
+    (`kernel_beam_supported`: not lexicon-constrained, pruned, within the span kernel's
+    lanes), on either device, so that the CPU runs the route the card runs.
 
     ``chunk_frames=32`` (0.5 s at 62.5 frames/s) hugs the live-feed cadence: a feed of
     0.5 s finalizes about that many frames, and a longer feed (the flush at finish)
     runs more pieces; results do not depend on the piece count."""
-    from .ops.decode_incremental_kernel import KernelBeamStreamDecoder
+    from .ops.decode_incremental import BeamStreamDecoder
+    from .ops.decode_incremental_kernel import (KernelBeamStreamDecoder,
+                                                kernel_beam_supported)
 
+    if engine not in ("auto", "xla", "pallas"):
+        raise ValueError("unknown beam engine {!r} (auto/xla/pallas)".format(engine))
     decoder = getattr(transcriber, "_decoder", {})
-    if getattr(transcriber, "lexicon_constrained", False):
-        raise NotImplementedError("lexicon-constrained streaming beams are not ported "
-                                  "(ROADMAP.md, section 3: streaming)")
+    lexicon_constrained = getattr(transcriber, "lexicon_constrained", False)
     prune_classes = decoder.get("prune_classes", None)
-    if prune_classes is None:
-        raise NotImplementedError("unpruned streaming beams (prune_classes=None) are not "
-                                  "ported (ROADMAP.md, section 3: streaming)")
-    return KernelBeamStreamDecoder(
+    beam_width = decoder.get("beam_width", 25)
+    if engine == "auto":
+        engine = ("pallas" if not lexicon_constrained and kernel_beam_supported(
+            transcriber.blank_index + 1, prune_classes, beam_width) else "xla")
+    if engine == "pallas":
+        if lexicon_constrained:
+            raise ValueError("the kernel beam has no lexicon constraint: use "
+                             "engine='xla' (or 'auto', which routes there)")
+        if prune_classes is None:
+            raise ValueError("the kernel beam requires pruned extensions "
+                             "(prune_classes); unpruned decoding takes engine='xla' "
+                             "(or 'auto', which routes there)")
+        cls, kwargs = KernelBeamStreamDecoder, {}
+    else:
+        cls, kwargs = BeamStreamDecoder, {"lexicon_constrained": lexicon_constrained}
+    return cls(
         blank=transcriber.blank_index,
-        beam_width=decoder.get("beam_width", 25),
+        beam_width=beam_width,
         chunk_frames=chunk_frames,
         max_decoded_length=max_decoded_length,
         word_lm=getattr(transcriber, "word_lm", None),
@@ -173,7 +194,7 @@ def beam_decoder_for(transcriber, chunk_frames: int = 32,
         word_count_weight=decoder.get("word_count_weight", 0.0),
         valid_word_count_weight=decoder.get("valid_word_count_weight", 2.3),
         prune_classes=prune_classes,
-        device=transcriber.device)
+        device=transcriber.device, **kwargs)
 
 
 class _DeferredAdvance:
@@ -547,7 +568,9 @@ class StreamingSessionPool:
 
     def __init__(self, transcriber, window_s: float = 8.0, margin_s: float = 2.0,
                  max_batch: int = 16, max_wait_ms: float = 20.0,
-                 idle_timeout_s: float = 300.0, max_sessions: int = 256):
+                 idle_timeout_s: float = 300.0, max_sessions: int = 256,
+                 beam_engine: str = "auto"):
+        """``beam_engine``: the beam sessions' decoder (`beam_decoder_for`)."""
         # Fail at construction: a bad window/margin pair would otherwise surface as a
         # misleading error on every create().
         _check_window(window_s, margin_s)
@@ -569,6 +592,7 @@ class StreamingSessionPool:
         # Beam sessions share one decoder and batch their advances; built on the first
         # beam create(), so greedy-only pools never pay for it.
         self.beam_batcher: Optional[BeamAdvanceBatcher] = None
+        self._beam_engine = beam_engine
         self._max_batch = max_batch
         self._max_wait_ms = max_wait_ms
         self._started = False
@@ -630,7 +654,7 @@ class StreamingSessionPool:
         caller holds `self._lock`."""
         if self.beam_batcher is None:
             self.beam_batcher = BeamAdvanceBatcher(
-                beam_decoder_for(self._transcriber),
+                beam_decoder_for(self._transcriber, engine=self._beam_engine),
                 max_batch=self._max_batch, max_wait_ms=self._max_wait_ms)
             if self._started:
                 self.beam_batcher.start()

@@ -76,7 +76,7 @@ def server(port_lm):
     srv.stop()
 
 
-def _jax_transcriber(setup, kenlm, lexicon_constrained=False):
+def _jax_transcriber(setup, kenlm, lexicon_constrained=False, **options):
     config, params, lm_directory = setup
     jax_config = jax_w2l.Wav2LetterConfig(
         128, len(ALPHABET) + 1, layers=tuple(
@@ -85,7 +85,8 @@ def _jax_transcriber(setup, kenlm, lexicon_constrained=False):
     return JaxTranscriber(jax_config, [{k: jnp.asarray(v) for k, v in p.items()}
                                        for p in params], ALPHABET,
                           kenlm_directory=lm_directory if kenlm else None, beam_width=8,
-                          sample_buckets=BUCKETS, lexicon_constrained=lexicon_constrained)
+                          sample_buckets=BUCKETS, lexicon_constrained=lexicon_constrained,
+                          **options)
 
 
 @pytest.mark.parametrize("kenlm", [True, False], ids=["lm_beam", "greedy"])

@@ -34,6 +34,7 @@ from speechless_tpu.text.graphemes import CtcGraphemeCodec as JaxCodec
 from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
 from speechless_tpu_torch.lm.device_lm import build_device_word_lm
 from speechless_tpu_torch.lm.ngram import ArpaLanguageModel
+from speechless_tpu_torch.ops.decode_incremental import BeamStreamDecoder
 from speechless_tpu_torch.ops.decode_incremental_kernel import (BeamStreamState,
                                                                 KernelBeamStreamDecoder,
                                                                 state_from_jax,
@@ -341,11 +342,14 @@ class TestRouting:
         assert (decoder.blank, decoder.beam_width, decoder.prune_classes) == (BLANK, W, C)
         assert decoder.device == torch.device("cpu")
 
-    def test_unexpressible_configurations_raise(self):
-        for fake in (self.fake(lexicon_constrained=True),
+    def test_unexpressible_configurations_raise(self, word_lms):
+        """The kernel decoder refuses a lexicon-constrained or unpruned search; the
+        default route sends both to the plain-step decoder instead."""
+        for fake in (self.fake(lexicon_constrained=True, word_lm=word_lms[0]),
                      self.fake(_decoder={"beam_width": W, "prune_classes": None})):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                beam_decoder_for(fake)
+            with pytest.raises(ValueError, match="engine='xla'"):
+                beam_decoder_for(fake, engine="pallas")
+            assert isinstance(beam_decoder_for(fake), BeamStreamDecoder)
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -404,13 +408,13 @@ def test_frame_batches_match_single_windows_and_jax(setup, port_transcriber,  # 
     assert port_transcriber.supports_posteriors
 
 
-def _drive(pool, audio, sessions):
-    """Feed ``audio`` in 0.25 s chunks to each session in turn, then finish them:
-    the feed replies of the synchronous sessions and every finish reply."""
+def _drive(pool, audio, sessions, chunk=4000):
+    """Feed ``audio`` in ``chunk``-sample pieces (0.25 s) to each session in turn, then
+    finish them: the feed replies of the synchronous sessions and every finish reply."""
     replies = {sid: [] for sid in sessions}
-    for start in range(0, len(audio), 4000):
+    for start in range(0, len(audio), chunk):
         for sid, (mode, _) in sessions.items():
-            reply = pool.feed_with_state(sid, audio[start:start + 4000])
+            reply = pool.feed_with_state(sid, audio[start:start + chunk])
             if mode != "beam_pipelined":  # pipelined partials depend on thread timing
                 replies[sid].append(reply)
     for sid in sessions:
@@ -530,11 +534,18 @@ def test_http_stream_routes(port_transcriber, stream_audios):
         server.stop()
 
 
-@pytest.mark.parametrize("flags", [["--device-streams"], ["--beam-mode", "resident"]])
+REFUSALS = {("--beam-mode", "resident"): "--beam-mode resident needs --device-streams",
+            ("--device-streams", "--kenlm", "lm", "--lexicon", "--beam-engine", "pallas"):
+            "--beam-engine pallas has no lexicon constraint"}
+
+
+@pytest.mark.parametrize("flags", [list(flags) for flags in REFUSALS])
 def test_cli_refuses_device_streams_before_loading(flags, capsys):
+    """Flag combinations the stream pools cannot serve exit with a usage error before
+    any weights load (the checkpoint does not exist)."""
     from speechless_tpu_torch.__main__ import main
 
     with pytest.raises(SystemExit) as exited:
         main(["serve", "--checkpoint", "no-such-checkpoint.npz", "--device", "cpu"] + flags)
     assert exited.value.code == 2
-    assert "ROADMAP.md, item 11" in capsys.readouterr().err
+    assert REFUSALS[tuple(flags)] in capsys.readouterr().err
