@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: LM-fused serving, streaming
-sessions, offline decoding on every beam route, and training.
+sessions, offline decoding on every beam route, training, and the training and
+evaluation facade.
 
     python3 chip_smoke.py [--profile]
 
@@ -106,6 +107,20 @@ source, all started together) and prints ptxas's registers and spills, then:
   dispatch), the plain batched beam twice on the card (bitwise) and on the card
   against the CPU (lexicon tokens equal; the n-best list's tokens equal and scores
   within 1e-4).
+* phase F (the facade, after phase C): six synthetic LibriSpeech sets (`data/synthetic.py`,
+  hard tier, 2-6 s; dev-clean 48 utterances, test-clean 16, the other training sets 8
+  each) under a temporary data directory, then the CLI in process
+  (`speechless_tpu_torch.__main__.main`): ``summarize``, ``fill-cache``, ``train
+  --config english --batch-size 16 --batches-per-epoch 4 --epochs 2`` (bf16), ``test``
+  greedy, ``test --kenlm`` with a trigram of the training transcripts, ``validate
+  --csv``, with the CTC kernels' launches counted per command: the fused backward once
+  a train step, K1 once a train step and once an eval batch (three previews, one
+  test-clean batch per test, two in validate). Every epoch loss finite, both epoch
+  checkpoints and two ``scalars.csv`` rows, the port's `Transcriber` on the epoch-2
+  checkpoint, and one fp32 facade epoch (2 batches of 2) on the card against the CPU:
+  loss within 1e-5 relative, parameter deltas within `FACADE_DELTA_RTOL`. Prints the
+  command walls, the cache fill, the facade's train rate beside phase C's, greedy and
+  LM-beam LER/WER and the host beam's wall.
 * with ``--profile`` only: the split of one 16 x 8 s `transcribe_batch` into features,
   model and beam, single-request latencies, and the device's busy share and kernel
   counts from one `torch.profiler` trace (``chiprun_out/profile.json``); and the split of
@@ -2331,6 +2346,232 @@ def phase_e(device, transcriber, batch, lm_directory, vocabulary, span_outputs):
     return numbers
 
 
+# Phase F: the corpus sets `Configuration.english()` composes, as synthetic LibriSpeech
+# trees: (utterances, seed). The hard tier's chapter field hashes each set's signature,
+# so example ids stay unique across the composition.
+FACADE_SETS = {"dev-clean": (48, 11), "dev-other": (8, 12), "train-clean-100": (8, 13),
+               "train-clean-360": (8, 14), "train-other-500": (8, 15), "test-clean": (16, 16)}
+FACADE_BATCH, FACADE_BATCHES, FACADE_EPOCHS = 16, 4, 2
+# The fp32 facade epoch (2 updates) card vs CPU, parameter deltas, relative L2 per
+# tensor. Adam moves every element by about lr whatever its gradient's size, so an
+# element whose gradient changes sign under fp32 rounding (a ReLU input within rounding
+# of zero upstream) moves by 2 lr more on one side: the two packages' full-width parity
+# test on the CPU (tests/test_torch_system.py) sees about 0.1 after 2 updates, and this
+# epoch the card and the CPU differ by 0.0935 (NVIDIA H100 80GB HBM3, 700 W). Phase C's 1e-2 (one update on 2 s tones) does not hold here; this limit
+# catches a wrong rate, optimizer or batch (relative L2 near 1 or more), and phase C's
+# check keeps telling fp32 from TF32.
+FACADE_DELTA_RTOL = 0.25
+
+
+def stage_facade_corpora(data: Path) -> None:
+    from speechless_tpu_torch.data.synthetic import generate_corpus
+
+    for name, (count, seed) in FACADE_SETS.items():
+        generate_corpus(data / "corpus" / "English", name, utterance_count=count,
+                        speaker_count=4, min_duration_s=2.0, max_duration_s=6.0, seed=seed,
+                        difficulty="hard")
+
+
+def facade_fp32_epoch(data: Path, device) -> dict:
+    """One facade epoch in fp32 (2 batches of 2) on the card and on the CPU from the same
+    weights and the same batches: the epoch loss within phase C's 1e-5 and the
+    parameter deltas within `FACADE_DELTA_RTOL`."""
+    import random
+
+    import torch
+
+    from speechless_tpu_torch.configuration import Configuration, DataDirectories
+    from speechless_tpu_torch.system import Wav2Letter
+    from speechless_tpu_torch.text.charsets import english_frequent_characters as alphabet
+    from speechless_tpu_torch.train import checkpoint
+
+    config = Configuration.english(DataDirectories(data))
+    config.batch_size, config.training_batches_per_epoch = 2, 2
+    nets = config.directories.nets_base_directory
+    Wav2Letter(128, alphabet, seed=SEED + 5, device="cpu").save(nets / "fp32-base", 0)
+    losses, deltas = {}, {}
+    base = checkpoint.load_params(nets / "fp32-base", 0)
+    for where in ("cpu", device):
+        facade = Wav2Letter(128, alphabet, load_model_from_directory=nets / "fp32-base",
+                            load_epoch=0, compute_dtype=torch.float32, device=where)
+        run = "fp32-{}".format(torch.device(where).type)
+        random.seed(SEED + 5)
+        config.train(facade, run_name=run, epoch_limit=1, callback_step=2)
+        scalars = (config.directories.tensorboard_log_base_directory / run /
+                   "scalars.csv").read_text().strip().splitlines()
+        losses[where] = float(scalars[-1].split(",")[2])
+        deltas[where] = [{k: layer[k] - start[k] for k in ("w", "b")}
+                         for layer, start in zip(facade.params, base)]
+    loss_err = abs(losses[device] - losses["cpu"]) / abs(losses["cpu"])
+    delta_err = max(float(np.linalg.norm(g[k] - c[k]) / np.linalg.norm(c[k]))
+                    for g, c in zip(deltas[device], deltas["cpu"]) for k in ("w", "b")
+                    if np.linalg.norm(c[k]) > 0)
+    print("phase F fp32 facade epoch (2 batches of 2) card vs CPU: loss {:.6f} vs {:.6f}, "
+          "rel {:.3g}; parameter-delta rel L2 {:.3g} (limits {} and {})".format(
+              losses[device], losses["cpu"], loss_err, delta_err, FP32_LOSS_RTOL,
+              FACADE_DELTA_RTOL), flush=True)
+    check(loss_err <= FP32_LOSS_RTOL and delta_err <= FACADE_DELTA_RTOL,
+          "the fp32 facade epoch on the card differs from the CPU: loss {:.3g}, deltas "
+          "{:.3g}".format(loss_err, delta_err))
+    return {"loss_rel": loss_err, "delta_rel_l2": delta_err}
+
+
+def phase_f(device, card: str, train: dict) -> dict:
+    """The facade on the card: the CLI's summarize, fill-cache, train, test (greedy and
+    --kenlm) and validate in process over staged synthetic corpora, with the CTC
+    kernels' launches counted per command; the port's Transcriber on the trained
+    checkpoint; one fp32 facade epoch card vs CPU."""
+    import logging
+
+    import torch
+
+    from speechless_tpu_torch import system
+    from speechless_tpu_torch.__main__ import main as cli
+    from speechless_tpu_torch.configuration import Configuration, DataDirectories
+    from speechless_tpu_torch.features.audio_io import load_audio
+    from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
+    from speechless_tpu_torch.ops import ctc_kernels
+    from speechless_tpu_torch.serving import Transcriber
+    from speechless_tpu_torch.text.charsets import english_frequent_characters as alphabet
+
+    results, beam_wall = [], [0.0]
+    record = system.Wav2Letter.test_and_predict_grouped_batches
+    beam = system.beam_search_decode
+
+    def recording(self, grouped):
+        results.append(record(self, grouped))
+        return results[-1]
+
+    def timed_beam(*args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return beam(*args, **kwargs)
+        finally:
+            beam_wall[0] += time.perf_counter() - start
+
+    system.Wav2Letter.test_and_predict_grouped_batches = recording
+    system.beam_search_decode = timed_beam
+    logging.getLogger("results").setLevel(logging.WARNING)  # the CLI's per-batch logs
+    numbers = {"commands_s": {}, "launches": {}}
+    try:
+        with tempfile.TemporaryDirectory() as directory:
+            data = Path(directory)
+            start = time.perf_counter()
+            stage_facade_corpora(data)
+            numbers["staging_s"] = time.perf_counter() - start
+            common = ["--config", "english", "--data-dir", str(data),
+                      "--batch-size", str(FACADE_BATCH), "--device", str(device)]
+
+            def command(name, *arguments):
+                ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta_grad.launches = 0
+                start = time.perf_counter()
+                cli([name, *common, *arguments])
+                if torch.device(device).type == "cuda":
+                    torch.cuda.synchronize()
+                key = name + (" --kenlm" if "--kenlm" in arguments else "")
+                numbers["commands_s"][key] = time.perf_counter() - start
+                numbers["launches"][key] = (ctc_kernels.ctc_alpha.launches,
+                                            ctc_kernels.ctc_beta_grad.launches)
+                print("phase F {}: {:.3f} s, ctc_alpha/ctc_beta_grad launches {}/{}".format(
+                    key, numbers["commands_s"][key], *numbers["launches"][key]), flush=True)
+                return numbers["launches"][key]
+
+            command("summarize")
+            check((data / "corpus" / "English" / "corpus.csv").exists(), "no corpus.csv")
+            command("fill-cache")
+            cache = data / "spectrogram-cache" / "English"
+            entries = len(list(cache.glob("*.npy")))
+            check(entries == sum(count for count, _ in FACADE_SETS.values()),
+                  "the cache holds {} entries".format(entries))
+            alpha, backward = command("train", "--batches-per-epoch", str(FACADE_BATCHES),
+                                      "--epochs", str(FACADE_EPOCHS))
+            steps = FACADE_BATCHES * FACADE_EPOCHS
+            previews = FACADE_EPOCHS + 1  # one before training, one after each epoch
+            check(backward == steps, "fused CTC backward launches in {} train steps: {}"
+                  .format(steps, backward))
+            check(alpha == steps + previews, "K1 launches in {} train steps and {} preview "
+                  "batches: {}".format(steps, previews, alpha))
+            (run,) = [d.name for d in (data / "nets").iterdir()]
+            nets = data / "nets" / run
+            check((nets / "weights-epoch1.npz").exists() and
+                  (nets / "weights-epoch2.npz").exists(), "missing epoch checkpoints")
+            rows = (data / "logs" / run / "scalars.csv").read_text().strip().splitlines()[1:]
+            check(len(rows) == FACADE_EPOCHS, "scalars.csv has {} rows".format(len(rows)))
+            scalars = [[float(v) for v in row.split(",")] for row in rows]
+            check(all(np.isfinite(row[2]) for row in scalars), "non-finite epoch loss")
+            numbers["scalars"] = scalars
+
+            configuration = Configuration.english(DataDirectories(data))
+            build_kenlm_directory([e.label for e in configuration.corpus.training_examples],
+                                  data / "kenlm" / "english", allowed_characters=alphabet,
+                                  order=3)
+            test_batches = -(-FACADE_SETS["test-clean"][0] // FACADE_BATCH)
+            for decoder in ([], ["--kenlm"]):
+                beam_wall[0] = 0.0
+                alpha, backward = command("test", *decoder, "--run", run, "--epoch",
+                                          str(FACADE_EPOCHS))
+                check((alpha, backward) == (test_batches, 0),
+                      "K1/backward launches in {} eval batches: {}/{}".format(
+                          test_batches, alpha, backward))
+                result = results[-1]
+                check(len(result.results) == FACADE_SETS["test-clean"][0],
+                      "evaluated {} test utterances".format(len(result.results)))
+                numbers["kenlm" if decoder else "greedy"] = {
+                    "ler": result.average_letter_error_rate,
+                    "wer": result.average_word_error_rate, "loss": result.average_loss,
+                    "groups": {name: len(batches.results) for name, batches in
+                               result.result_batches_by_group_name.items()},
+                    "beam_wall_s": beam_wall[0]}
+            check(np.isfinite(numbers["greedy"]["loss"]), "non-finite test loss")
+            check(numbers["kenlm"]["beam_wall_s"] > 0, "the LM test ran no host beam")
+            sweep = data / "sweep.csv"
+            alpha, _ = command("validate", "--run", run, "--csv", str(sweep))
+            lines = sweep.read_text().strip().splitlines()
+            check(len(lines) == 1 + FACADE_EPOCHS and alpha == FACADE_EPOCHS * test_batches,
+                  "validate: {} lines, {} K1 launches".format(len(lines), alpha))
+
+            start = time.perf_counter()
+            transcriber = Transcriber.from_checkpoint(nets, FACADE_EPOCHS, alphabet,
+                                                      device=device)
+            audios = [load_audio(e.audio_file)
+                      for e in configuration.corpus.test_examples[:4]]
+            texts = transcriber.transcribe_batch(audios)
+            check(len(texts) == 4 and all(isinstance(text, str) for text, _ in texts),
+                  "the Transcriber on the trained checkpoint: {}".format(texts))
+            numbers["transcripts"] = [text for text, _ in texts]
+            numbers["commands_s"]["transcriber"] = time.perf_counter() - start
+            start = time.perf_counter()
+            numbers["fp32"] = facade_fp32_epoch(data, device)
+            numbers["commands_s"]["fp32 epoch card and CPU"] = time.perf_counter() - start
+    finally:
+        system.Wav2Letter.test_and_predict_grouped_batches = record
+        system.beam_search_decode = beam
+        logging.getLogger("results").setLevel(logging.INFO)
+
+    print(card)
+    print("phase F facade (CLI in process; synthetic LibriSpeech sets, hard tier, 2-6 s; {} "
+          "training, {} test utterances; staged in {:.2f} s): command walls (s) {}".format(
+              sum(c for name, (c, _) in FACADE_SETS.items() if name != "test-clean"),
+              FACADE_SETS["test-clean"][0], numbers["staging_s"],
+              {k: round(v, 3) for k, v in numbers["commands_s"].items()}))
+    print("phase F cache fill: {} entries in {:.3f} s".format(
+        sum(c for c, _ in FACADE_SETS.values()), numbers["commands_s"]["fill-cache"]))
+    for row in numbers["scalars"]:
+        print("phase F train epoch {:.0f} (step {:.0f}): loss {:.4f}, {:.2f} utterances/s, "
+              "{:.4f} s per batch (B={}, bf16) beside phase C's make_multi_wav_step "
+              "{:.1f} utterances/s at B={}".format(*row, FACADE_BATCH,
+                                                    train["utterances_per_s"], BENCH_BATCH))
+    for name in ("greedy", "kenlm"):
+        print("phase F test {}: LER {:.4f}, WER {:.4f}, loss {:.3f} over {}; host beam wall "
+              "{:.3f} s".format(name, numbers[name]["ler"], numbers[name]["wer"],
+                                numbers[name]["loss"], numbers[name]["groups"],
+                                numbers[name]["beam_wall_s"]))
+    print("phase F launches (ctc_alpha, ctc_beta_grad) per command: {}".format(
+        numbers["launches"]))
+    print("phase F Transcriber on the epoch-{} checkpoint: {}".format(
+        FACADE_EPOCHS, numbers["transcripts"][:2]))
+    return numbers
+
 def main() -> None:
     import argparse
 
@@ -2381,8 +2622,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as lm_directory:
         sentences = readme_sentences()
         build_kenlm_directory(sentences, Path(lm_directory), allowed_characters=alphabet)
-        word_lm = build_device_word_lm(load_language_model(Path(lm_directory)),
-                                       alphabet).to(device)
+        word_lm = build_device_word_lm(
+            load_language_model(Path(lm_directory), prefer_native=False), alphabet).to(device)
         print("word LM: {} sentences of README.md, {} trie nodes, {} unigrams".format(
             len(sentences), word_lm.trie.shape[0], word_lm.uni_logp.shape[0]))
         step = phase_a(device, len(alphabet), alphabet.index(" "), word_lm)
@@ -2398,6 +2639,7 @@ def main() -> None:
                           {word for sentence in sentences for word in sentence.split()},
                           step["decode_outputs"])
     train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
+    facade = phase_f(device, card, train["train"])
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "speechless_tpu")],
           "the port imported jax or the JAX package")
 

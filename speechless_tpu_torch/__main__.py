@@ -1,14 +1,22 @@
-"""Command-line interface: ``python -m speechless_tpu_torch serve|transcribe ...``.
+"""Command-line interface: ``python -m speechless_tpu_torch <command> ...``.
 
+    python -m speechless_tpu_torch fill-cache --config english --data-dir D
+    python -m speechless_tpu_torch train --config english --data-dir D --epochs 2
+    python -m speechless_tpu_torch test --config english --data-dir D --run R --epoch 2
     python -m speechless_tpu_torch serve --checkpoint nets/run/weights-epoch9.npz \\
         --kenlm kenlm/english --device cuda:0 --port 8000
     python -m speechless_tpu_torch transcribe --checkpoint nets/run/weights-epoch9.npz \\
         --kenlm kenlm/english --json --nbest 3 a.wav b.wav
 
+``train``, ``test``, ``validate``, ``summarize`` and ``fill-cache`` are the JAX CLI's
+workflows over a named `Configuration` and a data directory (`configuration.py`), with
+its flags, defaults and refusals; flags of features that are not ported yet
+(``--device-resident``, ``--spec-augment``, ``--remat``) refuse before anything loads.
 ``serve`` runs the port's HTTP transcription API (`serving_http.py`: ``/v1/transcribe``
 and the ``/v1/stream`` session routes); ``transcribe`` decodes wav files offline and
 prints ``file<TAB>text`` lines or one JSON object per file. Both read a checkpoint
-written by either package (``layer{i}.{w,b}`` entries).
+written by either package (``layer{i}.{w,b}`` entries). Every command runs on
+``--device`` (default ``cuda:0``).
 """
 import argparse
 import json
@@ -18,6 +26,148 @@ from pathlib import Path
 from .models.wav2letter import Wav2LetterConfig
 from .serving import CHARSETS, Transcriber
 from .train.checkpoint import load_params_npz
+
+
+def _configuration(name: str, data_dir=None, batch_size=None, batches_per_epoch=None):
+    from .configuration import Configuration, DataDirectories
+
+    directories = DataDirectories(Path(data_dir)) if data_dir else None
+    factories = {
+        "english": lambda: Configuration.english(directories=directories),
+        "minimal_english": lambda: Configuration.minimal_english(directories=directories),
+        "german": lambda: Configuration.german(directories=directories),
+        "mixed_german_english": Configuration.mixed_german_english,
+    }
+    if name not in factories:
+        raise SystemExit("Unknown configuration '{}'. Available: {}".format(
+            name, ", ".join(sorted(factories))))
+    try:
+        configuration = factories[name]()
+    except NotImplementedError as error:
+        raise SystemExit(str(error))
+    if batch_size is not None:
+        configuration.batch_size = batch_size
+    if batches_per_epoch is not None:
+        configuration.training_batches_per_epoch = batches_per_epoch
+    return configuration
+
+
+def _add_config_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--config", default="minimal_english",
+                        help="named configuration (english, minimal_english; german and "
+                             "mixed_german_english are not ported yet)")
+    parser.add_argument("--data-dir", default=None,
+                        help="data root (default: ~/speechless-data)")
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--batches-per-epoch", type=int, default=None)
+    parser.add_argument("--device", default="cuda:0", help="torch device to run on")
+
+
+def _add_workflow_commands(sub) -> dict:
+    """The JAX CLI's corpus, training and evaluation commands; returns their parsers."""
+    p_train = sub.add_parser("train", help="train from scratch")
+    _add_config_args(p_train)
+    p_train.add_argument("--epochs", type=int, default=None, help="epoch limit")
+    p_train.add_argument("--device-resident", action="store_true",
+                         help="the corpus in device memory (not ported yet)")
+    p_train.add_argument("--spec-augment", action="store_true",
+                         help="SpecAugment masking during training (not ported yet)")
+    p_train.add_argument("--clip-norm", type=float, default=None,
+                         help="global-norm gradient clipping (default: unclipped, "
+                              "reference parity)")
+    p_train.add_argument("--lr-warmup-steps", type=int, default=0,
+                         help="linear learning-rate warmup from 0 over N steps "
+                              "(default: none, reference parity)")
+    p_train.add_argument("--lr-decay", choices=("cosine",), default=None,
+                         help="anneal the learning rate after warmup (requires "
+                              "--lr-decay-steps)")
+    p_train.add_argument("--lr-decay-steps", type=int, default=None,
+                         help="total schedule length in steps (incl. warmup) for "
+                              "--lr-decay cosine")
+    p_train.add_argument("--accumulate-steps", type=int, default=None,
+                         help="gradient accumulation: one Adam update per N "
+                              "micro-batches")
+    p_train.add_argument("--remat", action="store_true",
+                         help="gradient rematerialization (not ported yet)")
+
+    p_test = sub.add_parser("test", help="evaluate a checkpoint grouped by sub-corpus")
+    _add_config_args(p_test)
+    p_test.add_argument("--run", required=True, help="run name under nets/")
+    p_test.add_argument("--epoch", type=int, required=True)
+    p_test.add_argument("--kenlm", action="store_true", help="beam search with LM fusion")
+    p_test.add_argument("--beam-width", type=int, default=None)
+    p_test.add_argument("--lm-weight", type=float, default=None,
+                        help="LM fusion weight (default: the reference's 0.8)")
+    p_test.add_argument("--word-count-weight", type=float, default=None)
+    p_test.add_argument("--valid-word-count-weight", type=float, default=None)
+
+    p_validate = sub.add_parser("validate", help="epoch-sweep evaluation to CSV")
+    _add_config_args(p_validate)
+    p_validate.add_argument("--run", required=True)
+    p_validate.add_argument("--csv", required=True)
+    p_validate.add_argument("--kenlm", action="store_true",
+                            help="sweep with the LM-fused beam instead of greedy")
+
+    p_summarize = sub.add_parser("summarize", help="summarize + save the corpus CSV")
+    _add_config_args(p_summarize)
+
+    p_cache = sub.add_parser("fill-cache", help="precompute the spectrogram cache")
+    _add_config_args(p_cache)
+    p_cache.add_argument("--repair", action="store_true", help="verify + repair entries")
+    return {"train": p_train, "test": p_test}
+
+
+def _run_workflow(args, parsers: dict) -> None:
+    """``train``, ``test``, ``validate``, ``summarize`` or ``fill-cache``."""
+    if args.command == "train":
+        for flag, requested in (("--device-resident", args.device_resident),
+                                ("--spec-augment", args.spec_augment),
+                                ("--remat", args.remat)):
+            if requested:
+                parsers["train"].error("{} is not ported yet (ROADMAP.md)".format(flag))
+        if args.lr_decay is not None and args.lr_decay_steps is None:
+            parsers["train"].error("--lr-decay requires --lr-decay-steps")
+        if args.lr_decay_steps is not None and args.lr_decay is None:
+            parsers["train"].error("--lr-decay-steps has no effect without --lr-decay")
+    configuration = _configuration(args.config, args.data_dir, args.batch_size,
+                                   args.batches_per_epoch)
+    if args.command == "train":
+        kwargs = {"device": args.device}
+        for key, value in (("gradient_clip_norm", args.clip_norm),
+                           ("lr_decay", args.lr_decay),
+                           ("lr_decay_steps", args.lr_decay_steps),
+                           ("accumulate_gradient_steps", args.accumulate_steps)):
+            if value is not None:
+                kwargs[key] = value
+        if args.lr_warmup_steps:
+            kwargs["lr_warmup_steps"] = args.lr_warmup_steps
+        configuration.train_from_beginning(epoch_limit=args.epochs,
+                                           wav2letter_kwargs=kwargs)
+    elif args.command == "test":
+        decoder_kwargs = {name: value for name, value in (
+            ("beam_width", args.beam_width), ("lm_weight", args.lm_weight),
+            ("word_count_weight", args.word_count_weight),
+            ("valid_word_count_weight", args.valid_word_count_weight))
+            if value is not None}
+        if decoder_kwargs and not args.kenlm:
+            # Without --kenlm the decode is greedy and every weight flag would be a
+            # silent no-op.
+            raise SystemExit("--beam-width/--lm-weight/--word-count-weight/"
+                             "--valid-word-count-weight require --kenlm (greedy decode "
+                             "uses no beam).")
+        wav2letter = configuration.load_model(
+            load_name=args.run, load_epoch=args.epoch,
+            allowed_characters_for_loaded_model=None, use_kenlm=args.kenlm,
+            device=args.device, **decoder_kwargs)
+        configuration.test_model_grouped_by_loaded_corpus_name(wav2letter)
+    elif args.command == "validate":
+        from .experiments import validate_to_csv
+        validate_to_csv(configuration, args.run, Path(args.csv), use_ken_lm=args.kenlm,
+                        device=args.device)
+    elif args.command == "summarize":
+        configuration.summarize_and_save_corpus()
+    else:
+        configuration.fill_cache(repair_incorrect=args.repair)
 
 
 def _model_args(parser: argparse.ArgumentParser) -> None:
@@ -99,6 +249,7 @@ def main(argv=None) -> None:
                                      description="wav2letter speech recognition on "
                                                  "PyTorch/CUDA")
     sub = parser.add_subparsers(dest="command", required=True)
+    workflow_parsers = _add_workflow_commands(sub)
     p_serve = sub.add_parser("serve",
                              help="HTTP transcription service (dynamic micro-batching)")
     _model_args(p_serve)
@@ -144,6 +295,9 @@ def main(argv=None) -> None:
                               help="emit the top-N hypotheses with path scores (requires "
                                    "--json)")
     args = parser.parse_args(argv)
+    if args.command in ("train", "test", "validate", "summarize", "fill-cache"):
+        _run_workflow(args, workflow_parsers)
+        return
     # Refused before any weights load or warm-up runs.
     if args.lexicon and not args.kenlm:
         parser.error("--lexicon requires --kenlm (the vocabulary trie rides in the word "

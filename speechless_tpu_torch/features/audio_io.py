@@ -1,12 +1,21 @@
-"""Request audio decoding (jax-free port of `speechless_tpu/features/audio_io.py:28-90`):
-wav bytes or files via scipy, polyphase resampling. Results are mono float32 in
-[-1, 1]."""
+"""Host audio decode and encode (jax-free port of `speechless_tpu/features/audio_io.py`):
+wav bytes or files via scipy, header probes via the stdlib `wave` module, polyphase
+resampling, 16-bit PCM wav writing. Results are mono float32 in [-1, 1]. FLAC, which
+the JAX package decodes with its native extension, is not ported yet (ROADMAP.md,
+item 13): every FLAC entry point raises.
+"""
 import io
+import wave
 from fractions import Fraction
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
+
+from ..utils.tools import log
+
+_FLAC_NOT_PORTED = ("unsupported audio format {} (the port reads wav; FLAC is not ported "
+                    "yet, ROADMAP.md item 13)")
 
 
 def _normalize_pcm(data: np.ndarray) -> np.ndarray:
@@ -31,6 +40,22 @@ def decode_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
     return _normalize_pcm(pcm), int(sample_rate)
 
 
+def _decode_wav(path: Path) -> Tuple[np.ndarray, int]:
+    """Decode a PCM wav file to (float32 (channels averaged), sample_rate)."""
+    import scipy.io.wavfile as wavfile
+
+    sample_rate, data = wavfile.read(str(path))
+    return _normalize_pcm(data), int(sample_rate)
+
+
+def decode_audio(path: Path) -> Tuple[np.ndarray, int]:
+    """Decode an audio file to (mono float32, original sample rate). Wav only."""
+    path = Path(path)
+    if path.suffix.lower() == ".wav":
+        return _decode_wav(path)
+    raise ValueError(_FLAC_NOT_PORTED.format(path))
+
+
 def resample(audio: np.ndarray, original_rate: int, target_rate: int) -> np.ndarray:
     """Polyphase resampling (band-limited), mono float32 in/out."""
     if original_rate == target_rate:
@@ -43,11 +68,37 @@ def resample(audio: np.ndarray, original_rate: int, target_rate: int) -> np.ndar
 
 
 def load_audio(path: Path, sample_rate: int = 16000) -> np.ndarray:
-    """Read a wav file as mono float32 at ``sample_rate``. FLAC, which the JAX package
-    decodes with its native extension, is not ported yet (ROADMAP.md, item 13)."""
+    """Load + mono-downmix + resample; the `librosa.load(path, sr=...)` equivalent."""
+    audio, original_rate = decode_audio(path)
+    return resample(audio, original_rate, sample_rate)
+
+
+def file_sample_rate(path: Path) -> int:
+    """Read the sample rate from the wav header without decoding samples."""
     path = Path(path)
-    if path.suffix.lower() != ".wav":
-        raise ValueError("unsupported audio format {} (the port reads wav; FLAC is not "
-                         "ported yet, ROADMAP.md item 13)".format(path))
-    audio, rate = decode_wav_bytes(path.read_bytes())
-    return resample(audio, rate, sample_rate)
+    if path.suffix.lower() == ".wav":
+        with wave.open(str(path), "rb") as f:
+            return f.getframerate()
+    raise ValueError(_FLAC_NOT_PORTED.format(path))
+
+
+def probe_duration_in_s(path: Path) -> float:
+    """Duration from the wav header; 0 on failure (the reference degrades the same
+    way)."""
+    path = Path(path)
+    try:
+        if path.suffix.lower() != ".wav":
+            raise ValueError(_FLAC_NOT_PORTED.format(path))
+        with wave.open(str(path), "rb") as f:
+            return f.getnframes() / f.getframerate()
+    except Exception as e:
+        log("Failed to get duration of {}: {}".format(path, e))
+        return 0.0
+
+
+def write_wav(path: Path, audio: np.ndarray, sample_rate: int = 16000) -> None:
+    """Write mono float32 audio as 16-bit PCM wav."""
+    import scipy.io.wavfile as wavfile
+
+    clipped = np.clip(np.asarray(audio, dtype=np.float32), -1.0, 1.0)
+    wavfile.write(str(path), sample_rate, (clipped * 32767.0).astype(np.int16))

@@ -1,21 +1,26 @@
-"""Mel power-level spectrogram features on tensors (port of
-`speechless_tpu/features/spectrogram.py::features_batch`).
+"""Mel power-level spectrogram features (port of `speechless_tpu/features/spectrogram.py`).
 
-    wav -> per-row reflect pad -> hann frames -> |rfft|^2 (DFT as one fp32 matmul)
-        -> dB with floor -150 -> mel filterbank matmul -> masked z-norm -> (time, mel)
+    wav -> reflect pad -> hann frames -> |rfft|^2 -> dB with floor -150
+        -> mel filterbank matmul -> z-norm -> (time, mel)
 
-The mel filterbank is applied to the dB values (the reference's order), and the z-norm
-uses the population std over each row's valid frames. The DFT and mel products run in
-IEEE fp32 with TF32 off (`precision.ieee_fp32`), the counterpart of the JAX package's
-`Precision.HIGHEST`.
+Two paths compute it. `features_batch` runs on tensors: a per-row reflect pad, the DFT
+as one fp32 matmul and a masked z-norm per row, in IEEE fp32 with TF32 off
+(`precision.ieee_fp32`), the counterpart of the JAX package's `Precision.HIGHEST`; the
+trainer and the Transcriber use it. `z_normalized_transposed_spectrogram` is the numpy
+host path of one utterance (the `LabeledSpectrogram` contract) that the spectrogram
+cache is made from; it equals the JAX package's bit for bit. The mel filterbank is
+applied to the dB values (the reference's order), and the z-norm uses the population
+std.
+
+The module imports torch only inside the tensor path, so the cache-fill workers, which
+import the numpy path alone, never load torch.
 """
+from __future__ import annotations
+
 from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
-import torch
-
-from ..precision import ieee_fp32
 
 SAMPLE_RATE = 16000
 N_FFT = 512
@@ -45,6 +50,12 @@ def mel_to_hz_slaney(mels: np.ndarray) -> np.ndarray:
     logstep = np.log(6.4) / 27.0
     return np.where(mels >= min_log_mel,
                     min_log_hz * np.exp(logstep * (mels - min_log_mel)), mels * f_sp)
+
+
+def mel_frequencies(n_mels: int, fmin: float = 0.0, fmax: float = SAMPLE_RATE / 2) -> np.ndarray:
+    """``n_mels`` frequencies evenly spaced on the slaney mel scale (librosa-compatible)."""
+    return mel_to_hz_slaney(np.linspace(hz_to_mel_slaney(fmin), hz_to_mel_slaney(fmax),
+                                        n_mels))
 
 
 @lru_cache(maxsize=None)
@@ -80,6 +91,13 @@ def _dft_matrices(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.cos(angle) * window, np.sin(angle) * window
 
 
+def ieee_fp32():
+    """`precision.ieee_fp32`, imported when the tensor path first runs."""
+    from ..precision import ieee_fp32 as context
+
+    return context()
+
+
 def frame_count(num_samples: int, hop_length: int = HOP_LENGTH) -> int:
     """Number of STFT frames for a centered transform: ``1 + num_samples // hop``."""
     return 1 + num_samples // hop_length
@@ -88,6 +106,8 @@ def frame_count(num_samples: int, hop_length: int = HOP_LENGTH) -> int:
 def _reflect_index(positions: torch.Tensor, lengths: torch.Tensor,
                    max_len: int) -> torch.Tensor:
     """Multi-bounce reflect indices (numpy ``pad(mode='reflect')``) per row length."""
+    import torch
+
     period = torch.clamp(2 * lengths[:, None] - 2, min=1)
     folded = torch.remainder(positions.abs(), period)
     folded = torch.where(folded >= lengths[:, None], period - folded, folded)
@@ -97,6 +117,8 @@ def _reflect_index(positions: torch.Tensor, lengths: torch.Tensor,
 def _reflect_pad_batch(wavs: torch.Tensor, lengths: torch.Tensor, pad: int) -> torch.Tensor:
     """Centered reflect padding with per-row lengths: ``pad`` reflected samples on the
     left, the row, then ``pad`` reflected samples written at each row's own end."""
+    import torch
+
     batch, max_len = wavs.shape
     k = torch.arange(pad, device=wavs.device)[None, :]
     left = wavs.gather(1, _reflect_index(k - pad, lengths, max_len))
@@ -117,6 +139,8 @@ def features_batch(wavs: torch.Tensor, lengths: torch.Tensor
       ``(features (batch, max_frames, 128) float32, frame_counts (batch,) int32)``;
       frames at or past ``1 + length // 128`` are zero.
     """
+    import torch
+
     wavs = wavs.to(torch.float32)
     lengths = lengths.to(device=wavs.device, dtype=torch.int64)
     batch, max_len = wavs.shape
@@ -153,3 +177,50 @@ def features_batch(wavs: torch.Tensor, lengths: torch.Tensor
     normalized = (mel_db - mean) * torch.rsqrt(torch.clamp(var, min=1e-20))
     return (torch.where(frame_mask, normalized, zero),
             (1 + lengths // HOP_LENGTH).to(torch.int32))
+
+
+def z_normalized_transposed_spectrogram(wav: np.ndarray, n_fft: int = N_FFT,
+                                        hop_length: int = HOP_LENGTH,
+                                        n_mels: int = MEL_COUNT,
+                                        sample_rate: int = SAMPLE_RATE) -> np.ndarray:
+    """One utterance's ``(time, mel)`` float32 features in numpy (the host path the
+    spectrogram cache is made from). Constant audio gives zeros, not NaNs."""
+    level = power_level_spectrogram(np.asarray(wav, dtype=np.float32), n_fft, hop_length)
+    mel_db = mel_filterbank(sample_rate, n_fft, n_mels) @ level
+    normalized = (mel_db - mel_db.mean()) / max(float(mel_db.std()), 1e-10)
+    return normalized.T.astype(np.float32)
+
+
+def stft_numpy(wav: np.ndarray, n_fft: int = N_FFT, hop_length: int = HOP_LENGTH) -> np.ndarray:
+    """Complex STFT ``(1 + n_fft//2, frames)`` with centered reflect padding (host path)."""
+    wav = np.asarray(wav, dtype=np.float64)
+    pad = n_fft // 2
+    padded = np.pad(wav, pad, mode="reflect")
+    n_frames = 1 + (len(padded) - n_fft) // hop_length
+    strides = (padded.strides[0] * hop_length, padded.strides[0])
+    frames = np.lib.stride_tricks.as_strided(padded, shape=(n_frames, n_fft), strides=strides)
+    return (np.fft.rfft(frames * _hann_window(n_fft), axis=1)).T
+
+
+def power_spectrogram(wav: np.ndarray, n_fft: int = N_FFT,
+                      hop_length: int = HOP_LENGTH) -> np.ndarray:
+    return np.abs(stft_numpy(wav, n_fft, hop_length)) ** 2
+
+
+def amplitude_spectrogram(wav: np.ndarray, n_fft: int = N_FFT,
+                          hop_length: int = HOP_LENGTH) -> np.ndarray:
+    return np.abs(stft_numpy(wav, n_fft, hop_length))
+
+
+def power_level_spectrogram(wav: np.ndarray, n_fft: int = N_FFT,
+                            hop_length: int = HOP_LENGTH) -> np.ndarray:
+    power = power_spectrogram(wav, n_fft, hop_length)
+    with np.errstate(divide="ignore"):
+        level = 10.0 * np.log10(power)
+    return np.where(power == 0.0, MIN_DECIBEL, np.maximum(level, MIN_DECIBEL))
+
+
+def to_mel_scale(spectrogram: np.ndarray, sample_rate: int = SAMPLE_RATE,
+                 n_fft: int = N_FFT, n_mels: int = MEL_COUNT) -> np.ndarray:
+    """Apply the mel filterbank to a ``(freq, time)`` spectrogram of any type."""
+    return mel_filterbank(sample_rate, n_fft, n_mels) @ spectrogram

@@ -1,6 +1,9 @@
 """Word n-gram language model with Katz back-off, loaded from ARPA files (jax-free port
-of `speechless_tpu/lm/ngram.py`: the Python loader and scorer; the native C++ scorer and
-the host beam's `LanguageModelScorer` interface stay with the JAX package)."""
+of `speechless_tpu/lm/ngram.py`): the `LanguageModelScorer` interface of the host beam's
+shallow fusion (`ops/decode.py::beam_search_decode`), the Python loader and scorer
+(`ArpaLanguageModel`, from which `lm/device_lm.py` builds the device tables) and the
+C++ scorer of the port's own ``native/ngram_lm.cpp`` (`NativeArpaLanguageModel`, which
+the native beam scores with)."""
 import gzip
 import logging
 from pathlib import Path
@@ -13,7 +16,21 @@ EOS = "</s>"
 logger = logging.getLogger(__name__)
 
 
-class ArpaLanguageModel:
+class LanguageModelScorer:
+    """Word-level LM interface for beam-search shallow fusion.
+
+    ``score_word(context_words, word)`` returns the log10 probability of ``word`` given the
+    preceding words, and ``is_valid_word(word)`` gates the valid-word bonus.
+    """
+
+    def score_word(self, context: Sequence[str], word: str) -> float:
+        raise NotImplementedError
+
+    def is_valid_word(self, word: str) -> bool:
+        raise NotImplementedError
+
+
+class ArpaLanguageModel(LanguageModelScorer):
     """Back-off n-gram LM. Probabilities are log10, matching ARPA/KenLM convention."""
 
     def __init__(self, order: int,
@@ -89,22 +106,77 @@ class ArpaLanguageModel:
         return word if (word,) in self._log_probs[0] else UNK
 
     def score_word(self, context: Sequence[str], word: str) -> float:
+        # Only the last order-1 context words matter; normalizing OOV context to <unk>
+        # keeps Python and native scorers identical.
         context = tuple(self._normalize_word(w) for w in context[-(self.order - 1):]) \
             if self.order > 1 else ()
         ngram = ((BOS,) + context + (self._normalize_word(word),))[-(self.order):]
         return self._score(ngram)
 
+    def score_sentence(self, words: Sequence[str], include_eos: bool = True) -> float:
+        total = 0.0
+        for i, word in enumerate(words):
+            total += self.score_word(words[:i], word)
+        if include_eos:
+            sentence = (BOS,) + tuple(words) + (EOS,)
+            total += self._score(sentence[-(self.order):])
+        return total
 
-def load_language_model(directory_or_file: Path) -> Optional[ArpaLanguageModel]:
+    def is_valid_word(self, word: str) -> bool:
+        return word in self.vocabulary
+
+
+class NativeArpaLanguageModel(LanguageModelScorer):
+    """The C++ ARPA scorer (``native/ngram_lm.cpp``) behind `ArpaLanguageModel`'s
+    interface; the native beam reads its handle."""
+
+    def __init__(self, path: Path):
+        from .. import native
+
+        self._native = native.library()
+        self._handle = self._native.ngram_load(str(path))
+        self.order = self._native.ngram_order(self._handle)
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._native.ngram_free(self._handle)
+            self._handle = None
+
+    def score_word(self, context: Sequence[str], word: str) -> float:
+        # Only the trailing order-1 words can affect the score.
+        relevant = context[-(self.order - 1):] if self.order > 1 else []
+        return self._native.ngram_score_word(self._handle, " ".join(relevant), word)
+
+    def is_valid_word(self, word: str) -> bool:
+        return self._native.ngram_is_valid_word(self._handle, word)
+
+    def score_sentence(self, words: Sequence[str], include_eos: bool = True) -> float:
+        total = 0.0
+        for i, word in enumerate(words):
+            total += self.score_word(words[:i], word)
+        if include_eos:
+            total += self.score_word(words, EOS)
+        return total
+
+
+def load_language_model(directory_or_file: Path,
+                        prefer_native: bool = True) -> Optional[LanguageModelScorer]:
     """Find and load an ARPA LM: a file path, or a KenLM-style directory holding
-    ``lm.arpa`` / ``*.arpa`` / ``*.arpa.gz``. Returns None when there is none."""
+    ``lm.arpa`` / ``*.arpa`` / ``*.arpa.gz``. Returns None when there is none. The C++
+    scorer with ``prefer_native`` (a gzip file always loads in Python), else
+    `ArpaLanguageModel`, which `lm/device_lm.py` needs."""
     path = Path(directory_or_file)
+    candidate: Optional[Path] = None
     if path.is_file():
-        return ArpaLanguageModel.load(path)
-    if path.is_dir():
+        candidate = path
+    elif path.is_dir():
         candidates = (sorted(path.glob("lm.arpa")) + sorted(path.glob("*.arpa"))
                       + sorted(path.glob("*.arpa.gz")))
         if candidates:
-            return ArpaLanguageModel.load(candidates[0])
-    logger.info("No ARPA language model found in %s", path)
-    return None
+            candidate = candidates[0]
+    if candidate is None:
+        logger.info("No ARPA language model found in %s", path)
+        return None
+    if prefer_native and candidate.suffix != ".gz":
+        return NativeArpaLanguageModel(candidate)
+    return ArpaLanguageModel.load(candidate)

@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .data.batching import DEFAULT_TIME_BUCKETS
 from .features.spectrogram import features_batch
 from .models import wav2letter as w2l
 from .ops.decode import greedy_decode
@@ -26,10 +27,9 @@ from .ops.device_beam import beam_search_decode_device
 from .text.charsets import english_frequent_characters, german_frequent_characters
 from .text.graphemes import CtcGraphemeCodec
 
-# Feature-frame buckets of the JAX package (`data/batching.py:37`); requests pad to
-# the smallest bucket of samples (frames * 128) that holds them, and past the last
-# bucket to a multiple of 65536 samples, as the JAX Transcriber does.
-DEFAULT_TIME_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1280, 1536, 2048, 3072, 4096)
+# Requests pad to the smallest bucket of samples (feature-frame buckets * 128) that
+# holds them, and past the last bucket to a multiple of 65536 samples, as the JAX
+# Transcriber does.
 _FALLBACK_MULTIPLE = 65536
 _NOT_PORTED = "{} is not ported yet (ROADMAP.md, Transcriber routes)"
 # Grapheme sets a model can be served with (the blank is appended after them).
@@ -153,7 +153,7 @@ class Transcriber:
             from .lm.device_lm import build_device_word_lm
             from .lm.ngram import load_language_model
 
-            arpa = load_language_model(Path(kenlm_directory))
+            arpa = load_language_model(Path(kenlm_directory), prefer_native=False)
             if arpa is None:
                 raise FileNotFoundError(
                     "No ARPA language model in {}".format(kenlm_directory))

@@ -1,0 +1,403 @@
+"""The `Wav2Letter` system facade (port of `speechless_tpu/system.py`): the reference's
+public model API on the port's stack.
+
+* one train step (`train/trainer.py`, the CTC on the kernels for CUDA tensors), one
+  eval step (loss and log-probs in one pass), greedy decoding on the device and the
+  host's native LM beam (`ops/decode.py::beam_search_decode`);
+* an explicit epoch loop with preview predictions, a background `Prefetcher` that
+  pads batches and copies them to the device, per-epoch ``weights-epoch{n}.npz``
+  checkpoints with the optimizer state and step (the JAX package's format, so either
+  package resumes the other's run), ``scalars.csv``, TensorBoard scalars and
+  `GracefulShutdown` (SIGTERM/SIGINT checkpoint at the epoch's end);
+* the KenLM vocabulary-consistency check of the reference.
+
+Compute is bf16 on CUDA (features copied as fp16, parameters, logits and the loss in
+fp32) and fp32 on the CPU, as the JAX facade picks by backend. Runs on ``cuda:0``
+unless the caller passes ``device``. Not ported yet, and refused with the ROADMAP.md
+item named: ASG, the mesh, SpecAugment, remat, the raw-wave model, dropout, other
+activations, the cross-charset transfer load and the device-resident corpus.
+"""
+import csv
+import math
+import time
+from collections import OrderedDict
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from .data.batching import (Prefetcher, batch_from_spectrograms, chunked, pad_to_bucket,
+                            stack_batches)
+from .features.example import LabeledSpectrogram
+from .models import wav2letter as w2l
+from .ops.decode import beam_search_decode, greedy_decode
+from .text.graphemes import CtcGraphemeCodec
+from .text.metrics import (ExpectationsVsPredictions, ExpectationsVsPredictionsInBatches,
+                           ExpectationsVsPredictionsInGroupedBatches, ExpectationVsPrediction)
+from .train import checkpoint as ckpt
+from .train.trainer import (DEFAULT_DEVICE, Batch, init_train_state, make_eval_step,
+                            make_lr_schedule, make_multi_step, make_optimizer,
+                            make_train_step)
+from .utils.tools import log, mkdir, read_text, single
+
+DEFAULT_BEAM_WIDTH = 100
+KENLM_WEIGHT = 0.8
+WORD_COUNT_WEIGHT = 0.0
+VALID_WORD_COUNT_WEIGHT = 2.3
+# Production pruning of the host beam: classes below 1e-5 a frame cannot move a trained
+# model's beam (the JAX facade's floor, `speechless_tpu/system.py:401`).
+PRUNE_LOG_PROB_FLOOR = math.log(1e-5)
+
+_NOT_PORTED = "{} is not ported yet (ROADMAP.md, item {})"
+
+
+class Wav2Letter:
+    """Speech-recognition system based on wav2letter (arXiv:1609.03193)."""
+
+    def __init__(self,
+                 input_size_per_time_step: int,
+                 allowed_characters: List[str],
+                 use_raw_wave_input: bool = False,
+                 activation: str = "relu",
+                 output_activation: str = "softmax",
+                 learning_rate: float = 1e-4,
+                 lr_warmup_steps: int = 0,
+                 lr_decay: Optional[str] = None,
+                 lr_decay_steps: Optional[int] = None,
+                 gradient_clip_norm: Optional[float] = None,
+                 accumulate_gradient_steps: Optional[int] = None,
+                 dropout: Optional[float] = None,
+                 load_model_from_directory: Optional[Path] = None,
+                 load_epoch: Optional[int] = None,
+                 allowed_characters_for_loaded_model: Optional[List[str]] = None,
+                 frozen_layer_count: int = 0,
+                 reinitialize_trainable_loaded_layers: bool = False,
+                 use_asg: bool = False,
+                 train_asg_transitions: bool = False,
+                 kenlm_directory: Optional[Path] = None,
+                 beam_width: int = DEFAULT_BEAM_WIDTH,
+                 lm_weight: float = KENLM_WEIGHT,
+                 word_count_weight: float = WORD_COUNT_WEIGHT,
+                 valid_word_count_weight: float = VALID_WORD_COUNT_WEIGHT,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 remat: bool = False,
+                 mesh=None,
+                 spec_augment=None,
+                 seed: int = 0,
+                 device=DEFAULT_DEVICE):
+        if frozen_layer_count > 0 and load_model_from_directory is None:
+            raise ValueError("Layers cannot be frozen if model is trained from scratch.")
+        if use_asg and kenlm_directory is not None:
+            raise ValueError("LM-fused beam decoding is CTC-only; ASG decodes greedily "
+                             "(kenlm_directory would be silently ignored).")
+        if train_asg_transitions and not use_asg:
+            raise ValueError("train_asg_transitions requires use_asg=True.")
+        for requested, what, item in (
+                (use_asg, "ASG (use_asg)", 13), (mesh is not None, "the mesh (mesh)", 13),
+                (bool(spec_augment), "SpecAugment (spec_augment)", 5),
+                (remat, "remat", 3), (use_raw_wave_input, "the raw-wave model", 3),
+                (dropout is not None, "dropout", 3),
+                (activation != "relu", "activation {!r}".format(activation), 3)):
+            if requested:
+                raise NotImplementedError(_NOT_PORTED.format(what, item))
+        transfer = (allowed_characters_for_loaded_model is not None
+                    and load_model_from_directory is not None)
+        if transfer and (list(allowed_characters_for_loaded_model) != list(allowed_characters)
+                         or reinitialize_trainable_loaded_layers):
+            raise NotImplementedError(_NOT_PORTED.format(
+                "the cross-charset transfer load (allowed_characters_for_loaded_model)", 7))
+
+        self.device = torch.device(device)
+        self.grapheme_encoding = CtcGraphemeCodec(allowed_characters)
+        self.kenlm_directory = Path(kenlm_directory) if kenlm_directory else None
+        self.beam_width = beam_width
+        self.lm_weight = lm_weight
+        self.word_count_weight = word_count_weight
+        self.valid_word_count_weight = valid_word_count_weight
+        self.frozen_layer_count = frozen_layer_count
+        self.load_epoch = load_epoch
+        self.input_size_per_time_step = input_size_per_time_step
+        self.output_activation = output_activation
+        if compute_dtype is None:
+            compute_dtype = torch.float32 if self.device.type == "cpu" else torch.bfloat16
+        self.config = w2l.Wav2LetterConfig(
+            input_size_per_time_step, self.grapheme_encoding.grapheme_set_size,
+            compute_dtype=compute_dtype)
+
+        if self.kenlm_directory is not None:
+            expected_characters = list(single(
+                read_text(self.kenlm_directory / "vocabulary",
+                          encoding="utf8").splitlines()).lower())
+            if list(allowed_characters) != expected_characters:
+                raise ValueError(
+                    "Allowed characters {} differ from those expected by kenlm decoder: {}"
+                    .format(allowed_characters, expected_characters))
+            from .lm.ngram import load_language_model
+            self.language_model = load_language_model(self.kenlm_directory)
+        else:
+            self.language_model = None
+
+        self.optimizer = make_optimizer(
+            make_lr_schedule(learning_rate, warmup_steps=lr_warmup_steps,
+                             decay=lr_decay, decay_steps=lr_decay_steps),
+            trainable=w2l.trainable_mask(self.config, frozen_layer_count),
+            gradient_clip_norm=gradient_clip_norm,
+            accumulate_steps=accumulate_gradient_steps)
+
+        if load_model_from_directory is None:
+            params = w2l.init_params(self.config, seed)
+        else:
+            if load_epoch is None:
+                raise ValueError(
+                    "load_epoch is required when load_model_from_directory is set "
+                    "(pick one of experiments.available_epochs)")
+            load_model_from_directory = Path(load_model_from_directory)
+            params = ckpt.load_params(load_model_from_directory, load_epoch)
+            if params and "asg_transitions" in params[-1]:
+                # A trainable-ASG checkpoint: drop the criterion pseudo-layer, as the
+                # JAX facade does for a CTC run.
+                params = params[:-1]
+            if transfer:
+                log("Loading first {0} layers of {1}, epoch {2}, reinitializing the last "
+                    "0.".format(len(params), load_model_from_directory, load_epoch))
+        self.state = init_train_state(self.config, self.optimizer, params=params,
+                                      device=self.device)
+        if load_model_from_directory is not None and not transfer:
+            # Resume: the optimizer state and the step continue where the run stopped
+            # (a transfer load starts them fresh, as in the JAX package).
+            ckpt.load_opt_state(load_model_from_directory, load_epoch, self.state.opt_state)
+            saved_step = ckpt.load_step(load_model_from_directory, load_epoch)
+            if saved_step is not None:
+                self.state.step = saved_step
+        self._train_step = None
+        self._eval_step = make_eval_step(self.config)
+
+    # -- core model surface ----------------------------------------------
+
+    @property
+    def params(self) -> w2l.Params:
+        """The parameters in the JAX package's layout (numpy)."""
+        return self.state.params
+
+    @property
+    def input_to_prediction_length_ratio(self) -> int:
+        return self.config.input_to_prediction_length_ratio
+
+    def _log_probs(self, inputs: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return torch.log_softmax(self.state.model(inputs), dim=-1)
+
+    def prediction_batch(self, input_batch: np.ndarray) -> np.ndarray:
+        """Softmax grapheme probabilities for a padded spectrogram batch."""
+        inputs = torch.as_tensor(np.asarray(input_batch, np.float32)).to(self.device)
+        return np.exp(self._log_probs(inputs).cpu().numpy())
+
+    def _device_batch(self, batch: Batch) -> Batch:
+        """A host batch (numpy) on the device. When the model computes in bf16 the
+        features travel as fp16 (numpy has no bf16), half the bytes; the model casts them
+        to bf16 as the JAX model casts them. On CUDA the copies come from pinned memory
+        without blocking the host; they run on the current stream, ahead of any step the
+        caller queues after them."""
+        inputs = batch.inputs
+        if self.config.compute_dtype == torch.bfloat16 and inputs.dtype == np.float32:
+            inputs = inputs.astype(np.float16)
+        pinned = self.device.type == "cuda"
+
+        def to_device(array: np.ndarray) -> torch.Tensor:
+            tensor = torch.from_numpy(np.ascontiguousarray(array))
+            if pinned:
+                return tensor.pin_memory().to(self.device, non_blocking=True)
+            return tensor.to(self.device)
+
+        return Batch(to_device(inputs), to_device(batch.input_lengths),
+                     to_device(batch.labels), to_device(batch.label_lengths))
+
+    def _prepare_batch(self, labeled_spectrogram_batch: List[LabeledSpectrogram]):
+        batch, labels = batch_from_spectrograms(labeled_spectrogram_batch,
+                                                self.grapheme_encoding)
+        return self._device_batch(batch), labels
+
+    # -- decoding / evaluation -------------------------------------------
+
+    def _greedy_decode_tokens(self, log_probs: torch.Tensor,
+                              prediction_lengths: torch.Tensor) -> List[str]:
+        blank = self.grapheme_encoding.grapheme_set_size - 1
+        tokens, counts = (t.cpu().numpy() for t in greedy_decode(log_probs,
+                                                                 prediction_lengths, blank))
+        tokens = np.where(tokens < 0, blank, tokens)
+        return self.grapheme_encoding.decode_grapheme_batch(tokens, list(counts),
+                                                            merge_repeated=False)
+
+    def _decode_tokens(self, log_probs: torch.Tensor,
+                       prediction_lengths: torch.Tensor) -> List[str]:
+        """Greedy on the device, or with a KenLM directory the host's native LM beam."""
+        if self.kenlm_directory is None:
+            return self._greedy_decode_tokens(log_probs, prediction_lengths)
+        blank = self.grapheme_encoding.grapheme_set_size - 1
+        tokens, counts = beam_search_decode(
+            log_probs.float().cpu().numpy(), list(prediction_lengths.cpu().numpy()),
+            blank=blank, beam_width=self.beam_width,
+            alphabet=self.grapheme_encoding.allowed_characters, lm=self.language_model,
+            lm_weight=self.lm_weight, word_count_weight=self.word_count_weight,
+            valid_word_count_weight=self.valid_word_count_weight,
+            prune_log_prob_floor=PRUNE_LOG_PROB_FLOOR)
+        tokens = np.where(tokens < 0, blank, tokens)
+        return self.grapheme_encoding.decode_grapheme_batch(tokens, list(counts),
+                                                            merge_repeated=False)
+
+    def test_and_predict_batch(self, labeled_spectrogram_batch: List[LabeledSpectrogram]
+                               ) -> ExpectationsVsPredictions:
+        batch, expected_labels = self._prepare_batch(labeled_spectrogram_batch)
+        log_probs, lengths, losses = self._eval_step(self.state.model, batch)
+        predictions = self._decode_tokens(log_probs, lengths)
+        return ExpectationsVsPredictions(
+            [ExpectationVsPrediction(predicted=predicted, expected=expected, loss=float(loss))
+             for predicted, expected, loss in zip(predictions, expected_labels,
+                                                  losses.cpu().numpy())])
+
+    def predict_batch_greedily(self, spectrograms: List[np.ndarray]) -> List[str]:
+        batch = self._device_batch(pad_to_bucket(spectrograms, [""] * len(spectrograms),
+                                                 self.grapheme_encoding))
+        lengths = w2l.prediction_lengths(self.config, batch.input_lengths)
+        return self._greedy_decode_tokens(self._log_probs(batch.inputs), lengths)
+
+    def test_and_predict(self, labeled_spectrogram: LabeledSpectrogram
+                         ) -> ExpectationVsPrediction:
+        return self.test_and_predict_batch([labeled_spectrogram]).results[0]
+
+    def predict(self, labeled_spectrogram: LabeledSpectrogram) -> str:
+        return self.test_and_predict(labeled_spectrogram).predicted
+
+    def test_and_predict_batch_with_log(self, index: int, batch: List[LabeledSpectrogram]
+                                        ) -> ExpectationsVsPredictions:
+        result = self.test_and_predict_batch(batch)
+        log(str(result) + " (batch {})".format(index))
+        return result
+
+    def test_and_predict_batches(self, labeled_spectrogram_batches:
+                                 Iterable[List[LabeledSpectrogram]]
+                                 ) -> ExpectationsVsPredictionsInBatches:
+        return ExpectationsVsPredictionsInBatches(
+            [self.test_and_predict_batch_with_log(i, batch)
+             for i, batch in enumerate(labeled_spectrogram_batches)])
+
+    def test_and_predict_batches_with_log(self, corpus_name: str,
+                                          batches: Iterable[List[LabeledSpectrogram]]
+                                          ) -> ExpectationsVsPredictionsInBatches:
+        result = self.test_and_predict_batches(batches)
+        log("{}: {}".format(corpus_name, result))
+        return result
+
+    def test_and_predict_grouped_batches(self, grouped_batches: Dict[str, Iterable[
+            List[LabeledSpectrogram]]]) -> ExpectationsVsPredictionsInGroupedBatches:
+        return ExpectationsVsPredictionsInGroupedBatches(OrderedDict(
+            (name, self.test_and_predict_batches_with_log(corpus_name=name, batches=batches))
+            for name, batches in grouped_batches.items()))
+
+    # -- training ---------------------------------------------------------
+
+    @staticmethod
+    def model_file_name(epoch: int) -> str:
+        return ckpt.model_file_name(epoch)
+
+    def train(self,
+              labeled_spectrogram_batches: Iterable[List[LabeledSpectrogram]],
+              preview_labeled_spectrogram_batch: List[LabeledSpectrogram],
+              tensor_board_log_directory: Path,
+              net_directory: Path,
+              batches_per_epoch: int,
+              epoch_limit: Optional[int] = None,
+              save_step: int = 1,
+              callback_step: int = 1,
+              multi_step: int = 1,
+              device_resident_examples: Optional[List[LabeledSpectrogram]] = None) -> None:
+        """Train until interrupted (or ``epoch_limit``). Per epoch: preview predictions
+        (every ``callback_step``), a checkpoint (every ``save_step``), a ``scalars.csv``
+        row and TensorBoard scalars. The epoch's losses stay on the device and are read
+        once at its end. ``multi_step=k`` runs k updates per step call over k stacked
+        batches (`trainer.make_multi_step`); it must divide ``batches_per_epoch``. The
+        device-resident corpus (``device_resident_examples``) is not ported yet."""
+        if device_resident_examples is not None:
+            raise NotImplementedError(_NOT_PORTED.format(
+                "the device-resident corpus (data/device_dataset.py)", 9))
+        if multi_step < 1 or batches_per_epoch % multi_step != 0:
+            raise ValueError("multi_step ({}) must be >= 1 and divide batches_per_epoch "
+                             "({})".format(multi_step, batches_per_epoch))
+        if self._train_step is None or self._train_step[0] != multi_step:
+            make = make_train_step if multi_step == 1 else make_multi_step
+            self._train_step = (multi_step,
+                                make(self.config, self.optimizer, device=self.device))
+        train_step = self._train_step[1]
+
+        def print_preview_batch():
+            log(self.test_and_predict_batch(preview_labeled_spectrogram_batch))
+
+        print_preview_batch()
+
+        mkdir(tensor_board_log_directory)
+        from .train.preemption import GracefulShutdown
+        from .utils.tensorboard import SummaryWriter
+        tensorboard = SummaryWriter(tensor_board_log_directory)
+        scalar_log = Path(tensor_board_log_directory) / "scalars.csv"
+        new_log = not scalar_log.exists()
+        if multi_step == 1:
+            batches = Prefetcher(iter(labeled_spectrogram_batches),
+                                 prepare=self._prepare_batch, depth=2)
+        else:
+            def prepare_stacked(batch_group):
+                prepared = [batch_from_spectrograms(group, self.grapheme_encoding)
+                            for group in batch_group]
+                stacked = stack_batches([host_batch for host_batch, _ in prepared])
+                return (self._device_batch(stacked),
+                        [label for _, labels in prepared for label in labels])
+
+            batches = Prefetcher(chunked(iter(labeled_spectrogram_batches), multi_step),
+                                 prepare=prepare_stacked, depth=2)
+        initial_epoch = self.load_epoch if self.load_epoch is not None else 0
+        epoch = initial_epoch
+        with batches, tensorboard, GracefulShutdown() as shutdown, \
+                scalar_log.open("a", newline="") as scalar_file:
+            writer = csv.writer(scalar_file)
+            if new_log:
+                writer.writerow(["epoch", "step", "loss", "utterances_per_second",
+                                 "seconds_per_batch"])
+            while epoch_limit is None or epoch < epoch_limit:
+                epoch_start = time.time()
+                losses = []
+                utterances = 0
+                for _ in range(batches_per_epoch // multi_step):
+                    batch, _labels = next(batches)
+                    self.state, metrics = train_step(self.state, batch)
+                    losses.append(metrics["loss"])
+                    # multi-step batches carry a leading steps axis: (k, B, T, F).
+                    utterances += (batch.inputs.shape[0] * batch.inputs.shape[1]
+                                   if batch.inputs.dim() == 4 else batch.inputs.shape[0])
+                # One device-to-host read per epoch.
+                mean_loss = float(torch.stack(losses).mean())
+                elapsed = time.time() - epoch_start
+                epoch += 1
+                log("Epoch {}: loss {:.2f}, {:.1f} utterances/s".format(
+                    epoch, mean_loss, utterances / elapsed))
+                writer.writerow([epoch, int(self.state.step), mean_loss,
+                                 utterances / elapsed, elapsed / batches_per_epoch])
+                scalar_file.flush()
+                tensorboard.add_scalar("loss", mean_loss, epoch)
+                tensorboard.add_scalar("utterances_per_second", utterances / elapsed, epoch)
+                tensorboard.flush()
+                if epoch % callback_step == 0:
+                    print_preview_batch()
+                if epoch % save_step == 0 and epoch > 0:
+                    self.save(net_directory, epoch)
+                if shutdown.requested:
+                    if epoch % save_step != 0:
+                        self.save(net_directory, epoch)
+                    log("Preemption ({}): checkpointed epoch {}; exiting the training "
+                        "loop.".format(shutdown.signal_name, epoch))
+                    break
+
+    def save(self, net_directory: Path, epoch: int) -> Path:
+        """Checkpoint weights, optimizer state and step as ``weights-epoch{epoch}.npz``."""
+        return ckpt.save_checkpoint(net_directory, epoch, self.state.params,
+                                    self.state.opt_state, step=self.state.step)
+

@@ -10,8 +10,8 @@
   micro-batch gradients, then one update) and warmup/cosine schedules keyed to the
   update count, in the order the JAX package chains them;
 * steps: `make_train_step` (features in), `make_wav_train_step` (raw audio in, features
-  on the device) and `make_multi_wav_step` (k updates per call with no host sync
-  between them), plus `make_eval_step`.
+  on the device), `make_multi_step` and `make_multi_wav_step` (k updates per call with
+  no host sync between them, over feature or raw-audio batches), plus `make_eval_step`.
 
 PyTorch runs eagerly, so a "step" is a Python function over a mutable `TrainState`: it
 updates the model and optimizer in place and returns the same state, where the JAX step
@@ -390,6 +390,24 @@ def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
             micro = WavBatch(*(field[index] for field in stacked))
             losses.append(_update(config, criterion, state, _wav_features(micro))[0])
         losses = torch.stack(losses)
+        return state, {"loss": losses.mean(), "step_losses": losses}
+
+    return multi_step
+
+
+def make_multi_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+                    criterion: str = "ctc", device=DEFAULT_DEVICE):
+    """``(state, stacked Batch) -> (state, {"loss": mean, "step_losses": (k,)})``: k
+    updates over feature batches stacked on a leading steps axis
+    (`data.batching.stack_batches`), one per row, with no host sync between them; the
+    losses stay on the device. The facade's ``multi_step=k``."""
+    del optimizer
+
+    def multi_step(state: TrainState, stacked: Batch) -> Tuple[TrainState, Dict]:
+        stacked = _batch_to(stacked, device)
+        losses = torch.stack([
+            _update(config, criterion, state, Batch(*(field[index] for field in stacked)))[0]
+            for index in range(stacked.inputs.shape[0])])
         return state, {"loss": losses.mean(), "step_losses": losses}
 
     return multi_step

@@ -49,7 +49,7 @@ def test_arpa_files_are_identical(lm_directory, tmp_path):
 
 
 def test_arpa_scores_match(lm_directory):
-    ours = ngram.load_language_model(lm_directory)
+    ours = ngram.load_language_model(lm_directory, prefer_native=False)
     theirs = JaxArpaLanguageModel.load(lm_directory / "lm.arpa")
     assert ours.order == theirs.order == 3
     assert ours.vocabulary == theirs.vocabulary

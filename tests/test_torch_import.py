@@ -1,8 +1,10 @@
 """The port (`speechless_tpu_torch`) never imports jax nor anything of the JAX package
 (`speechless_tpu`): no module of the port or `chip_smoke.py` names one, and a fresh
 interpreter imports every module of the package, serves a small LM-fused transcription
-through the HTTP server and takes one training step on the CPU, then checks
-``sys.modules`` (the machines with a GPU have no jax)."""
+through the HTTP server, takes one training step, trains the facade one epoch through
+`Configuration.train` and runs `Configuration.test_model` on the CPU, then checks
+``sys.modules`` (the machines with a GPU have no jax). A spawned cache-fill worker that
+has computed an entry holds no torch (so no CUDA state) at all."""
 import subprocess
 import sys
 from pathlib import Path
@@ -57,6 +59,38 @@ state, metrics = trainer.make_multi_wav_step(config, optimizer, device="cpu")(
     state, trainer.WavBatch(wavs, np.full((1, 2), 4000, np.int32), labels,
                             np.array([[3, 2]], np.int32)))
 assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+
+import multiprocessing
+from speechless_tpu_torch.configuration import Configuration, DataDirectories
+from speechless_tpu_torch.data import LibriSpeechCorpus, TrainingTestSplit, batching
+from speechless_tpu_torch.features.audio_io import write_wav
+from speechless_tpu_torch.system import Wav2Letter
+
+with tempfile.TemporaryDirectory() as data:
+    chapter = Path(data) / "corpus" / "English" / "mini" / "a" / "1" / "2"
+    chapter.mkdir(parents=True)
+    texts = ["the cat", "a dog", "the dog sat"]
+    for i, text in enumerate(texts):
+        write_wav(chapter / "1-2-{}.wav".format(i),
+                  np.random.default_rng(i).normal(size=6000).astype(np.float32) * 0.1)
+    (chapter / "1-2.trans.txt").write_text(
+        "".join("1-2-{} {}\n".format(i, text.upper()) for i, text in enumerate(texts)))
+    config = Configuration(
+        "English", lambda d: LibriSpeechCorpus(d, "mini",
+                                               training_test_split=TrainingTestSplit.overfit(2)),
+        directories=DataDirectories(Path(data)), batch_size=2, training_batches_per_epoch=1)
+    wav2letter = Wav2Letter(128, alphabet, device="cpu")
+    config.train(wav2letter, run_name="run", epoch_limit=1)
+    assert (Path(data) / "nets" / "run" / "weights-epoch1.npz").exists()
+    config.test_model(wav2letter)
+    entry = config.batch_generator.labeled_spectrograms[0]
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        pool.apply(batching._cache_spectrogram, (entry,))
+        worker_modules = pool.apply(eval, (
+            "sorted(m for m in __import__('sys').modules "
+            "if m.split('.')[0] in ('torch', 'jax', 'speechless_tpu'))",))
+    assert entry.is_cached()
+    assert worker_modules == [], worker_modules
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "speechless_tpu"))
 print("JAX-FREE" if not leaked else "IMPORTED {}".format(leaked))
 """

@@ -235,6 +235,31 @@ def test_multi_wav_step_matches_jax():
     assert single.step == 1 and metrics["per_example_loss"].shape == (2,)
 
 
+def test_multi_step_matches_jax():
+    """k=3 updates per call over feature batches stacked on a leading steps axis (the
+    facade's ``multi_step``), against JAX's `make_multi_step`: step losses, mean,
+    parameters and Adam state."""
+    config, jax_config = _configs()
+    params = w2l.init_params(config, seed=3)
+    stacked = tuple(np.stack(fields) for fields in zip(*[_batch(seed) for seed in range(3)]))
+    jax_opt = jax_trainer.make_optimizer(LR)
+    jax_state = jax_trainer.init_train_state(jax_config, jax_opt, jax.random.PRNGKey(0),
+                                             params=_jax_params(params))
+    jax_state, jax_metrics = jax_trainer.make_multi_step(jax_config, jax_opt, donate=False)(
+        jax_state, jax_trainer.Batch(*map(jnp.asarray, stacked)))
+    port_opt = trainer.make_optimizer(LR)
+    port_state = trainer.init_train_state(config, port_opt, params=params, device="cpu")
+    port_state, port_metrics = trainer.make_multi_step(config, port_opt, device="cpu")(
+        port_state, trainer.Batch(*stacked))
+    np.testing.assert_allclose(port_metrics["step_losses"].numpy(),
+                               np.asarray(jax_metrics["step_losses"]), rtol=1e-5)
+    np.testing.assert_allclose(float(port_metrics["loss"]), float(jax_metrics["loss"]),
+                               rtol=1e-5)
+    _assert_params_close(jax_state.params, port_state.params)
+    _assert_leaves_close(jax_state.opt_state, port_state.opt_state.leaves())
+    assert port_state.step == int(jax_state.step) == 3
+
+
 def test_infeasible_row_is_masked_and_gradients_stay_finite():
     """Row 0 needs 5 labels + 4 repeats = 9 frames and has 4: its loss is 0, every
     gradient is finite, and the other rows keep their losses (the JAX package's guard,
