@@ -121,6 +121,26 @@ source, all started together) and prints ptxas's registers and spills, then:
   loss within 1e-5 relative, parameter deltas within `FACADE_DELTA_RTOL`. Prints the
   command walls, the cache fill, the facade's train rate beside phase C's, greedy and
   LM-beam LER/WER and the host beam's wall.
+* phase G (transfer, after phase F, in its data directory): phase F's epoch-2 checkpoint
+  as the English baseline (epoch 1689), synthetic German sets (hard tier, 2-6 s, 48
+  training and 16 test utterances) saved as ``corpus/German/corpus.csv``, then the CLI:
+  ``summarize``, ``fill-cache``, ``transfer --freeze 8`` (B=16, 4 batches, ``--epochs
+  1691``: a transfer run continues the donor's epoch numbering), whose loaded output
+  layer must equal a numpy remap of the donor (English and blank columns bitwise, the
+  umlaut columns zero) and whose layers 0-7 must stay the donor's bitwise; ``transfer
+  --reinitialize`` (layers 8-10 fresh); `bench.py`'s batch with 33 classes in turns for
+  the full step, the freeze-8 step and the remat step (ms and peak memory; remat's peak
+  must be the lower); ``train --device-resident`` (B=16, 8 batches, 3 epochs: the second
+  timed beside phase F's host epoch, the third traced by `torch.profiler` and free of
+  host-to-device copies, ``chiprun_out/profile_resident.json``); one fp32 resident epoch
+  card vs CPU on given indices; ``train --spec-augment --remat``; SpecAugment masks card
+  vs CPU on given draws; ``average --last 2``; ``test`` greedy and ``--kenlm`` (a German
+  trigram) on the average; the mixed configuration's ``summarize`` and grouped ``test``
+  (an English and a German group); K1 and the fused backward counted per command. Last,
+  a resident corpus of train-clean-100's size (28,539 x 3,072 frames x 128 mel fp16,
+  22.4 GB) built on the card and 4 steps at B=64 timed by CUDA events, the sampling and
+  gather split off.
+* with ``--facade-only``: the kernel builds and phases F and G alone, and no result.
 * with ``--profile`` only: the split of one 16 x 8 s `transcribe_batch` into features,
   model and beam, single-request latencies, and the device's busy share and kernel
   counts from one `torch.profiler` trace (``chiprun_out/profile.json``); and the split of
@@ -145,6 +165,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -2416,21 +2437,42 @@ def facade_fp32_epoch(data: Path, device) -> dict:
     return {"loss_rel": loss_err, "delta_rel_l2": delta_err}
 
 
-def phase_f(device, card: str, train: dict) -> dict:
-    """The facade on the card: the CLI's summarize, fill-cache, train, test (greedy and
-    --kenlm) and validate in process over staged synthetic corpora, with the CTC
-    kernels' launches counted per command; the port's Transcriber on the trained
-    checkpoint; one fp32 facade epoch card vs CPU."""
-    import logging
-
+def run_cli(numbers: dict, phase: str, device, name: str, *arguments, key=None):
+    """One CLI command in process (`speechless_tpu_torch.__main__.main`) with the CTC
+    kernels' launch counters set to 0 just before it: records its wall under
+    ``numbers["commands_s"]`` and the launches of K1 and the fused backward under
+    ``numbers["launches"]``; returns the launches."""
     import torch
 
-    from speechless_tpu_torch import system
     from speechless_tpu_torch.__main__ import main as cli
+    from speechless_tpu_torch.ops import ctc_kernels
+
+    key = key or name
+    ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta_grad.launches = 0
+    start = time.perf_counter()
+    cli([name, *arguments, "--device", str(device)])
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    numbers["commands_s"][key] = time.perf_counter() - start
+    numbers["launches"][key] = (ctc_kernels.ctc_alpha.launches,
+                                ctc_kernels.ctc_beta_grad.launches)
+    print("phase {} {}: {:.3f} s, ctc_alpha/ctc_beta_grad launches {}/{}".format(
+        phase, key, numbers["commands_s"][key], *numbers["launches"][key]), flush=True)
+    return numbers["launches"][key]
+
+
+def phase_f(device, card: str, train: Optional[dict], data: Path) -> dict:
+    """The facade on the card: the CLI's summarize, fill-cache, train, test (greedy and
+    --kenlm) and validate in process over synthetic corpora staged under ``data``, with
+    the CTC kernels' launches counted per command; the port's Transcriber on the trained
+    checkpoint; one fp32 facade epoch card vs CPU. Leaves the corpora and the run under
+    ``data`` for phase G."""
+    import logging
+
+    from speechless_tpu_torch import system
     from speechless_tpu_torch.configuration import Configuration, DataDirectories
     from speechless_tpu_torch.features.audio_io import load_audio
     from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
-    from speechless_tpu_torch.ops import ctc_kernels
     from speechless_tpu_torch.serving import Transcriber
     from speechless_tpu_torch.text.charsets import english_frequent_characters as alphabet
 
@@ -2454,95 +2496,83 @@ def phase_f(device, card: str, train: dict) -> dict:
     logging.getLogger("results").setLevel(logging.WARNING)  # the CLI's per-batch logs
     numbers = {"commands_s": {}, "launches": {}}
     try:
-        with tempfile.TemporaryDirectory() as directory:
-            data = Path(directory)
-            start = time.perf_counter()
-            stage_facade_corpora(data)
-            numbers["staging_s"] = time.perf_counter() - start
-            common = ["--config", "english", "--data-dir", str(data),
-                      "--batch-size", str(FACADE_BATCH), "--device", str(device)]
+        start = time.perf_counter()
+        stage_facade_corpora(data)
+        numbers["staging_s"] = time.perf_counter() - start
+        common = ["--config", "english", "--data-dir", str(data),
+                  "--batch-size", str(FACADE_BATCH)]
 
-            def command(name, *arguments):
-                ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta_grad.launches = 0
-                start = time.perf_counter()
-                cli([name, *common, *arguments])
-                if torch.device(device).type == "cuda":
-                    torch.cuda.synchronize()
-                key = name + (" --kenlm" if "--kenlm" in arguments else "")
-                numbers["commands_s"][key] = time.perf_counter() - start
-                numbers["launches"][key] = (ctc_kernels.ctc_alpha.launches,
-                                            ctc_kernels.ctc_beta_grad.launches)
-                print("phase F {}: {:.3f} s, ctc_alpha/ctc_beta_grad launches {}/{}".format(
-                    key, numbers["commands_s"][key], *numbers["launches"][key]), flush=True)
-                return numbers["launches"][key]
+        def command(name, *arguments):
+            return run_cli(numbers, "F", device, name, *common, *arguments,
+                           key=name + (" --kenlm" if "--kenlm" in arguments else ""))
 
-            command("summarize")
-            check((data / "corpus" / "English" / "corpus.csv").exists(), "no corpus.csv")
-            command("fill-cache")
-            cache = data / "spectrogram-cache" / "English"
-            entries = len(list(cache.glob("*.npy")))
-            check(entries == sum(count for count, _ in FACADE_SETS.values()),
-                  "the cache holds {} entries".format(entries))
-            alpha, backward = command("train", "--batches-per-epoch", str(FACADE_BATCHES),
-                                      "--epochs", str(FACADE_EPOCHS))
-            steps = FACADE_BATCHES * FACADE_EPOCHS
-            previews = FACADE_EPOCHS + 1  # one before training, one after each epoch
-            check(backward == steps, "fused CTC backward launches in {} train steps: {}"
-                  .format(steps, backward))
-            check(alpha == steps + previews, "K1 launches in {} train steps and {} preview "
-                  "batches: {}".format(steps, previews, alpha))
-            (run,) = [d.name for d in (data / "nets").iterdir()]
-            nets = data / "nets" / run
-            check((nets / "weights-epoch1.npz").exists() and
-                  (nets / "weights-epoch2.npz").exists(), "missing epoch checkpoints")
-            rows = (data / "logs" / run / "scalars.csv").read_text().strip().splitlines()[1:]
-            check(len(rows) == FACADE_EPOCHS, "scalars.csv has {} rows".format(len(rows)))
-            scalars = [[float(v) for v in row.split(",")] for row in rows]
-            check(all(np.isfinite(row[2]) for row in scalars), "non-finite epoch loss")
-            numbers["scalars"] = scalars
+        command("summarize")
+        check((data / "corpus" / "English" / "corpus.csv").exists(), "no corpus.csv")
+        command("fill-cache")
+        cache = data / "spectrogram-cache" / "English"
+        entries = len(list(cache.glob("*.npy")))
+        check(entries == sum(count for count, _ in FACADE_SETS.values()),
+              "the cache holds {} entries".format(entries))
+        alpha, backward = command("train", "--batches-per-epoch", str(FACADE_BATCHES),
+                                  "--epochs", str(FACADE_EPOCHS))
+        steps = FACADE_BATCHES * FACADE_EPOCHS
+        previews = FACADE_EPOCHS + 1  # one before training, one after each epoch
+        check(backward == steps, "fused CTC backward launches in {} train steps: {}"
+              .format(steps, backward))
+        check(alpha == steps + previews, "K1 launches in {} train steps and {} preview "
+              "batches: {}".format(steps, previews, alpha))
+        (run,) = [d.name for d in (data / "nets").iterdir()]
+        nets = data / "nets" / run
+        check((nets / "weights-epoch1.npz").exists() and
+              (nets / "weights-epoch2.npz").exists(), "missing epoch checkpoints")
+        rows = (data / "logs" / run / "scalars.csv").read_text().strip().splitlines()[1:]
+        check(len(rows) == FACADE_EPOCHS, "scalars.csv has {} rows".format(len(rows)))
+        scalars = [[float(v) for v in row.split(",")] for row in rows]
+        check(all(np.isfinite(row[2]) for row in scalars), "non-finite epoch loss")
+        numbers["scalars"], numbers["run"] = scalars, run
 
-            configuration = Configuration.english(DataDirectories(data))
-            build_kenlm_directory([e.label for e in configuration.corpus.training_examples],
-                                  data / "kenlm" / "english", allowed_characters=alphabet,
-                                  order=3)
-            test_batches = -(-FACADE_SETS["test-clean"][0] // FACADE_BATCH)
-            for decoder in ([], ["--kenlm"]):
-                beam_wall[0] = 0.0
-                alpha, backward = command("test", *decoder, "--run", run, "--epoch",
-                                          str(FACADE_EPOCHS))
-                check((alpha, backward) == (test_batches, 0),
-                      "K1/backward launches in {} eval batches: {}/{}".format(
-                          test_batches, alpha, backward))
-                result = results[-1]
-                check(len(result.results) == FACADE_SETS["test-clean"][0],
-                      "evaluated {} test utterances".format(len(result.results)))
-                numbers["kenlm" if decoder else "greedy"] = {
-                    "ler": result.average_letter_error_rate,
-                    "wer": result.average_word_error_rate, "loss": result.average_loss,
-                    "groups": {name: len(batches.results) for name, batches in
-                               result.result_batches_by_group_name.items()},
-                    "beam_wall_s": beam_wall[0]}
-            check(np.isfinite(numbers["greedy"]["loss"]), "non-finite test loss")
-            check(numbers["kenlm"]["beam_wall_s"] > 0, "the LM test ran no host beam")
-            sweep = data / "sweep.csv"
-            alpha, _ = command("validate", "--run", run, "--csv", str(sweep))
-            lines = sweep.read_text().strip().splitlines()
-            check(len(lines) == 1 + FACADE_EPOCHS and alpha == FACADE_EPOCHS * test_batches,
-                  "validate: {} lines, {} K1 launches".format(len(lines), alpha))
+        configuration = Configuration.english(DataDirectories(data))
+        build_kenlm_directory([e.label for e in configuration.corpus.training_examples],
+                              data / "kenlm" / "english", allowed_characters=alphabet,
+                              order=3)
+        test_batches = -(-FACADE_SETS["test-clean"][0] // FACADE_BATCH)
+        for decoder in ([], ["--kenlm"]):
+            beam_wall[0] = 0.0
+            alpha, backward = command("test", *decoder, "--run", run, "--epoch",
+                                      str(FACADE_EPOCHS))
+            check((alpha, backward) == (test_batches, 0),
+                  "K1/backward launches in {} eval batches: {}/{}".format(
+                      test_batches, alpha, backward))
+            result = results[-1]
+            check(len(result.results) == FACADE_SETS["test-clean"][0],
+                  "evaluated {} test utterances".format(len(result.results)))
+            numbers["kenlm" if decoder else "greedy"] = {
+                "ler": result.average_letter_error_rate,
+                "wer": result.average_word_error_rate, "loss": result.average_loss,
+                "groups": {name: len(batches.results) for name, batches in
+                           result.result_batches_by_group_name.items()},
+                "beam_wall_s": beam_wall[0]}
+        check(np.isfinite(numbers["greedy"]["loss"]), "non-finite test loss")
+        check(numbers["kenlm"]["beam_wall_s"] > 0, "the LM test ran no host beam")
+        sweep = data / "sweep.csv"
+        alpha, _ = command("validate", "--run", run, "--csv", str(sweep))
+        lines = sweep.read_text().strip().splitlines()
+        check(len(lines) == 1 + FACADE_EPOCHS and alpha == FACADE_EPOCHS * test_batches,
+              "validate: {} lines, {} K1 launches".format(len(lines), alpha))
 
-            start = time.perf_counter()
-            transcriber = Transcriber.from_checkpoint(nets, FACADE_EPOCHS, alphabet,
-                                                      device=device)
-            audios = [load_audio(e.audio_file)
-                      for e in configuration.corpus.test_examples[:4]]
-            texts = transcriber.transcribe_batch(audios)
-            check(len(texts) == 4 and all(isinstance(text, str) for text, _ in texts),
-                  "the Transcriber on the trained checkpoint: {}".format(texts))
-            numbers["transcripts"] = [text for text, _ in texts]
-            numbers["commands_s"]["transcriber"] = time.perf_counter() - start
-            start = time.perf_counter()
-            numbers["fp32"] = facade_fp32_epoch(data, device)
-            numbers["commands_s"]["fp32 epoch card and CPU"] = time.perf_counter() - start
+        start = time.perf_counter()
+        transcriber = Transcriber.from_checkpoint(nets, FACADE_EPOCHS, alphabet,
+                                                  device=device)
+        audios = [load_audio(e.audio_file)
+                  for e in configuration.corpus.test_examples[:4]]
+        texts = transcriber.transcribe_batch(audios)
+        check(len(texts) == 4 and all(isinstance(text, str) for text, _ in texts),
+              "the Transcriber on the trained checkpoint: {}".format(texts))
+        numbers["transcripts"] = [text for text, _ in texts]
+        numbers["commands_s"]["transcriber"] = time.perf_counter() - start
+        start = time.perf_counter()
+        numbers["fp32"] = facade_fp32_epoch(data, device)
+        numbers["commands_s"]["fp32 epoch card and CPU"] = time.perf_counter() - start
     finally:
         system.Wav2Letter.test_and_predict_grouped_batches = record
         system.beam_search_decode = beam
@@ -2559,8 +2589,9 @@ def phase_f(device, card: str, train: dict) -> dict:
     for row in numbers["scalars"]:
         print("phase F train epoch {:.0f} (step {:.0f}): loss {:.4f}, {:.2f} utterances/s, "
               "{:.4f} s per batch (B={}, bf16) beside phase C's make_multi_wav_step "
-              "{:.1f} utterances/s at B={}".format(*row, FACADE_BATCH,
-                                                    train["utterances_per_s"], BENCH_BATCH))
+              "{} utterances/s at B={}".format(
+                  *row, FACADE_BATCH, "{:.1f}".format(train["utterances_per_s"])
+                  if train else "(not run)", BENCH_BATCH))
     for name in ("greedy", "kenlm"):
         print("phase F test {}: LER {:.4f}, WER {:.4f}, loss {:.3f} over {}; host beam wall "
               "{:.3f} s".format(name, numbers[name]["ler"], numbers[name]["wer"],
@@ -2571,6 +2602,517 @@ def phase_f(device, card: str, train: dict) -> dict:
     print("phase F Transcriber on the epoch-{} checkpoint: {}".format(
         FACADE_EPOCHS, numbers["transcripts"][:2]))
     return numbers
+
+
+# ---- phase G: transfer, the resident corpus, SpecAugment and remat ----------------------
+# Synthetic German sets in the LibriSpeech layout (German characters, hard tier, 2-6 s):
+# (utterances, seed). Saved as corpus/German/corpus.csv, which `--config german` loads.
+GERMAN_SETS = {"synthetic-de-train": (48, 21), "synthetic-de-test": (16, 22)}
+GERMAN_BATCH, TRANSFER_FREEZE, TRANSFER_BATCHES, TRANSFER_EPOCHS = 16, 8, 4, 2
+# The resident run's third epoch runs under torch.profiler; its second is the timed one.
+RESIDENT_BATCHES, RESIDENT_EPOCHS = 8, 3
+VARIANT_STEPS = 5  # steps a call of the bench-batch variants (full, freeze 8, remat)
+# train-clean-100 at its real size: its utterance count, the 3,072-frame bucket of its
+# longest utterances (24.6 s), 128 mel bins in fp16 (22.4 GB), labels of about 16
+# characters a second; batch 64, four steps.
+USER_ROWS, USER_FRAMES, USER_LABELS, USER_BATCH, USER_STEPS = 28539, 3072, 384, 64, 4
+
+
+def stage_german_corpus(data: Path) -> None:
+    from speechless_tpu_torch.data.corpus import ComposedCorpus, TrainingTestSplit
+    from speechless_tpu_torch.data.librispeech import LibriSpeechCorpus
+    from speechless_tpu_torch.data.synthetic import generate_corpus
+    from speechless_tpu_torch.text.charsets import german_frequent_characters as alphabet
+
+    base = data / "corpus" / "German"
+    corpora = []
+    for name, (count, seed) in GERMAN_SETS.items():
+        generate_corpus(base, name, utterance_count=count, speaker_count=4,
+                        min_duration_s=2.0, max_duration_s=6.0, characters=alphabet,
+                        seed=seed, difficulty="hard")
+        split = (TrainingTestSplit.test_only if name.endswith("test")
+                 else TrainingTestSplit.training_only)
+        corpora.append(LibriSpeechCorpus(base, name, allowed_characters=alphabet,
+                                         training_test_split=split))
+    ComposedCorpus(corpora).save(base / "corpus.csv")
+
+
+def remapped_output_layer(layer: dict, source, target) -> dict:
+    """The output layer a transfer load must produce, built here in numpy: each target
+    character's column from the source's, zeros for characters the source lacks, the
+    blank (last column) from the blank."""
+    columns = [source.index(c) if c in source else None for c in target] + [len(source)]
+    w = np.zeros(layer["w"].shape[:2] + (len(columns),), np.float32)
+    b = np.zeros(len(columns), np.float32)
+    for index, column in enumerate(columns):
+        if column is not None:
+            w[:, :, index], b[index] = layer["w"][:, :, column], layer["b"][column]
+    return {"w": w, "b": b}
+
+
+def equal_layers(params, reference, layers) -> bool:
+    return all(np.array_equal(params[i][k], reference[i][k])
+               for i in layers for k in ("w", "b"))
+
+
+def copies_in_trace(prof, out_path: Path) -> dict:
+    """Host-to-device copies and kernels in a `torch.profiler` trace (its chrome
+    export, written to ``out_path``)."""
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_path))
+    events = json.loads(out_path.read_text())["traceEvents"]
+    copies = [e for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"h2d_copies": len(copies),
+            "h2d_bytes": sum(int(e.get("args", {}).get("bytes", 0)) for e in copies),
+            "kernels": len(kernels), "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3}
+
+
+def step_variants(device) -> dict:
+    """`bench.py`'s batch at full width in bf16 with the German characters: the full
+    step, the transfer step (layers 0-7 frozen: no gradient below big_conv_1) and the
+    full step with remat, `make_multi_wav_step` with k=VARIANT_STEPS. One warm-up call
+    each, then timed calls in turns (full, freeze 8, remat, remat, freeze 8, full): ms a
+    step and the peak memory of each."""
+    import torch
+
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.train import trainer
+
+    variants = {"full": (0, False), "freeze 8": (TRANSFER_FREEZE, False),
+                "remat": (0, True)}
+    runs = {}
+    for name, (frozen, remat) in variants.items():
+        config = w2l.Wav2LetterConfig(128, 33, compute_dtype=torch.bfloat16, remat=remat)
+        optimizer = trainer.make_optimizer(
+            1e-4, trainable=w2l.trainable_mask(config, frozen) if frozen else None)
+        state = trainer.init_train_state(config, optimizer,
+                                         params=w2l.init_params(config, SEED), device=device)
+        runs[name] = [state, trainer.make_multi_wav_step(config, optimizer, device=device)]
+    batch = bench_wav_batch(np.random.default_rng(SEED + 9), config, VARIANT_STEPS, device)
+    seconds = {name: [] for name in variants}
+    peaks = {}
+    for name in list(variants) + ["full", "freeze 8", "remat", "remat", "freeze 8", "full"]:
+        state, step = runs[name]
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        runs[name][0], metrics = step(state, batch)
+        losses = metrics["step_losses"].cpu().numpy()
+        elapsed = time.perf_counter() - start
+        check(np.isfinite(losses).all(), "{}: non-finite step loss".format(name))
+        if name in peaks:
+            seconds[name].append(elapsed)
+        peaks[name] = (torch.cuda.max_memory_allocated() / 1e9,
+                       (torch.cuda.max_memory_allocated() - resident) / 1e9)
+    numbers = {name: {"ms_per_step": [s / VARIANT_STEPS * 1e3 for s in seconds[name]],
+                      "peak_gb": peaks[name][0], "step_peak_gb": peaks[name][1]}
+               for name in variants}
+    check(peaks["remat"][1] < peaks["full"][1], "remat's step peak {:.2f} GB is not below "
+          "the full step's {:.2f} GB".format(peaks["remat"][1], peaks["full"][1]))
+    del runs
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def resident_fp32_check(data: Path, device) -> dict:
+    """One fp32 resident epoch of 2 steps of 2 rows on given indices, full width, German
+    characters, over the German training set packed on the card and on the CPU: each
+    step's loss within FP32_LOSS_RTOL and the parameter deltas within
+    FACADE_DELTA_RTOL."""
+    from speechless_tpu_torch.configuration import Configuration, DataDirectories
+    from speechless_tpu_torch.data.device_dataset import build_device_dataset
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.text.graphemes import CtcGraphemeCodec
+    from speechless_tpu_torch.train import trainer
+
+    configuration = Configuration.german(directories=DataDirectories(data))
+    examples = configuration.batch_generator.labeled_training_spectrograms
+    config = w2l.Wav2LetterConfig(128, len(configuration.allowed_characters) + 1)
+    params = w2l.init_params(config, SEED + 7)
+    indices = np.random.default_rng(SEED + 7).permutation(len(examples))[:4].reshape(2, 2)
+    losses, deltas = {}, {}
+    for where in ("cpu", device):
+        dataset, _ = build_device_dataset(examples, CtcGraphemeCodec(
+            configuration.allowed_characters), where)
+        optimizer = trainer.make_optimizer(1e-4)
+        state = trainer.init_train_state(config, optimizer, params=params, device=where)
+        state, metrics = trainer.make_device_epoch_step(config, optimizer, 2, 2)(
+            state, dataset, indices=indices)
+        losses[where] = metrics["step_losses"].cpu().numpy()
+        deltas[where] = [{k: layer[k] - start[k] for k in ("w", "b")}
+                         for layer, start in zip(state.params, params)]
+    frames = tuple(dataset.inputs.shape[1:])
+    del dataset, state
+    loss_err = float(np.max(np.abs(losses[device] - losses["cpu"]) / np.abs(losses["cpu"])))
+    delta_err = max(float(np.linalg.norm(g[k] - c[k]) / np.linalg.norm(c[k]))
+                    for g, c in zip(deltas[device], deltas["cpu"]) for k in ("w", "b")
+                    if np.linalg.norm(c[k]) > 0)
+    print("phase G fp32 resident epoch (2 steps of 2 rows on given indices, rows padded to "
+          "{}) card vs CPU: step losses {} vs {}, rel {:.3g}; parameter-delta rel L2 {:.3g} "
+          "(limits {} and {})".format(frames, losses[device].tolist(), losses["cpu"].tolist(),
+                                      loss_err, delta_err, FP32_LOSS_RTOL, FACADE_DELTA_RTOL),
+          flush=True)
+    check(loss_err <= FP32_LOSS_RTOL and delta_err <= FACADE_DELTA_RTOL,
+          "the fp32 resident epoch on the card differs from the CPU: loss {:.3g}, deltas "
+          "{:.3g}".format(loss_err, delta_err))
+    return {"loss_rel": loss_err, "delta_rel_l2": delta_err}
+
+
+def spec_augment_check(device) -> dict:
+    """SpecAugment's masks on the card from given uniform draws equal the CPU's, at the
+    resident batch's shape (16 x 768 frames x 128 mel, fp16)."""
+    import torch
+
+    from speechless_tpu_torch.ops.specaugment import (Draws, SpecAugment, apply_spec_augment,
+                                                      draw)
+
+    rng = np.random.default_rng(SEED + 8)
+    inputs = torch.tensor(rng.normal(size=(GERMAN_BATCH, 768, 128)), dtype=torch.float16)
+    lengths = torch.tensor(rng.integers(250, 769, GERMAN_BATCH), dtype=torch.int32)
+    config = SpecAugment()
+    draws = draw(torch.Generator().manual_seed(SEED), GERMAN_BATCH, config, "cpu")
+    want = apply_spec_augment(inputs, lengths, config, draws=draws)
+    got = apply_spec_augment(inputs.to(device), lengths.to(device), config,
+                             draws=Draws(*(d.to(device) for d in draws))).cpu()
+    masked = int((want == 0).sum())
+    check(torch.equal(got, want) and masked > 0,
+          "SpecAugment on the card differs from the CPU on the same draws")
+    return {"masked_cells": masked, "cells": want.numel()}
+
+
+def user_size_resident(device) -> dict:
+    """A `DeviceDataset` of train-clean-100's size built on the card (features drawn
+    there, so no 22 GB host array), then `make_device_epoch_step` at B=64 for
+    USER_STEPS steps in bf16: the epoch's time by CUDA events, and the sampling and
+    gather alone (`sample_indices` and `index_select` of every field, the same steps)."""
+    import torch
+
+    from speechless_tpu_torch.data.device_dataset import DeviceDataset, check_fits
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.train import trainer
+
+    nbytes = USER_ROWS * (USER_FRAMES * 128 * 2 + USER_LABELS * 4 + 8)
+    torch.cuda.empty_cache()  # the free memory `check_fits` reads excludes cached blocks
+    check_fits(nbytes, device)
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    start = time.perf_counter()
+    inputs = torch.empty((USER_ROWS, USER_FRAMES, 128), dtype=torch.float16, device=device)
+    lengths = torch.randint(USER_FRAMES // 3, USER_FRAMES + 1, (USER_ROWS,),
+                            generator=generator, device=device, dtype=torch.int32)
+    frames = torch.arange(USER_FRAMES, device=device)
+    for first in range(0, USER_ROWS, 4096):
+        chunk = inputs[first:first + 4096]
+        chunk.normal_(generator=generator)
+        chunk.masked_fill_(frames[None, :, None] >= lengths[first:first + 4096, None, None],
+                           0.0)
+    label_lengths = (lengths // 8).to(torch.int32)
+    labels = torch.randint(0, 28, (USER_ROWS, USER_LABELS), generator=generator,
+                           device=device, dtype=torch.int32)
+    labels.masked_fill_(torch.arange(USER_LABELS, device=device)[None]
+                        >= label_lengths[:, None], -1)
+    dataset = DeviceDataset(inputs, lengths, labels, label_lengths)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+
+    config = w2l.Wav2LetterConfig(128, 29, compute_dtype=torch.bfloat16)
+    optimizer = trainer.make_optimizer(1e-4)
+    state = trainer.init_train_state(config, optimizer, params=w2l.init_params(config, SEED),
+                                     device=device)
+    state, _ = trainer.make_device_epoch_step(config, optimizer, USER_BATCH, 1)(
+        state, dataset, generator)  # cuDNN's plans for this shape
+    epoch = trainer.make_device_epoch_step(config, optimizer, USER_BATCH, USER_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    events[0].record()
+    state, metrics = epoch(state, dataset, generator)
+    events[1].record()
+    for _ in range(USER_STEPS):
+        rows = trainer.sample_indices(USER_ROWS, USER_BATCH, 1, generator)[0]
+        gathered = [field.index_select(0, rows) for field in dataset]
+    events[3].record()
+    torch.cuda.synchronize()
+    losses = metrics["step_losses"].cpu().numpy()
+    check(np.isfinite(losses).all(), "non-finite loss in the train-clean-100-size epoch")
+    epoch_ms = events[0].elapsed_time(events[1])
+    gather_ms = events[1].elapsed_time(events[3])
+    numbers = {"rows": USER_ROWS, "frames": USER_FRAMES, "resident_gb": dataset.nbytes() / 1e9,
+               "build_s": build_s, "ms_per_step": epoch_ms / USER_STEPS,
+               "sample_gather_ms_per_step": gather_ms / USER_STEPS,
+               "sample_gather_share": gather_ms / epoch_ms,
+               "utterances_per_s": USER_BATCH * USER_STEPS / epoch_ms * 1e3,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "losses": losses.tolist(), "gathered_mb": sum(
+                   f.numel() * f.element_size() for f in gathered) / 1e6}
+    del dataset, inputs, labels, gathered, state
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def phase_g(device, card: str, facade: dict, data: Path) -> dict:
+    """Transfer, the device-resident corpus, SpecAugment, remat and the German and mixed
+    configurations on the card, after phase F (whose epoch-2 English checkpoint is the
+    donor) and over its data directory."""
+    import logging
+    import shutil
+
+    import torch
+
+    from speechless_tpu_torch import system
+    from speechless_tpu_torch.configuration import Configuration, DataDirectories
+    from speechless_tpu_torch.data import device_dataset
+    from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
+    from speechless_tpu_torch.text.charsets import english_frequent_characters as english
+    from speechless_tpu_torch.text.charsets import german_frequent_characters as german
+    from speechless_tpu_torch.train import checkpoint, trainer
+
+    numbers = {"commands_s": {}, "launches": {}}
+    baseline, baseline_epoch = Configuration.english_baseline
+    nets, logs = data / "nets", data / "logs"
+    (nets / baseline).mkdir(parents=True)
+    shutil.copyfile(nets / facade["run"] / checkpoint.model_file_name(FACADE_EPOCHS),
+                    nets / baseline / checkpoint.model_file_name(baseline_epoch))
+    donor = checkpoint.load_params(nets / baseline, baseline_epoch)
+    start = time.perf_counter()
+    stage_german_corpus(data)
+    numbers["staging_s"] = time.perf_counter() - start
+    common = ["--config", "german", "--data-dir", str(data), "--batch-size", str(GERMAN_BATCH)]
+
+    def command(name, *arguments, key=None, options=common):
+        before = set(nets.iterdir()) | set(logs.iterdir())
+        launches = run_cli(numbers, "G", device, name, *options, *arguments, key=key)
+        return launches, [path.name for path in (set(nets.iterdir()) | set(logs.iterdir()))
+                          - before]
+
+    def scalars(run):
+        rows = (logs / run / "scalars.csv").read_text().strip().splitlines()[1:]
+        rows = [[float(v) for v in row.split(",")] for row in rows]
+        check(rows and all(np.isfinite(row[2]) for row in rows),
+              "{}: non-finite or missing epoch losses {}".format(run, rows))
+        return rows
+
+    results, trained, resident = [], [], {}
+    record_grouped = system.Wav2Letter.test_and_predict_grouped_batches
+    record_train = system.Wav2Letter.train
+    build, make_epoch = device_dataset.build_device_dataset, trainer.make_device_epoch_step
+
+    def recording_grouped(self, grouped):
+        results.append(record_grouped(self, grouped))
+        return results[-1]
+
+    def recording_train(self, *args, **kwargs):
+        trained.append(self.params)
+        record_train(self, *args, **kwargs)
+        trained.append(self.params)
+
+    def recording_build(*args, **kwargs):
+        dataset, megabytes = build(*args, **kwargs)
+        resident.update(megabytes=megabytes, shape=tuple(dataset.inputs.shape),
+                        dtype=str(dataset.inputs.dtype))
+        return dataset, megabytes
+
+    def profiled_epoch_step(*args, **kwargs):
+        epoch_step, calls = make_epoch(*args, **kwargs), []
+
+        def step(*a, **k):
+            calls.append(None)
+            if len(calls) < RESIDENT_EPOCHS:
+                return epoch_step(*a, **k)
+            activities = [torch.profiler.ProfilerActivity.CPU,
+                          torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=activities) as prof:
+                result = epoch_step(*a, **k)
+                torch.cuda.synchronize()
+            resident["trace"] = copies_in_trace(
+                prof, ROOT / "chiprun_out" / "profile_resident.json")
+            return result
+
+        return step
+
+    system.Wav2Letter.test_and_predict_grouped_batches = recording_grouped
+    system.Wav2Letter.train = recording_train
+    logging.getLogger("results").setLevel(logging.WARNING)
+    try:
+        command("summarize")
+        command("fill-cache")
+        entries = len(list((data / "spectrogram-cache" / "German").glob("*.npy")))
+        check(entries == sum(c for c, _ in GERMAN_SETS.values()),
+              "the German cache holds {} entries".format(entries))
+
+        # transfer --freeze 8: the run continues the donor's epoch numbering.
+        trained.clear()
+        limit = baseline_epoch + TRANSFER_EPOCHS
+        (alpha, backward), runs = command(
+            "transfer", "--freeze", str(TRANSFER_FREEZE), "--batches-per-epoch",
+            str(TRANSFER_BATCHES), "--epochs", str(limit))
+        (transfer_run,) = {run for run in runs if run.endswith("-freeze-8")}
+        steps = TRANSFER_BATCHES * TRANSFER_EPOCHS
+        check((alpha, backward) == (steps + TRANSFER_EPOCHS + 1, steps),
+              "transfer: K1/backward launches {}/{} in {} steps and {} previews".format(
+                  alpha, backward, steps, TRANSFER_EPOCHS + 1))
+        before, after = trained
+        want = remapped_output_layer(donor[-1], english, german)
+        check(equal_layers(before, donor, range(10))
+              and equal_layers([want], [before[-1]], [0]),
+              "the transfer load is not the donor with its output layer remapped")
+        check(not before[-1]["w"][:, :, [german.index(c) for c in "äöüß"]].any(),
+              "the new characters' filters are not zero")
+        saved = checkpoint.load_params(nets / transfer_run, limit)
+        check(equal_layers(after, donor, range(TRANSFER_FREEZE))
+              and equal_layers(saved, donor, range(TRANSFER_FREEZE))
+              and not equal_layers(saved, donor, [9]),
+              "transfer training changed a frozen layer, or no trainable one")
+        numbers["transfer"] = scalars(transfer_run)
+
+        trained.clear()
+        _, runs = command("transfer", "--freeze", str(TRANSFER_FREEZE), "--reinitialize",
+                          "--batches-per-epoch", str(TRANSFER_BATCHES), "--epochs",
+                          str(baseline_epoch + 1), key="transfer --reinitialize")
+        before, after = trained
+        check(equal_layers(before, donor, range(TRANSFER_FREEZE))
+              and equal_layers(after, donor, range(TRANSFER_FREEZE))
+              and not any(np.array_equal(before[i]["w"][..., :28], donor[i]["w"][..., :28])
+                          for i in range(TRANSFER_FREEZE, 11)),
+              "--reinitialize: layers 0-7 must be the donor's and layers 8-10 fresh")
+        trained.clear()
+
+        numbers["variants"] = step_variants(device)
+
+        device_dataset.build_device_dataset = recording_build
+        trainer.make_device_epoch_step = profiled_epoch_step
+        try:
+            (alpha, backward), runs = command(
+                "train", "--device-resident", "--batches-per-epoch", str(RESIDENT_BATCHES),
+                "--epochs", str(RESIDENT_EPOCHS), key="train --device-resident")
+        finally:
+            device_dataset.build_device_dataset, trainer.make_device_epoch_step = build, \
+                make_epoch
+        (resident_run,) = set(runs)
+        steps = RESIDENT_BATCHES * RESIDENT_EPOCHS
+        check((alpha, backward) == (steps + RESIDENT_EPOCHS + 1, steps),
+              "resident: K1/backward launches {}/{} in {} steps".format(alpha, backward,
+                                                                         steps))
+        numbers["resident"] = dict(resident, scalars=scalars(resident_run))
+        trace = resident["trace"]
+        batch_label_bytes = GERMAN_BATCH * 64 * 4
+        check(trace["kernels"] > 0 and trace["h2d_bytes"] < batch_label_bytes,
+              "the resident epoch's trace: {} kernels, {} host-to-device bytes in {} copies "
+              "(one batch's labels are {} bytes)".format(trace["kernels"], trace["h2d_bytes"],
+                                                         trace["h2d_copies"],
+                                                         batch_label_bytes))
+        numbers["fp32"] = resident_fp32_check(data, device)
+
+        (alpha, backward), runs = command(
+            "train", "--spec-augment", "--remat", "--batches-per-epoch",
+            str(TRANSFER_BATCHES), "--epochs", "1", key="train --spec-augment --remat")
+        (augmented_run,) = set(runs)
+        numbers["augmented"] = scalars(augmented_run)
+        check(backward == TRANSFER_BATCHES, "--spec-augment --remat: {} backward launches"
+              .format(backward))
+        numbers["spec_augment"] = spec_augment_check(device)
+
+        command("average", "--run", transfer_run, "--last", "2")
+        averaged_epoch = limit + 1000
+        averaged = checkpoint.load_params(nets / transfer_run, averaged_epoch)
+        last = [checkpoint.load_params(nets / transfer_run, e) for e in (limit - 1, limit)]
+        check(all(np.array_equal(averaged[i][k], ((last[0][i][k].astype(np.float64)
+                                                   + last[1][i][k]) * 0.5).astype(np.float32))
+                  for i in range(11) for k in ("w", "b")),
+              "the averaged checkpoint is not the mean of the last two epochs")
+
+        configuration = Configuration.german(directories=DataDirectories(data))
+        build_kenlm_directory([e.label for e in configuration.corpus.training_examples],
+                              data / "kenlm" / "german", allowed_characters=german, order=3)
+        test_count = GERMAN_SETS["synthetic-de-test"][0]
+        for decoder in ([], ["--kenlm"]):
+            key = "test" + (" --kenlm" if decoder else "")
+            (alpha, backward), _ = command("test", *decoder, "--run", transfer_run, "--epoch",
+                                           str(averaged_epoch), key=key)
+            result = results[-1]
+            check((alpha, backward) == (-(-test_count // GERMAN_BATCH), 0)
+                  and len(result.results) == test_count,
+                  "{}: {} results, K1/backward launches {}/{}".format(
+                      key, len(result.results), alpha, backward))
+            numbers[key] = {"ler": result.average_letter_error_rate,
+                            "wer": result.average_word_error_rate,
+                            "loss": result.average_loss}
+
+        mixed = ["--config", "mixed_german_english", "--data-dir", str(data),
+                 "--batch-size", str(GERMAN_BATCH)]
+        command("summarize", key="summarize mixed", options=mixed)
+        command("test", "--run", transfer_run, "--epoch", str(averaged_epoch),
+                key="test mixed", options=mixed)
+        groups = results[-1].result_batches_by_group_name
+        counts = {name: len(batches.results) for name, batches in groups.items()}
+        check(counts == {"English": FACADE_SETS["test-clean"][0], "German": test_count},
+              "the mixed configuration's groups: {}".format(counts))
+        numbers["mixed"] = {name: {"examples": len(batches.results),
+                                   "ler": batches.average_letter_error_rate,
+                                   "wer": batches.average_word_error_rate}
+                            for name, batches in groups.items()}
+    finally:
+        system.Wav2Letter.test_and_predict_grouped_batches = record_grouped
+        system.Wav2Letter.train = record_train
+        logging.getLogger("results").setLevel(logging.INFO)
+    numbers["user_size"] = user_size_resident(device)
+
+    print(card)
+    print("phase G (CLI in process; donor: phase F's epoch-{} English checkpoint as {} epoch "
+          "{}; German synthetic sets, hard tier, 2-6 s, {} training and {} test utterances, "
+          "staged in {:.2f} s): command walls (s) {}".format(
+              FACADE_EPOCHS, baseline, baseline_epoch, GERMAN_SETS["synthetic-de-train"][0],
+              test_count, numbers["staging_s"],
+              {k: round(v, 3) for k, v in numbers["commands_s"].items()}))
+    print("phase G launches (ctc_alpha, ctc_beta_grad) per command: {}".format(
+        numbers["launches"]))
+    for row in numbers["transfer"]:
+        print("phase G transfer --freeze 8 epoch {:.0f} (step {:.0f}): loss {:.4f}, {:.2f} "
+              "utterances/s (B={}, bf16); layers 0-7 bitwise the donor's".format(
+                  *row[:4], GERMAN_BATCH))
+    variants = numbers["variants"]
+    print("phase G bench batch (B={} x {} samples, 33 classes, bf16, k={}), ms a step in "
+          "turns: {}; peak memory GB (above the resident states): {}".format(
+              BENCH_BATCH, BENCH_SAMPLES, VARIANT_STEPS,
+              {name: [round(ms, 2) for ms in v["ms_per_step"]]
+               for name, v in variants.items()},
+              {name: (round(v["peak_gb"], 3), round(v["step_peak_gb"], 3))
+               for name, v in variants.items()}))
+    rows, host = numbers["resident"]["scalars"], facade["scalars"]
+    print("phase G device-resident corpus: {:.1f} MB, {} {}; epoch 2 {:.2f} utterances/s "
+          "(B={}, {} batches) beside phase F's host-pipeline epoch 2 {:.2f} utterances/s "
+          "(B={}, {} batches); epochs {}".format(
+              numbers["resident"]["megabytes"], numbers["resident"]["shape"],
+              numbers["resident"]["dtype"], rows[1][3], GERMAN_BATCH, RESIDENT_BATCHES,
+              host[1][3], FACADE_BATCH, FACADE_BATCHES,
+              [(int(r[0]), round(r[2], 4), round(r[3], 2)) for r in rows]))
+    print("phase G resident epoch {} under torch.profiler: {} kernels ({:.3f} ms of device "
+          "time), {} host-to-device copies of {} bytes (trace: chiprun_out/"
+          "profile_resident.json)".format(RESIDENT_EPOCHS, trace["kernels"],
+                                          trace["kernel_ms"], trace["h2d_copies"],
+                                          trace["h2d_bytes"]))
+    print("phase G train --spec-augment --remat: {}; SpecAugment on the card from given "
+          "draws equal to the CPU ({} of {} cells masked)".format(
+              [(int(r[0]), round(r[2], 4)) for r in numbers["augmented"]],
+              numbers["spec_augment"]["masked_cells"], numbers["spec_augment"]["cells"]))
+    for key in ("test", "test --kenlm"):
+        print("phase G {} (German, the average of epochs {} and {}): LER {:.4f}, WER {:.4f}, "
+              "loss {:.3f}".format(key, limit - 1, limit, numbers[key]["ler"],
+                                   numbers[key]["wer"], numbers[key]["loss"]))
+    print("phase G test --config mixed_german_english, per group: {}".format(numbers["mixed"]))
+    user = numbers["user_size"]
+    print("phase G train-clean-100-size resident corpus: {} rows x {} frames x 128 mel fp16, "
+          "{:.2f} GB built on the card in {:.2f} s; B={} bf16: {:.2f} ms a step ({:.1f} "
+          "utterances/s), sampling and gather {:.3f} ms a step ({:.4f} of the step), peak "
+          "memory {:.2f} GB; losses {}".format(
+              user["rows"], user["frames"], user["resident_gb"], user["build_s"], USER_BATCH,
+              user["ms_per_step"], user["utterances_per_s"], user["sample_gather_ms_per_step"],
+              user["sample_gather_share"], user["peak_gb"],
+              [round(loss, 2) for loss in user["losses"]]))
+    return numbers
+
 
 def main() -> None:
     import argparse
@@ -2583,6 +3125,9 @@ def main() -> None:
                              "their layers and trace one batch, one stream piece round and "
                              "one k-step call (writes chiprun_out/profile.json, "
                              "profile_stream.json and profile_train.json)")
+    parser.add_argument("--facade-only", action="store_true",
+                        help="build the kernels and run phases F and G alone; prints no "
+                             "result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2618,6 +3163,12 @@ def main() -> None:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print("    ptxas: " + line.strip())
 
+    if args.facade_only:
+        with tempfile.TemporaryDirectory() as directory:
+            facade = phase_f(device, card, None, Path(directory))
+            phase_g(device, card, facade, Path(directory))
+        print("chip_smoke --facade-only: phases F and G passed; no result line")
+        return
     alphabet = CHARSETS["english"]
     with tempfile.TemporaryDirectory() as lm_directory:
         sentences = readme_sentences()
@@ -2639,12 +3190,16 @@ def main() -> None:
                           {word for sentence in sentences for word in sentence.split()},
                           step["decode_outputs"])
     train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
-    facade = phase_f(device, card, train["train"])
+    with tempfile.TemporaryDirectory() as directory:
+        facade = phase_f(device, card, train["train"], Path(directory))
+        transfer = phase_g(device, card, facade, Path(directory))
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "speechless_tpu")],
           "the port imported jax or the JAX package")
 
     ctc = train["ctc"]
     backtrace = offline["backtraces"]["span"]
+    print("phase G launches on its paths (ctc_alpha, ctc_beta_grad): {}".format(
+        transfer["launches"]))
     print(card)  # again beside the summary: the long output's head may be cut
     print("summary: span kernel {:.4f} ms per 16 x 513 launch ({:.2f} us per frame; "
           "no LM {:.4f} ms); step entry {:.5f} ms per frame on the sorted network, {:.5f} "

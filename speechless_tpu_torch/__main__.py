@@ -8,10 +8,17 @@
     python -m speechless_tpu_torch transcribe --checkpoint nets/run/weights-epoch9.npz \\
         --kenlm kenlm/english --json --nbest 3 a.wav b.wav
 
-``train``, ``test``, ``validate``, ``summarize`` and ``fill-cache`` are the JAX CLI's
-workflows over a named `Configuration` and a data directory (`configuration.py`), with
-its flags, defaults and refusals; flags of features that are not ported yet
-(``--device-resident``, ``--spec-augment``, ``--remat``) refuse before anything loads.
+    python -m speechless_tpu_torch transfer --config german --data-dir D --freeze 8 \
+        --epochs 1691
+    python -m speechless_tpu_torch average --config german --data-dir D --run R --last 2
+
+``train``, ``transfer``, ``test``, ``validate``, ``average``, ``summarize`` and
+``fill-cache`` are the JAX CLI's workflows over a named `Configuration` (``english``,
+``minimal_english``, ``german``, ``mixed_german_english``) and a data directory
+(`configuration.py`), with its flags, defaults and refusals. ``transfer`` loads the
+English baseline run remapped to the configuration's characters and continues its epoch
+numbering, so ``--epochs`` counts from the donor's epoch (1689). ``average`` writes the
+mean of several epoch checkpoints of a run as a new epoch.
 ``serve`` runs the port's HTTP transcription API (`serving_http.py`: ``/v1/transcribe``
 and the ``/v1/stream`` session routes); ``transcribe`` decodes wav files offline and
 prints ``file<TAB>text`` lines or one JSON object per file. Both read a checkpoint
@@ -36,15 +43,13 @@ def _configuration(name: str, data_dir=None, batch_size=None, batches_per_epoch=
         "english": lambda: Configuration.english(directories=directories),
         "minimal_english": lambda: Configuration.minimal_english(directories=directories),
         "german": lambda: Configuration.german(directories=directories),
-        "mixed_german_english": Configuration.mixed_german_english,
+        "mixed_german_english": lambda: Configuration.mixed_german_english(
+            directories=directories),
     }
     if name not in factories:
         raise SystemExit("Unknown configuration '{}'. Available: {}".format(
             name, ", ".join(sorted(factories))))
-    try:
-        configuration = factories[name]()
-    except NotImplementedError as error:
-        raise SystemExit(str(error))
+    configuration = factories[name]()
     if batch_size is not None:
         configuration.batch_size = batch_size
     if batches_per_epoch is not None:
@@ -54,8 +59,8 @@ def _configuration(name: str, data_dir=None, batch_size=None, batches_per_epoch=
 
 def _add_config_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--config", default="minimal_english",
-                        help="named configuration (english, minimal_english; german and "
-                             "mixed_german_english are not ported yet)")
+                        help="named configuration (english, minimal_english, german, "
+                             "mixed_german_english)")
     parser.add_argument("--data-dir", default=None,
                         help="data root (default: ~/speechless-data)")
     parser.add_argument("--batch-size", type=int, default=None)
@@ -69,9 +74,11 @@ def _add_workflow_commands(sub) -> dict:
     _add_config_args(p_train)
     p_train.add_argument("--epochs", type=int, default=None, help="epoch limit")
     p_train.add_argument("--device-resident", action="store_true",
-                         help="the corpus in device memory (not ported yet)")
+                         help="pack the corpus into device memory and sample batches "
+                              "there (no host-to-device copy inside an epoch)")
     p_train.add_argument("--spec-augment", action="store_true",
-                         help="SpecAugment masking during training (not ported yet)")
+                         help="SpecAugment masking during training (ops/specaugment.py, "
+                              "default policy)")
     p_train.add_argument("--clip-norm", type=float, default=None,
                          help="global-norm gradient clipping (default: unclipped, "
                               "reference parity)")
@@ -88,7 +95,22 @@ def _add_workflow_commands(sub) -> dict:
                          help="gradient accumulation: one Adam update per N "
                               "micro-batches")
     p_train.add_argument("--remat", action="store_true",
-                         help="gradient rematerialization (not ported yet)")
+                         help="gradient rematerialization (torch.utils.checkpoint): store "
+                              "the block inputs only and recompute the rest in the "
+                              "backward")
+
+    p_transfer = sub.add_parser("transfer",
+                                help="transfer-train from the best English model")
+    _add_config_args(p_transfer)
+    p_transfer.add_argument("--freeze", type=int, default=0, help="frozen layer count")
+    p_transfer.add_argument("--reinitialize", action="store_true",
+                            help="draw the layers above the frozen ones afresh")
+    p_transfer.add_argument("--epochs", type=int, default=None,
+                            help="epoch limit, counted on from the donor's epoch")
+    p_transfer.add_argument("--spec-augment", action="store_true",
+                            help="SpecAugment masking during training")
+    p_transfer.add_argument("--clip-norm", type=float, default=None,
+                            help="global-norm gradient clipping (default: unclipped)")
 
     p_test = sub.add_parser("test", help="evaluate a checkpoint grouped by sub-corpus")
     _add_config_args(p_test)
@@ -108,6 +130,20 @@ def _add_workflow_commands(sub) -> dict:
     p_validate.add_argument("--kenlm", action="store_true",
                             help="sweep with the LM-fused beam instead of greedy")
 
+    p_average = sub.add_parser(
+        "average", help="average several epoch checkpoints into one (decode-time "
+                        "smoothing)")
+    _add_config_args(p_average)
+    p_average.add_argument("--run", required=True, help="run name under nets/")
+    p_average.add_argument("--epochs", type=int, nargs="+", default=None,
+                           help="explicit epochs to average")
+    p_average.add_argument("--last", type=int, default=5,
+                           help="without --epochs: average the last N available epochs "
+                                "(default 5)")
+    p_average.add_argument("--write-epoch", type=int, default=None,
+                           help="epoch number of the averaged checkpoint (default: "
+                                "max(epochs) + 1000, clear of any real epoch)")
+
     p_summarize = sub.add_parser("summarize", help="summarize + save the corpus CSV")
     _add_config_args(p_summarize)
 
@@ -117,14 +153,52 @@ def _add_workflow_commands(sub) -> dict:
     return {"train": p_train, "test": p_test}
 
 
+def _training_wav2letter_kwargs(args) -> dict:
+    """The model options of ``train`` and ``transfer``, only those set on the command
+    line (the others keep the model's defaults)."""
+    kwargs = {"device": args.device}
+    if args.spec_augment:
+        kwargs["spec_augment"] = True
+    for key, value in (("gradient_clip_norm", args.clip_norm),
+                       ("lr_decay", getattr(args, "lr_decay", None)),
+                       ("lr_decay_steps", getattr(args, "lr_decay_steps", None)),
+                       ("accumulate_gradient_steps", getattr(args, "accumulate_steps", None))):
+        if value is not None:
+            kwargs[key] = value
+    if getattr(args, "lr_warmup_steps", 0):
+        kwargs["lr_warmup_steps"] = args.lr_warmup_steps
+    if getattr(args, "remat", False):
+        kwargs["remat"] = True
+    return kwargs
+
+
+def _average(configuration, args) -> None:
+    """``average``: the mean of the chosen epochs of a run, written as a new epoch."""
+    from .experiments import available_epochs
+    from .train import checkpoint as ckpt
+
+    directory = configuration.directories.nets_base_directory / args.run
+    if args.epochs:
+        epochs = sorted(args.epochs)
+    else:
+        if args.last < 1:
+            raise SystemExit("--last must be >= 1")
+        epochs = available_epochs(directory)[-args.last:]
+        if not epochs:
+            raise SystemExit("no checkpoints under {}".format(directory))
+    write_epoch = args.write_epoch if args.write_epoch is not None else max(epochs) + 1000
+    if write_epoch in epochs:
+        raise SystemExit("--write-epoch {} would overwrite one of the averaged "
+                         "checkpoints".format(write_epoch))
+    params = ckpt.average_checkpoint_params(directory, epochs)
+    path = ckpt.save_checkpoint(directory, write_epoch, params)
+    print("Averaged epochs {} -> {}".format(epochs, path))
+
+
 def _run_workflow(args, parsers: dict) -> None:
-    """``train``, ``test``, ``validate``, ``summarize`` or ``fill-cache``."""
+    """``train``, ``transfer``, ``test``, ``validate``, ``average``, ``summarize`` or
+    ``fill-cache``."""
     if args.command == "train":
-        for flag, requested in (("--device-resident", args.device_resident),
-                                ("--spec-augment", args.spec_augment),
-                                ("--remat", args.remat)):
-            if requested:
-                parsers["train"].error("{} is not ported yet (ROADMAP.md)".format(flag))
         if args.lr_decay is not None and args.lr_decay_steps is None:
             parsers["train"].error("--lr-decay requires --lr-decay-steps")
         if args.lr_decay_steps is not None and args.lr_decay is None:
@@ -132,17 +206,16 @@ def _run_workflow(args, parsers: dict) -> None:
     configuration = _configuration(args.config, args.data_dir, args.batch_size,
                                    args.batches_per_epoch)
     if args.command == "train":
-        kwargs = {"device": args.device}
-        for key, value in (("gradient_clip_norm", args.clip_norm),
-                           ("lr_decay", args.lr_decay),
-                           ("lr_decay_steps", args.lr_decay_steps),
-                           ("accumulate_gradient_steps", args.accumulate_steps)):
-            if value is not None:
-                kwargs[key] = value
-        if args.lr_warmup_steps:
-            kwargs["lr_warmup_steps"] = args.lr_warmup_steps
         configuration.train_from_beginning(epoch_limit=args.epochs,
-                                           wav2letter_kwargs=kwargs)
+                                           device_resident=args.device_resident,
+                                           wav2letter_kwargs=_training_wav2letter_kwargs(args))
+    elif args.command == "transfer":
+        configuration.train_transfer_from_best_english_model(
+            frozen_layer_count=args.freeze,
+            reinitialize_trainable_loaded_layers=args.reinitialize,
+            epoch_limit=args.epochs, wav2letter_kwargs=_training_wav2letter_kwargs(args))
+    elif args.command == "average":
+        _average(configuration, args)
     elif args.command == "test":
         decoder_kwargs = {name: value for name, value in (
             ("beam_width", args.beam_width), ("lm_weight", args.lm_weight),
@@ -295,7 +368,8 @@ def main(argv=None) -> None:
                               help="emit the top-N hypotheses with path scores (requires "
                                    "--json)")
     args = parser.parse_args(argv)
-    if args.command in ("train", "test", "validate", "summarize", "fill-cache"):
+    if args.command in ("train", "transfer", "test", "validate", "average", "summarize",
+                        "fill-cache"):
         _run_workflow(args, workflow_parsers)
         return
     # Refused before any weights load or warm-up runs.

@@ -2,12 +2,12 @@
 data-directory layout, and the train/test/load workflows.
 
 Preserves the reference's public API (the original speechless `configuration.py`):
-``Configuration.minimal_english().train_from_beginning()``, ``load_model(...)``,
+``Configuration.minimal_english().train_from_beginning()``, ``load_model(...)`` with
+``allowed_characters_for_loaded_model`` transfer, the German and mixed German-English
+configurations, ``train_transfer_from_best_english_model``,
 ``test_model_grouped_by_loaded_corpus_name``, the ``~/speechless-data`` directory layout,
-and the ``LoggedRun`` per-run file logging. Not ported yet: the German configurations
-(`data/german.py`, ROADMAP.md item 9), the transfer workflows (item 7), the
-device-resident corpus (item 9) and multi-process training (item 13); each refuses
-with its item named.
+and the ``LoggedRun`` per-run file logging. Not ported yet: multi-process training
+(ROADMAP.md, item 13), which refuses with its item named.
 """
 import logging
 from collections import OrderedDict
@@ -16,7 +16,8 @@ from pathlib import Path
 from typing import Callable, List, Optional
 
 from .data.batching import LabeledSpectrogramBatchGenerator
-from .data.corpus import Corpus
+from .data.corpus import ComposedCorpus, Corpus
+from .data.german import german_corpus, german_frequent_characters
 from .data.librispeech import (english_corpus, english_frequent_characters,
                                minimal_english_corpus)
 from .features.example import LabeledExampleFromFile
@@ -102,21 +103,48 @@ class Configuration:
     def german(from_cached: bool = True,
                sampled_training_example_count_when_loading_from_cached: Optional[int] = None,
                directories: "DataDirectories" = None) -> "Configuration":
-        raise NotImplementedError(_NOT_PORTED.format(
-            "the German configuration (data/german.py)", 9))
+        def load_cached_corpus(corpus_directory: Path) -> Corpus:
+            return Corpus.load(
+                corpus_directory / "corpus.csv",
+                sampled_training_example_count=
+                sampled_training_example_count_when_loading_from_cached)
+
+        return Configuration(
+            name="German", allowed_characters=german_frequent_characters,
+            corpus_from_directory=load_cached_corpus if from_cached else german_corpus,
+            directories=directories)
 
     @staticmethod
     def mixed_german_english(directories: "DataDirectories" = None) -> "Configuration":
-        raise NotImplementedError(_NOT_PORTED.format(
-            "the mixed German-English configuration (data/german.py)", 9))
+        return Configuration(
+            name="mixed-English-German",
+            allowed_characters=german_frequent_characters,
+            directories=directories,
+            corpus_from_directory=lambda _: ComposedCorpus(
+                [Configuration.english(directories).corpus,
+                 Configuration.german(directories=directories).corpus]))
 
     # -- workflows --------------------------------------------------------
 
     def train(self, wav2letter: Wav2Letter, run_name: str, **train_kwargs) -> None:
-        """``device_resident=True`` (the corpus in device memory) is not ported yet."""
+        """``device_resident=True`` packs the training corpus into device memory once and
+        samples batches there (`data.device_dataset`) instead of streaming them through
+        the host pipeline; ``multi_step`` and bucketing have no effect then, and are
+        dropped with a warning."""
         if train_kwargs.pop("device_resident", False):
-            raise NotImplementedError(_NOT_PORTED.format(
-                "the device-resident corpus (data/device_dataset.py)", 9))
+            dropped = [key for key in ("multi_step",) if key in train_kwargs]
+            if dropped:
+                log("Warning: device_resident=True ignores host-pipeline option(s) {} "
+                    "(each epoch is one on-device dispatch).".format(dropped))
+                for key in dropped:
+                    train_kwargs.pop(key)
+            if self.bucket_training_batches:
+                log("Warning: bucket_training_batches has no effect with "
+                    "device_resident=True (the corpus is packed to one HBM-resident "
+                    "shape).")
+            train_kwargs.setdefault("device_resident_examples",
+                                    self.batch_generator.labeled_training_spectrograms)
+            train_kwargs.setdefault("batch_size", self.batch_size)
         wav2letter.train(
             self.batch_generator.training_batches(),
             preview_labeled_spectrogram_batch=self.batch_generator.preview_batch(),
@@ -182,7 +210,20 @@ class Configuration:
             self, frozen_layer_count: int,
             reinitialize_trainable_loaded_layers: bool = False,
             wav2letter_kwargs: Optional[dict] = None, **train_kwargs) -> None:
-        raise NotImplementedError(_NOT_PORTED.format("transfer training", 7))
+        """Load `english_baseline` with its output layer remapped to this configuration's
+        characters and the first ``frozen_layer_count`` layers frozen, and train it. The
+        run continues the donor's epoch numbering (the reference's ``initial_epoch =
+        load_epoch``), so an ``epoch_limit`` counts from the donor's epoch."""
+        run_name = timestamp() + "-adam-small-learning-rate-transfer-to-{}-freeze-{}{}{}".format(
+            self.name, frozen_layer_count,
+            "-reinitialize" if reinitialize_trainable_loaded_layers else "",
+            self.sampled_training_example_count_extension())
+        log("Run: " + run_name)
+        wav2letter = self.load_best_english_model(
+            frozen_layer_count=frozen_layer_count,
+            reinitialize_trainable_loaded_layers=reinitialize_trainable_loaded_layers,
+            **(wav2letter_kwargs or {}))
+        self.train(wav2letter, run_name=run_name, **train_kwargs)
 
     def sampled_training_example_count_extension(self) -> str:
         count = self.corpus.sampled_training_example_count
@@ -190,6 +231,9 @@ class Configuration:
 
     def summarize_and_save_corpus(self) -> None:
         log(self.corpus.summary())
+        # The mixed configuration's own directory holds no audio, so it may not exist
+        # yet (the JAX package fails there).
+        mkdir(self.corpus_directory)
         self.corpus.summarize_to_csv(self.corpus_directory / "summary.csv")
         self.save_corpus()
 
@@ -266,9 +310,31 @@ class Configuration:
             self.load_best_english_model(use_ken_lm=use_kenlm))
 
     def load_german_model(self, load_name: str, load_epoch: int, use_ken_lm: bool = False,
-                          language_model_name_extension: str = "") -> Wav2Letter:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "loading a German model (the cross-charset transfer load)", 7))
+                          language_model_name_extension: str = "",
+                          **wav2letter_kwargs) -> Wav2Letter:
+        return self.load_model(
+            load_name=load_name, load_epoch=load_epoch,
+            allowed_characters_for_loaded_model=german_frequent_characters,
+            use_kenlm=use_ken_lm,
+            language_model_name_extension=language_model_name_extension,
+            **wav2letter_kwargs)
+
+    def test_german_model(self, load_name: str, load_epoch: int, use_ken_lm: bool = False,
+                          language_model_name_extension: str = "",
+                          **wav2letter_kwargs) -> None:
+        self.test_model_grouped_by_loaded_corpus_name(self.load_german_model(
+            load_name, load_epoch, use_ken_lm=use_ken_lm,
+            language_model_name_extension=language_model_name_extension,
+            **wav2letter_kwargs))
+
+    def load_best_german_model(self, use_ken_lm: bool = False,
+                               language_model_name_extension: str = "",
+                               **wav2letter_kwargs) -> Wav2Letter:
+        return self.load_german_model(
+            Configuration.freeze0day4hour7[0], Configuration.freeze0day4hour7[1],
+            use_ken_lm=use_ken_lm,
+            language_model_name_extension=language_model_name_extension,
+            **wav2letter_kwargs)
 
 
 class LoggedRun:

@@ -66,7 +66,10 @@ class Corpus:
                                    [(e, Phase.test) for e in self.test_examples]):
                 audio_path = example.audio_file
                 if use_relative_audio_file_paths:
-                    audio_path = audio_path.relative_to(corpus_csv_file.parent)
+                    # A composed corpus's audio may lie beside the csv's directory
+                    # (``../English/...``), where the JAX package's relative_to raises.
+                    audio_path = audio_path.relative_to(corpus_csv_file.parent,
+                                                        walk_up=True)
                 writer.writerow((example.id, str(audio_path), example.label, phase.value,
                                  example.positional_label.serialize()
                                  if example.positional_label else ""))
@@ -102,10 +105,14 @@ class Corpus:
             for k in keys)
 
     def csv_rows(self) -> List[List[Any]]:
-        raise NotImplementedError
+        """Per-source summary rows; a corpus loaded from ``corpus.csv`` knows no sources
+        and has none. (The JAX package raises here, so that ``summarize`` fails on the
+        German configurations, which load their corpus from ``corpus.csv``.)"""
+        return []
 
     def summary(self) -> str:
-        raise NotImplementedError
+        return "{} examples, {} training, {} test".format(
+            len(self.examples), len(self.training_examples), len(self.test_examples))
 
     def summarize_to_csv(self, summary_csv_file: Path) -> None:
         with Path(summary_csv_file).open("w", encoding="utf8", newline="") as f:

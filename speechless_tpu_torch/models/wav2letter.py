@@ -14,17 +14,32 @@ and the logits come back in fp32.
 The public layout stays the JAX one — ``(batch, time, channels)`` in and out — and the
 weight bridge (`params_from_jax` / `params_to_jax`) moves the JAX package's
 ``[{"w": (K, Cin, Cout), "b": (Cout,)}, ...]`` parameter list to and from this module's
-state (`nn.Conv1d` weights are ``(Cout, Cin, K)``). The raw-wave frontend, other
-activations, dropout, remat, int8 compute and tensor-parallel constraints of the JAX
-model are not ported yet (ROADMAP.md, item 3).
+state (`nn.Conv1d` weights are ``(Cout, Cin, K)``).
+
+Training (``forward(..., train=True)``) adds the JAX model's two options:
+* dropout before every non-big conv (``ConvSpec.dropout_before``) at rate
+  ``config.dropout``, the surviving activations scaled by 1 / (1 - rate). The keep masks
+  come from an explicit `torch.Generator` or are passed in (JAX's layout, one boolean
+  ``(batch, frames, channels)`` tensor per layer), since torch cannot reproduce JAX's
+  keys;
+* remat (``config.remat``): `torch.utils.checkpoint` over the blocks of
+  `_remat_block_starts`, the narrow front and the wide tail from big_conv_1, so the
+  backward recomputes each block from its input instead of storing its activations.
+  The masks are drawn before any block runs, so a recompute applies the same ones.
+
+The transfer helpers (`character_remap_indices`, `remap_output_layer`) remap the output
+layer's per-character filters between character sets. The raw-wave frontend, other
+activations, int8 compute and tensor-parallel constraints of the JAX model are not
+ported yet (ROADMAP.md, item 3).
 """
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..precision import ieee_fp32
 
@@ -41,29 +56,40 @@ class ConvSpec:
     kernel_size: int
     stride: int = 1
     activation: str = "relu"  # or "linear"
+    dropout_before: bool = False
 
 
 @dataclass(frozen=True)
 class Wav2LetterConfig:
-    """Architecture and compute type of one model instance (``layers`` overrides the
-    default stack; ``compute_dtype`` is float32 or bfloat16)."""
+    """Architecture, compute type and training options of one model instance
+    (``layers`` overrides the default stack; ``compute_dtype`` is float32 or bfloat16;
+    ``dropout`` is the rate before the non-big convs, None for none; ``remat``
+    recomputes activations in the backward)."""
     input_size_per_time_step: int
     grapheme_set_size: int
     layers: Tuple[ConvSpec, ...] = field(default=None)
     compute_dtype: torch.dtype = torch.float32
+    dropout: Optional[float] = None
+    remat: bool = False
 
     def __post_init__(self):
         if self.layers is None:
             object.__setattr__(self, "layers", tuple(self._build_layers()))
 
     def _build_layers(self) -> List[ConvSpec]:
-        layers = [ConvSpec("striding_conv", MAIN_FILTER_COUNT, 48, 2)]
+        use_dropout = self.dropout is not None
+        layers = [ConvSpec("striding_conv", MAIN_FILTER_COUNT, 48, 2, "relu", use_dropout)]
         for i in range(1, 8):
-            layers.append(ConvSpec("inner_conv_{}".format(i), MAIN_FILTER_COUNT, 7, 1))
+            layers.append(ConvSpec("inner_conv_{}".format(i), MAIN_FILTER_COUNT, 7, 1,
+                                   "relu", use_dropout))
         layers.append(ConvSpec("big_conv_1", BIG_FILTER_COUNT, 32, 1))
         layers.append(ConvSpec("big_conv_2", BIG_FILTER_COUNT, 1, 1))
         layers.append(ConvSpec("output_conv", self.grapheme_set_size, 1, 1, "linear"))
         return layers
+
+    @property
+    def layer_names(self) -> List[str]:
+        return [spec.name for spec in self.layers]
 
     @property
     def input_to_prediction_length_ratio(self) -> int:
@@ -72,6 +98,33 @@ class Wav2LetterConfig:
         for spec in self.layers:
             ratio *= spec.stride
         return ratio
+
+    def layer_input_shapes(self, batch: int, frames: int) -> List[Tuple[int, int, int]]:
+        """Each layer's input shape ``(batch, frames, channels)`` (JAX's layout) for an
+        input of ``frames`` frames: the shapes of the dropout masks."""
+        shapes, channels = [], self.input_size_per_time_step
+        for spec in self.layers:
+            shapes.append((batch, frames, channels))
+            frames, channels = -(-frames // spec.stride), spec.filters  # SAME padding
+        return shapes
+
+
+def _remat_block_starts(config: Wav2LetterConfig) -> List[int]:
+    """Checkpoint-block boundaries: the narrow (250-filter) front, then the wide tail
+    from big_conv_1, whose (B, T', 2000) activations dominate training memory."""
+    names = config.layer_names
+    return [0, names.index("big_conv_1")] if "big_conv_1" in names else [0]
+
+
+def draw_dropout_masks(config: Wav2LetterConfig, batch: int, frames: int,
+                       generator: torch.Generator, device) -> List[Optional[torch.Tensor]]:
+    """Keep masks for one forward: a boolean ``(batch, frames_i, channels_i)`` tensor
+    (True = kept, probability 1 - rate) for each layer with ``dropout_before``, None for
+    the others, drawn from ``generator`` on ``device``."""
+    keep = 1.0 - config.dropout
+    return [torch.rand(shape, generator=generator, device=device) < keep
+            if spec.dropout_before else None
+            for spec, shape in zip(config.layers, config.layer_input_shapes(batch, frames))]
 
 
 def same_padding(length: int, kernel_size: int, stride: int) -> Tuple[int, int]:
@@ -102,11 +155,41 @@ class Wav2Letter(nn.Module):
             in_channels = spec.filters
         self.layers = nn.ModuleList(convs)
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        dtype = self.config.compute_dtype
-        x = inputs.to(dtype).transpose(1, 2)
+    def forward(self, inputs: torch.Tensor, train: bool = False,
+                dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train=True`` applies dropout (masks given, else drawn from ``generator``)
+        and remat, as the config asks; otherwise the forward is the inference one."""
+        config = self.config
+        x = inputs.to(config.compute_dtype).transpose(1, 2)
+        masks = [None] * len(config.layers)
+        if train and config.dropout:
+            if dropout_masks is None:
+                if generator is None:
+                    raise ValueError("training with dropout needs a generator or the masks")
+                dropout_masks = draw_dropout_masks(config, x.shape[0], x.shape[2], generator,
+                                                   x.device)
+            masks = list(dropout_masks)
+        if not (train and config.remat):
+            return self._layers(x, 0, len(config.layers), masks)
+        starts = _remat_block_starts(config) + [len(config.layers)]
+        for start, end in zip(starts, starts[1:]):
+            x = checkpoint(self._layers, x, start, end, masks, use_reentrant=False)
+        return x
+
+    def _layers(self, x: torch.Tensor, start: int, end: int,
+                masks: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+        """Layers ``start`` to ``end`` on ``x`` (``(batch, channels, frames)`` in the
+        compute type); the last layer's output returns as fp32 ``(batch, frames,
+        classes)``."""
+        config = self.config
+        dtype = config.compute_dtype
         with ieee_fp32():
-            for spec, conv in zip(self.config.layers, self.layers):
+            for index in range(start, end):
+                spec, conv = config.layers[index], self.layers[index]
+                if masks[index] is not None:
+                    x = torch.where(masks[index].transpose(1, 2), x / (1.0 - config.dropout),
+                                    0.0).to(dtype)
                 x = F.pad(x, same_padding(x.shape[2], spec.kernel_size, spec.stride))
                 if dtype == torch.float32:
                     x = conv(x)
@@ -114,7 +197,9 @@ class Wav2Letter(nn.Module):
                     x = (F.conv1d(x, conv.weight.to(dtype), None, spec.stride)
                          + conv.bias.to(dtype)[:, None])
                 x = _activate(x, spec.activation)
-        return x.to(torch.float32).transpose(1, 2)
+        if end == len(config.layers):
+            return x.to(torch.float32).transpose(1, 2)
+        return x
 
 
 def init_params(config: Wav2LetterConfig, seed: int) -> Params:
@@ -129,6 +214,24 @@ def init_params(config: Wav2LetterConfig, seed: int) -> Params:
         limit = np.sqrt(6.0 / (fan_in + fan_out))
         w = rng.uniform(-limit, limit, (spec.kernel_size, in_channels, spec.filters))
         params.append({"w": w.astype(np.float32),
+                       "b": np.zeros(spec.filters, np.float32)})
+        in_channels = spec.filters
+    return params
+
+
+def init_params_from_generator(config: Wav2LetterConfig,
+                               generator: torch.Generator) -> Params:
+    """`init_params`' Glorot-uniform weights and zero biases, drawn from a CPU
+    ``generator`` (the transfer load's fresh layers)."""
+    params = []
+    in_channels = config.input_size_per_time_step
+    for spec in config.layers:
+        fan_in = spec.kernel_size * in_channels
+        fan_out = spec.kernel_size * spec.filters
+        limit = np.sqrt(6.0 / (fan_in + fan_out))
+        u = torch.rand((spec.kernel_size, in_channels, spec.filters), generator=generator,
+                       dtype=torch.float64)
+        params.append({"w": ((2.0 * u - 1.0) * limit).numpy().astype(np.float32),
                        "b": np.zeros(spec.filters, np.float32)})
         in_channels = spec.filters
     return params
@@ -188,3 +291,35 @@ def conv_flops_per_example(config: Wav2LetterConfig, input_frames: int,
         flops += 2.0 * frames * spec.kernel_size * in_channels * spec.filters
         in_channels = spec.filters
     return flops * (3.0 if train else 1.0)
+
+
+def character_remap_indices(source_characters: List[str],
+                            target_characters: List[str]) -> List[Optional[int]]:
+    """For each target character, the source index holding its filters (None if absent)."""
+    source_index = {}
+    for i, c in enumerate(source_characters):
+        if c in source_index:
+            raise ValueError("Duplicate character in source charset: {}".format(c))
+        source_index[c] = i
+    return [source_index.get(c) for c in target_characters]
+
+
+def remap_output_layer(output_params: Dict[str, np.ndarray], source_characters: List[str],
+                       target_characters: List[str]) -> Dict[str, np.ndarray]:
+    """The output conv's per-grapheme filters (JAX layout, ``w`` of shape ``(K, Cin,
+    classes)``) remapped to ``target_characters``: characters in both sets keep their
+    filters, new characters get zero weights and bias, and the CTC blank (the last class
+    on both sides) maps to the blank."""
+    w = np.asarray(output_params["w"])
+    b = np.asarray(output_params["b"])
+    indices = character_remap_indices(source_characters, target_characters)
+    target_size = len(target_characters) + 1  # + blank
+    new_w = np.zeros(w.shape[:2] + (target_size,), dtype=w.dtype)
+    new_b = np.zeros((target_size,), dtype=b.dtype)
+    for target_idx, source_idx in enumerate(indices):
+        if source_idx is not None:
+            new_w[:, :, target_idx] = w[:, :, source_idx]
+            new_b[target_idx] = b[source_idx]
+    new_w[:, :, -1] = w[:, :, -1]  # blank -> blank
+    new_b[-1] = b[-1]
+    return {"w": new_w, "b": new_b}

@@ -9,13 +9,21 @@ public model API on the port's stack.
   checkpoints with the optimizer state and step (the JAX package's format, so either
   package resumes the other's run), ``scalars.csv``, TensorBoard scalars and
   `GracefulShutdown` (SIGTERM/SIGINT checkpoint at the epoch's end);
+* the device-resident corpus (``train(device_resident_examples=...)``): the whole
+  corpus packed into device memory once (`data/device_dataset.py`) and each epoch's
+  batches sampled and gathered there (`trainer.make_device_epoch_step`), with the same
+  log lines, ``scalars.csv`` columns, previews, checkpoints and `GracefulShutdown`;
+* the cross-charset transfer load (``allowed_characters_for_loaded_model``): the output
+  layer's filters remapped to this model's characters, the first ``frozen_layer_count``
+  layers frozen (no gradient is computed for them), and with
+  ``reinitialize_trainable_loaded_layers`` the layers above them drawn afresh;
+* SpecAugment, dropout and remat in training;
 * the KenLM vocabulary-consistency check of the reference.
 
 Compute is bf16 on CUDA (features copied as fp16, parameters, logits and the loss in
 fp32) and fp32 on the CPU, as the JAX facade picks by backend. Runs on ``cuda:0``
 unless the caller passes ``device``. Not ported yet, and refused with the ROADMAP.md
-item named: ASG, the mesh, SpecAugment, remat, the raw-wave model, dropout, other
-activations, the cross-charset transfer load and the device-resident corpus.
+item named: ASG, the mesh, the raw-wave model and other activations than ReLU.
 """
 import csv
 import math
@@ -32,6 +40,7 @@ from .data.batching import (Prefetcher, batch_from_spectrograms, chunked, pad_to
 from .features.example import LabeledSpectrogram
 from .models import wav2letter as w2l
 from .ops.decode import beam_search_decode, greedy_decode
+from .ops.specaugment import SpecAugment
 from .text.graphemes import CtcGraphemeCodec
 from .text.metrics import (ExpectationsVsPredictions, ExpectationsVsPredictionsInBatches,
                            ExpectationsVsPredictionsInGroupedBatches, ExpectationVsPrediction)
@@ -93,20 +102,19 @@ class Wav2Letter:
                              "(kenlm_directory would be silently ignored).")
         if train_asg_transitions and not use_asg:
             raise ValueError("train_asg_transitions requires use_asg=True.")
+        if use_raw_wave_input and spec_augment:
+            # SpecAugment masks mel bins; on a (samples, 1) waveform any frequency mask
+            # would zero the entire signal.
+            raise ValueError("spec_augment is a mel-feature augmentation and does not "
+                             "apply to the raw-wave model family.")
         for requested, what, item in (
                 (use_asg, "ASG (use_asg)", 13), (mesh is not None, "the mesh (mesh)", 13),
-                (bool(spec_augment), "SpecAugment (spec_augment)", 5),
-                (remat, "remat", 3), (use_raw_wave_input, "the raw-wave model", 3),
-                (dropout is not None, "dropout", 3),
+                (use_raw_wave_input, "the raw-wave model", 3),
                 (activation != "relu", "activation {!r}".format(activation), 3)):
             if requested:
                 raise NotImplementedError(_NOT_PORTED.format(what, item))
-        transfer = (allowed_characters_for_loaded_model is not None
-                    and load_model_from_directory is not None)
-        if transfer and (list(allowed_characters_for_loaded_model) != list(allowed_characters)
-                         or reinitialize_trainable_loaded_layers):
-            raise NotImplementedError(_NOT_PORTED.format(
-                "the cross-charset transfer load (allowed_characters_for_loaded_model)", 7))
+        # True selects the default policy; training only, eval never sees masked features.
+        self.spec_augment = SpecAugment() if spec_augment is True else spec_augment or None
 
         self.device = torch.device(device)
         self.grapheme_encoding = CtcGraphemeCodec(allowed_characters)
@@ -123,7 +131,7 @@ class Wav2Letter:
             compute_dtype = torch.float32 if self.device.type == "cpu" else torch.bfloat16
         self.config = w2l.Wav2LetterConfig(
             input_size_per_time_step, self.grapheme_encoding.grapheme_set_size,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, dropout=dropout, remat=remat)
 
         if self.kenlm_directory is not None:
             expected_characters = list(single(
@@ -153,20 +161,29 @@ class Wav2Letter:
                     "load_epoch is required when load_model_from_directory is set "
                     "(pick one of experiments.available_epochs)")
             load_model_from_directory = Path(load_model_from_directory)
-            params = ckpt.load_params(load_model_from_directory, load_epoch)
+            if allowed_characters_for_loaded_model is None:
+                params = ckpt.load_params(load_model_from_directory, load_epoch)
+            else:
+                params = ckpt.load_params_with_character_remap(
+                    load_model_from_directory, load_epoch,
+                    source_characters=allowed_characters_for_loaded_model,
+                    target_characters=allowed_characters, target_config=self.config,
+                    loaded_first_layers_count=(frozen_layer_count
+                                               if reinitialize_trainable_loaded_layers
+                                               else None),
+                    init_generator=torch.Generator().manual_seed(seed))
             if params and "asg_transitions" in params[-1]:
                 # A trainable-ASG checkpoint: drop the criterion pseudo-layer, as the
                 # JAX facade does for a CTC run.
                 params = params[:-1]
-            if transfer:
-                log("Loading first {0} layers of {1}, epoch {2}, reinitializing the last "
-                    "0.".format(len(params), load_model_from_directory, load_epoch))
-        self.state = init_train_state(self.config, self.optimizer, params=params,
+        self.state = init_train_state(self.config, self.optimizer, seed=seed, params=params,
                                       device=self.device)
-        if load_model_from_directory is not None and not transfer:
+        if load_model_from_directory is not None \
+                and allowed_characters_for_loaded_model is None:
             # Resume: the optimizer state and the step continue where the run stopped
             # (a transfer load starts them fresh, as in the JAX package).
-            ckpt.load_opt_state(load_model_from_directory, load_epoch, self.state.opt_state)
+            ckpt.load_opt_state(load_model_from_directory, load_epoch, self.state.opt_state,
+                                strict=False)
             saved_step = ckpt.load_step(load_model_from_directory, load_epoch)
             if saved_step is not None:
                 self.state.step = saved_step
@@ -311,36 +328,36 @@ class Wav2Letter:
               save_step: int = 1,
               callback_step: int = 1,
               multi_step: int = 1,
-              device_resident_examples: Optional[List[LabeledSpectrogram]] = None) -> None:
+              device_resident_examples: Optional[List[LabeledSpectrogram]] = None,
+              batch_size: int = 64) -> None:
         """Train until interrupted (or ``epoch_limit``). Per epoch: preview predictions
         (every ``callback_step``), a checkpoint (every ``save_step``), a ``scalars.csv``
         row and TensorBoard scalars. The epoch's losses stay on the device and are read
         once at its end. ``multi_step=k`` runs k updates per step call over k stacked
-        batches (`trainer.make_multi_step`); it must divide ``batches_per_epoch``. The
-        device-resident corpus (``device_resident_examples``) is not ported yet."""
+        batches (`trainer.make_multi_step`); it must divide ``batches_per_epoch``.
+
+        ``device_resident_examples``: the whole corpus is packed into device memory once
+        (`data.device_dataset`) and each epoch samples its ``batches_per_epoch`` batches
+        of ``batch_size`` there (`trainer.make_device_epoch_step`);
+        ``labeled_spectrogram_batches`` and ``multi_step`` are then unused."""
         if device_resident_examples is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "the device-resident corpus (data/device_dataset.py)", 9))
+            self._train_device_resident(
+                device_resident_examples, preview_labeled_spectrogram_batch,
+                tensor_board_log_directory, net_directory, batches_per_epoch,
+                epoch_limit=epoch_limit, save_step=save_step, callback_step=callback_step,
+                batch_size=batch_size)
+            return
         if multi_step < 1 or batches_per_epoch % multi_step != 0:
             raise ValueError("multi_step ({}) must be >= 1 and divide batches_per_epoch "
                              "({})".format(multi_step, batches_per_epoch))
         if self._train_step is None or self._train_step[0] != multi_step:
             make = make_train_step if multi_step == 1 else make_multi_step
             self._train_step = (multi_step,
-                                make(self.config, self.optimizer, device=self.device))
+                                make(self.config, self.optimizer, device=self.device,
+                                     spec_augment=self.spec_augment))
         train_step = self._train_step[1]
-
-        def print_preview_batch():
-            log(self.test_and_predict_batch(preview_labeled_spectrogram_batch))
-
-        print_preview_batch()
-
-        mkdir(tensor_board_log_directory)
-        from .train.preemption import GracefulShutdown
-        from .utils.tensorboard import SummaryWriter
-        tensorboard = SummaryWriter(tensor_board_log_directory)
-        scalar_log = Path(tensor_board_log_directory) / "scalars.csv"
-        new_log = not scalar_log.exists()
+        self._print_preview_batch(preview_labeled_spectrogram_batch)
+        tensorboard, scalar_log, new_log = self._open_logs(tensor_board_log_directory)
         if multi_step == 1:
             batches = Prefetcher(iter(labeled_spectrogram_batches),
                                  prepare=self._prepare_batch, depth=2)
@@ -354,9 +371,47 @@ class Wav2Letter:
 
             batches = Prefetcher(chunked(iter(labeled_spectrogram_batches), multi_step),
                                  prepare=prepare_stacked, depth=2)
-        initial_epoch = self.load_epoch if self.load_epoch is not None else 0
-        epoch = initial_epoch
-        with batches, tensorboard, GracefulShutdown() as shutdown, \
+
+        def run_epoch(_epoch):
+            losses = []
+            utterances = 0
+            for _ in range(batches_per_epoch // multi_step):
+                batch, _labels = next(batches)
+                self.state, metrics = train_step(self.state, batch)
+                losses.append(metrics["loss"])
+                # multi-step batches carry a leading steps axis: (k, B, T, F).
+                utterances += (batch.inputs.shape[0] * batch.inputs.shape[1]
+                               if batch.inputs.dim() == 4 else batch.inputs.shape[0])
+            # One device-to-host read per epoch.
+            return float(torch.stack(losses).mean()), utterances
+
+        with batches:
+            self._epoch_loop(run_epoch, "", tensorboard, scalar_log, new_log,
+                             preview_labeled_spectrogram_batch, net_directory,
+                             batches_per_epoch, epoch_limit, save_step, callback_step)
+
+    def _print_preview_batch(self, preview_labeled_spectrogram_batch) -> None:
+        log(self.test_and_predict_batch(preview_labeled_spectrogram_batch))
+
+    @staticmethod
+    def _open_logs(tensor_board_log_directory: Path):
+        mkdir(tensor_board_log_directory)
+        from .utils.tensorboard import SummaryWriter
+        scalar_log = Path(tensor_board_log_directory) / "scalars.csv"
+        return SummaryWriter(tensor_board_log_directory), scalar_log, not scalar_log.exists()
+
+    def _epoch_loop(self, run_epoch, mode: str, tensorboard, scalar_log: Path, new_log: bool,
+                    preview_labeled_spectrogram_batch, net_directory: Path,
+                    batches_per_epoch: int, epoch_limit: Optional[int], save_step: int,
+                    callback_step: int) -> None:
+        """The epochs of either training path: ``run_epoch(epoch) -> (mean loss,
+        utterances)`` trains one; then the log line (``mode`` appended), the
+        ``scalars.csv`` row, TensorBoard, the preview, the checkpoint and the
+        preemption check."""
+        from .train.preemption import GracefulShutdown
+
+        epoch = self.load_epoch if self.load_epoch is not None else 0
+        with tensorboard, GracefulShutdown() as shutdown, \
                 scalar_log.open("a", newline="") as scalar_file:
             writer = csv.writer(scalar_file)
             if new_log:
@@ -364,21 +419,11 @@ class Wav2Letter:
                                  "seconds_per_batch"])
             while epoch_limit is None or epoch < epoch_limit:
                 epoch_start = time.time()
-                losses = []
-                utterances = 0
-                for _ in range(batches_per_epoch // multi_step):
-                    batch, _labels = next(batches)
-                    self.state, metrics = train_step(self.state, batch)
-                    losses.append(metrics["loss"])
-                    # multi-step batches carry a leading steps axis: (k, B, T, F).
-                    utterances += (batch.inputs.shape[0] * batch.inputs.shape[1]
-                                   if batch.inputs.dim() == 4 else batch.inputs.shape[0])
-                # One device-to-host read per epoch.
-                mean_loss = float(torch.stack(losses).mean())
+                mean_loss, utterances = run_epoch(epoch)
                 elapsed = time.time() - epoch_start
                 epoch += 1
-                log("Epoch {}: loss {:.2f}, {:.1f} utterances/s".format(
-                    epoch, mean_loss, utterances / elapsed))
+                log("Epoch {}: loss {:.2f}, {:.1f} utterances/s{}".format(
+                    epoch, mean_loss, utterances / elapsed, mode))
                 writer.writerow([epoch, int(self.state.step), mean_loss,
                                  utterances / elapsed, elapsed / batches_per_epoch])
                 scalar_file.flush()
@@ -386,7 +431,7 @@ class Wav2Letter:
                 tensorboard.add_scalar("utterances_per_second", utterances / elapsed, epoch)
                 tensorboard.flush()
                 if epoch % callback_step == 0:
-                    print_preview_batch()
+                    self._print_preview_batch(preview_labeled_spectrogram_batch)
                 if epoch % save_step == 0 and epoch > 0:
                     self.save(net_directory, epoch)
                 if shutdown.requested:
@@ -395,6 +440,43 @@ class Wav2Letter:
                     log("Preemption ({}): checkpointed epoch {}; exiting the training "
                         "loop.".format(shutdown.signal_name, epoch))
                     break
+
+    def _train_device_resident(self, examples: List[LabeledSpectrogram],
+                               preview_labeled_spectrogram_batch: List[LabeledSpectrogram],
+                               tensor_board_log_directory: Path, net_directory: Path,
+                               batches_per_epoch: int, epoch_limit: Optional[int] = None,
+                               save_step: int = 1, callback_step: int = 1,
+                               batch_size: int = 64) -> None:
+        """The epoch loop over a device-resident corpus: one `make_device_epoch_step`
+        call an epoch, its batches sampled on the device by a generator seeded from 42
+        and the epoch (the JAX facade folds the epoch into key 42)."""
+        from .data.device_dataset import build_device_dataset
+        from .train.trainer import make_device_epoch_step
+
+        if batch_size > len(examples):
+            raise ValueError("batch_size {} exceeds corpus size {}".format(
+                batch_size, len(examples)))
+        load_start = time.time()
+        dataset, megabytes = build_device_dataset(
+            examples, self.grapheme_encoding, self.device,
+            compute_dtype=self.config.compute_dtype)
+        log("Device-resident corpus: {} examples, {:.0f} MB in HBM (packed + transferred "
+            "in {:.1f}s).".format(len(examples), megabytes, time.time() - load_start))
+        epoch_fn = make_device_epoch_step(self.config, self.optimizer, batch_size=batch_size,
+                                          steps=batches_per_epoch,
+                                          spec_augment=self.spec_augment)
+
+        def run_epoch(epoch):
+            seed = int(np.random.SeedSequence([42, epoch]).generate_state(1)[0])
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+            self.state, metrics = epoch_fn(self.state, dataset, generator)
+            return float(metrics["loss"]), batches_per_epoch * batch_size
+
+        self._print_preview_batch(preview_labeled_spectrogram_batch)
+        tensorboard, scalar_log, new_log = self._open_logs(tensor_board_log_directory)
+        self._epoch_loop(run_epoch, " (device-resident)", tensorboard, scalar_log, new_log,
+                         preview_labeled_spectrogram_batch, net_directory,
+                         batches_per_epoch, epoch_limit, save_step, callback_step)
 
     def save(self, net_directory: Path, epoch: int) -> Path:
         """Checkpoint weights, optimizer state and step as ``weights-epoch{epoch}.npz``."""

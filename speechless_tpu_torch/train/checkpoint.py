@@ -5,16 +5,21 @@ parameters in the JAX layout, the optimizer state as ``opt.{i}`` (the leaves of 
 optax state in ``tree_leaves`` order) and the global ``step``. The port writes and reads
 the same files, and its optimizer state converts to and from those leaves
 (`trainer.OptimizerState.leaves`), so either package resumes the other's run when both
-use the same optimizer options. The reference's Keras ``.h5`` fallback, checkpoint
-averaging and the character-remap transfer load are not ported yet (ROADMAP.md, item 7).
+use the same optimizer options. `average_checkpoint_params` averages epochs of one run
+(the CLI's ``average``) and `load_params_with_character_remap` is the transfer load
+(the CLI's ``transfer``). The reference's Keras ``.h5`` fallback is not ported yet
+(ROADMAP.md, item 7).
 """
 import os
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
+import torch
 
+from ..models import wav2letter as w2l
 from ..models.wav2letter import Params
+from ..utils.tools import log
 
 
 def model_file_name(epoch: int) -> str:
@@ -49,16 +54,24 @@ def load_step(directory: Path, epoch: int) -> Optional[int]:
         return int(data["step"]) if "step" in data.files else None
 
 
-def load_opt_state(directory: Path, epoch: int, opt_state):
+def load_opt_state(directory: Path, epoch: int, opt_state, strict: bool = True):
     """Load the saved optimizer leaves into ``opt_state`` (a `trainer.OptimizerState`
     built with the options of the run that wrote them) and return it; None when the
-    checkpoint holds no optimizer state. Raises when the leaves do not fit the options
-    (another optimizer's state is never loaded quietly)."""
+    checkpoint holds no optimizer state. When the count of leaves does not fit the
+    options (another optimizer's state, or another set of frozen layers) it raises, or
+    with ``strict=False`` logs and returns None, as the JAX package's load does (the
+    facade loads a transfer run's checkpoint to evaluate it with all layers
+    trainable)."""
     with np.load(str(Path(directory) / model_file_name(epoch))) as data:
         keys = sorted((k for k in data.files if k.startswith("opt.")),
                       key=lambda k: int(k.split(".")[1]))
         leaves = [np.asarray(data[k]) for k in keys]
     if not leaves:
+        return None
+    expected = len(opt_state.leaves())
+    if not strict and len(leaves) != expected:
+        log("Checkpoint optimizer state has {} leaves, expected {}; ignoring it.".format(
+            len(leaves), expected))
         return None
     opt_state.load_leaves(leaves)
     return opt_state
@@ -86,3 +99,75 @@ def load_params_npz(path: Path) -> Params:
 def load_params(directory: Path, epoch: int) -> Params:
     """Load ``directory/weights-epoch{epoch}.npz``."""
     return load_params_npz(Path(directory) / model_file_name(epoch))
+
+
+def average_checkpoint_params(directory: Path, epochs: List[int]) -> Params:
+    """The uniform average of the parameters of several epoch checkpoints of one run,
+    accumulated in float64 and returned as float32 (weights only: optimizer state means
+    nothing for an averaged model). All checkpoints must share one structure: the same
+    layers, keys and shapes."""
+    if not epochs:
+        raise ValueError("need at least one epoch to average")
+    accumulated: Optional[List[dict]] = None
+    for epoch in epochs:
+        params = load_params(directory, epoch)
+        if accumulated is None:
+            accumulated = [{key: np.asarray(value, np.float64) for key, value in layer.items()}
+                           for layer in params]
+            continue
+        if len(params) != len(accumulated) or any(
+                sorted(layer) != sorted(acc) for layer, acc in zip(params, accumulated)):
+            raise ValueError(
+                "checkpoint structure of epoch {} does not match epoch {} — checkpoints "
+                "of different runs (or with/without trained ASG tables) cannot be "
+                "averaged".format(epoch, epochs[0]))
+        for acc, layer in zip(accumulated, params):
+            for key, value in layer.items():
+                if value.shape != acc[key].shape:
+                    raise ValueError(
+                        "epoch {} parameter {!r} has shape {} vs epoch {}'s {}".format(
+                            epoch, key, value.shape, epochs[0], acc[key].shape))
+                acc[key] += value
+    scale = 1.0 / len(epochs)
+    return [{key: (value * scale).astype(np.float32) for key, value in layer.items()}
+            for layer in accumulated]
+
+
+def load_params_with_character_remap(
+        directory: Path, epoch: int, source_characters: List[str],
+        target_characters: List[str], target_config: w2l.Wav2LetterConfig,
+        loaded_first_layers_count: Optional[int] = None,
+        init_generator: Optional[torch.Generator] = None) -> Params:
+    """The transfer load: the donor checkpoint's first ``loaded_first_layers_count``
+    layers (default: all), its output layer remapped to ``target_characters``
+    (`w2l.remap_output_layer`), and fresh layers beyond the count, drawn from
+    ``init_generator`` (a CPU generator; default seeded with 0) by
+    `w2l.init_params_from_generator`. The JAX package draws its fresh layers from a JAX
+    key, which torch does not reproduce."""
+    donor = load_params(directory, epoch)
+    layer_count = len(target_config.layers)
+    if loaded_first_layers_count is None:
+        loaded_first_layers_count = layer_count
+    if init_generator is None:
+        init_generator = torch.Generator().manual_seed(0)
+    fresh = w2l.init_params_from_generator(target_config, init_generator)
+
+    ignored = sorted(set(source_characters) - set(target_characters))
+    if ignored:
+        log("Ignoring characters {} from loaded model.".format(ignored))
+    extra = sorted(set(target_characters) - set(source_characters))
+    if extra:
+        log("Initializing extra characters {} not found in model.".format(extra))
+    log("Loading first {} layers of {}, epoch {}, reinitializing the last {}.".format(
+        loaded_first_layers_count, directory, epoch, layer_count - loaded_first_layers_count))
+
+    params: Params = []
+    for i in range(layer_count):
+        if i >= loaded_first_layers_count:
+            params.append(fresh[i])
+        elif i == layer_count - 1:
+            params.append(w2l.remap_output_layer(donor[i], source_characters,
+                                                 target_characters))
+        else:
+            params.append(dict(donor[i]))
+    return params

@@ -11,14 +11,18 @@
   update count, in the order the JAX package chains them;
 * steps: `make_train_step` (features in), `make_wav_train_step` (raw audio in, features
   on the device), `make_multi_step` and `make_multi_wav_step` (k updates per call with
-  no host sync between them, over feature or raw-audio batches), plus `make_eval_step`.
+  no host sync between them, over feature or raw-audio batches), `make_device_epoch_step`
+  (a whole epoch over a device-resident corpus, `data/device_dataset.py`: each step's
+  rows sampled and gathered on the device), plus `make_eval_step`;
+* each update applies SpecAugment to its features when asked (`ops/specaugment.py`) and
+  the model's dropout and remat (`models/wav2letter.py`); their draws come from the
+  state's `torch.Generator`, on the state's device, where the JAX step splits a key.
 
 PyTorch runs eagerly, so a "step" is a Python function over a mutable `TrainState`: it
 updates the model and optimizer in place and returns the same state, where the JAX step
 returns a new one. Every step runs with TF32 off (`precision.ieee_fp32`): fp32 training
 is IEEE fp32 in the forward and the backward, and bf16 training is bf16 either way.
-Only the ``"ctc"`` criterion is ported; ASG, SpecAugment, dropout and remat are queued
-in ROADMAP.md.
+Only the ``"ctc"`` criterion is ported; ASG is queued in ROADMAP.md (item 13).
 """
 import math
 from dataclasses import dataclass
@@ -30,6 +34,7 @@ import torch
 from ..features.spectrogram import features_batch
 from ..models import wav2letter as w2l
 from ..ops.ctc_kernels import ctc_loss_from_logits
+from ..ops.specaugment import SpecAugment, apply_spec_augment
 from ..precision import ieee_fp32
 
 DEFAULT_DEVICE = "cuda:0"
@@ -284,10 +289,12 @@ class OptimizerState:
 
 @dataclass
 class TrainState:
-    """The model (fp32 parameters on the device), its optimizer state and the step."""
+    """The model (fp32 parameters on the device), its optimizer state, the step, and the
+    generator on the model's device that SpecAugment and dropout draw from."""
     step: int
     model: w2l.Wav2Letter
     opt_state: OptimizerState
+    generator: torch.Generator
 
     @property
     def params(self) -> w2l.Params:
@@ -298,11 +305,14 @@ class TrainState:
 def init_train_state(config: w2l.Wav2LetterConfig, optimizer: Optimizer, seed: int = 0,
                      params: Optional[w2l.Params] = None,
                      device=DEFAULT_DEVICE) -> TrainState:
-    """A fresh state on ``device``: ``params`` (JAX layout) or `w2l.init_params(seed)`."""
+    """A fresh state on ``device``: ``params`` (JAX layout) or `w2l.init_params(seed)`,
+    and a generator on ``device`` seeded with ``seed``."""
     if params is None:
         params = w2l.init_params(config, seed)
     model = w2l.build_model(config, params, device=device).train()
-    return TrainState(step=0, model=model, opt_state=optimizer.init(model))
+    generator = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    return TrainState(step=0, model=model, opt_state=optimizer.init(model),
+                      generator=generator)
 
 
 def _batch_to(batch, device) -> tuple:
@@ -318,12 +328,17 @@ def _check_criterion(criterion: str) -> None:
 
 
 def loss_fn(config: w2l.Wav2LetterConfig, model: w2l.Wav2Letter, batch: Batch,
-            criterion: str = "ctc") -> Tuple[torch.Tensor, torch.Tensor]:
+            criterion: str = "ctc", train: bool = True,
+            generator: Optional[torch.Generator] = None,
+            dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean CTC loss over the batch, and the per-example losses. Examples whose label
     needs more frames than they have (length plus adjacent repeats > frames) admit no
-    alignment and score 0, as in the JAX package."""
+    alignment and score 0, as in the JAX package. ``train`` runs the model's dropout
+    (masks given, or drawn from ``generator``) and remat."""
     _check_criterion(criterion)
-    logits = model(batch.inputs)
+    logits = model(batch.inputs, train=train, dropout_masks=dropout_masks,
+                   generator=generator)
     logit_lengths = w2l.prediction_lengths(config, batch.input_lengths).to(torch.int32)
     labels, label_lengths = batch.labels, batch.label_lengths
     per_example = ctc_loss_from_logits(logits, logit_lengths, labels, label_lengths,
@@ -334,9 +349,14 @@ def loss_fn(config: w2l.Wav2LetterConfig, model: w2l.Wav2Letter, batch: Batch,
     return per_example.mean(), per_example
 
 
-def _update(config, criterion, state: TrainState, batch: Batch):
+def _update(config, criterion, state: TrainState, batch: Batch,
+            spec_augment: Optional[SpecAugment] = None):
     with ieee_fp32():
-        loss, per_example = loss_fn(config, state.model, batch, criterion)
+        if spec_augment is not None:
+            batch = batch._replace(inputs=apply_spec_augment(
+                batch.inputs, batch.input_lengths, spec_augment, generator=state.generator))
+        loss, per_example = loss_fn(config, state.model, batch, criterion,
+                                    generator=state.generator)
         loss.backward()
         state.opt_state.step()
     state.step += 1
@@ -349,34 +369,39 @@ def _wav_features(batch: WavBatch) -> Batch:
 
 
 def make_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
-                    criterion: str = "ctc", device=DEFAULT_DEVICE):
+                    criterion: str = "ctc", device=DEFAULT_DEVICE,
+                    spec_augment: Optional[SpecAugment] = None):
     """``(state, Batch) -> (state, {"loss", "per_example_loss"})``: one update on
-    ``device`` (the batch is moved there; the state must be there already)."""
+    ``device`` (the batch is moved there; the state must be there already), with
+    SpecAugment on the features when ``spec_augment`` is given."""
     del optimizer  # bound into the state by `init_train_state`
 
     def train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
-        loss, per_example = _update(config, criterion, state, _batch_to(batch, device))
+        loss, per_example = _update(config, criterion, state, _batch_to(batch, device),
+                                    spec_augment)
         return state, {"loss": loss, "per_example_loss": per_example}
 
     return train_step
 
 
 def make_wav_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
-                        criterion: str = "ctc", device=DEFAULT_DEVICE):
+                        criterion: str = "ctc", device=DEFAULT_DEVICE,
+                        spec_augment: Optional[SpecAugment] = None):
     """``(state, WavBatch) -> (state, metrics)``: features on the device, then one
     update, as `make_train_step`."""
     del optimizer
 
     def train_step(state: TrainState, batch: WavBatch) -> Tuple[TrainState, Dict]:
         features = _wav_features(_batch_to(batch, device))
-        loss, per_example = _update(config, criterion, state, features)
+        loss, per_example = _update(config, criterion, state, features, spec_augment)
         return state, {"loss": loss, "per_example_loss": per_example}
 
     return train_step
 
 
 def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
-                        criterion: str = "ctc", device=DEFAULT_DEVICE):
+                        criterion: str = "ctc", device=DEFAULT_DEVICE,
+                        spec_augment: Optional[SpecAugment] = None):
     """``(state, stacked WavBatch) -> (state, {"loss": mean, "step_losses": (k,)})``:
     k fused updates (features, forward, CTC, backward, Adam), one per row of the
     leading steps axis, with no host sync between them; the losses stay on the
@@ -388,7 +413,8 @@ def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
         losses = []
         for index in range(stacked.wavs.shape[0]):
             micro = WavBatch(*(field[index] for field in stacked))
-            losses.append(_update(config, criterion, state, _wav_features(micro))[0])
+            losses.append(_update(config, criterion, state, _wav_features(micro),
+                                  spec_augment)[0])
         losses = torch.stack(losses)
         return state, {"loss": losses.mean(), "step_losses": losses}
 
@@ -396,7 +422,8 @@ def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
 
 
 def make_multi_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
-                    criterion: str = "ctc", device=DEFAULT_DEVICE):
+                    criterion: str = "ctc", device=DEFAULT_DEVICE,
+                    spec_augment: Optional[SpecAugment] = None):
     """``(state, stacked Batch) -> (state, {"loss": mean, "step_losses": (k,)})``: k
     updates over feature batches stacked on a leading steps axis
     (`data.batching.stack_batches`), one per row, with no host sync between them; the
@@ -406,11 +433,62 @@ def make_multi_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
     def multi_step(state: TrainState, stacked: Batch) -> Tuple[TrainState, Dict]:
         stacked = _batch_to(stacked, device)
         losses = torch.stack([
-            _update(config, criterion, state, Batch(*(field[index] for field in stacked)))[0]
+            _update(config, criterion, state, Batch(*(field[index] for field in stacked)),
+                    spec_augment)[0]
             for index in range(stacked.inputs.shape[0])])
         return state, {"loss": losses.mean(), "step_losses": losses}
 
     return multi_step
+
+
+def sample_indices(example_count: int, batch_size: int, steps: int,
+                   generator: torch.Generator) -> torch.Tensor:
+    """``(steps, batch_size)`` int64 corpus rows, each step's drawn uniformly without
+    replacement within the batch (the reference's `random.sample`), on the generator's
+    device."""
+    return torch.stack([torch.randperm(example_count, generator=generator,
+                                       device=generator.device)[:batch_size]
+                        for _ in range(steps)])
+
+
+def make_device_epoch_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+                           batch_size: int, steps: int, criterion: str = "ctc",
+                           spec_augment: Optional[SpecAugment] = None):
+    """``(state, dataset, generator=None, indices=None) -> (state, {"loss": mean,
+    "step_losses": (steps,)})``: ``steps`` updates over a device-resident corpus
+    (`data.device_dataset.DeviceDataset`, on the state's device). Each step's
+    ``batch_size`` rows come from ``indices`` (``(steps, batch_size)``, e.g. JAX's
+    `jax.random.choice` draws) or are drawn on the device from ``generator``
+    (`sample_indices`), and are gathered with `index_select`: no feature or label byte
+    crosses from the host. The losses stay on the device."""
+    del optimizer
+    if batch_size < 1 or steps < 1:
+        raise ValueError("batch_size ({}) and steps ({}) must be >= 1".format(batch_size,
+                                                                               steps))
+
+    def epoch_step(state: TrainState, dataset, generator: Optional[torch.Generator] = None,
+                   indices=None) -> Tuple[TrainState, Dict]:
+        count = dataset.example_count
+        if batch_size > count:
+            raise ValueError("batch_size {} exceeds corpus size {}".format(batch_size, count))
+        device = dataset.inputs.device
+        if indices is None:
+            if generator is None:
+                raise ValueError("epoch_step needs a generator or the indices")
+            indices = sample_indices(count, batch_size, steps, generator)
+        else:
+            indices = torch.as_tensor(indices).to(device=device, dtype=torch.int64)
+            if tuple(indices.shape) != (steps, batch_size):
+                raise ValueError("indices of shape {}, expected {}".format(
+                    tuple(indices.shape), (steps, batch_size)))
+        losses = torch.stack([
+            _update(config, criterion, state,
+                    Batch(*(field.index_select(0, rows) for field in dataset)),
+                    spec_augment)[0]
+            for rows in indices])
+        return state, {"loss": losses.mean(), "step_losses": losses}
+
+    return epoch_step
 
 
 def make_eval_step(config: w2l.Wav2LetterConfig, criterion: str = "ctc"):

@@ -100,12 +100,17 @@ ALLOWED_FROM_JAX_PACKAGE = set()  # the port keeps its own copies (text/, utils/
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No module of the port and nothing in `chip_smoke.py` or the card's timing scripts
-    imports jax or any module of `speechless_tpu`."""
+    """No module of the port (`data/german.py`, `data/device_dataset.py` and
+    `ops/specaugment.py` among them) and nothing in `chip_smoke.py` or the card's timing
+    and quality scripts imports jax or any module of `speechless_tpu`."""
     import ast
 
     sources = sorted((REPO / "speechless_tpu_torch").rglob("*.py")) + [
-        REPO / name for name in ("chip_smoke.py", "ctc_step_split.py", "backtrace_split.py")]
+        REPO / name for name in ("chip_smoke.py", "ctc_step_split.py", "backtrace_split.py",
+                                 "synthetic_quality.py")]
+    names = {path.relative_to(REPO / "speechless_tpu_torch").as_posix() for path in sources
+             if path.is_relative_to(REPO / "speechless_tpu_torch")}
+    assert {"data/german.py", "data/device_dataset.py", "ops/specaugment.py"} <= names
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(encoding="utf8"))):
             if isinstance(node, ast.Import):

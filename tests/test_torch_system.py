@@ -240,8 +240,8 @@ def test_logged_run_and_registry(runs, tmp_path):
     registry.run(0)
     report = runs["config"].directories.test_results_directory / "port-2.txt"
     assert "All corpora: Average over 1 examples" in report.read_text()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        runs["config"].load_german_model("port", 2)
+    german = runs["config"].load_german_model("port", 2, device="cpu")
+    assert german.state.step == 0 and german.config.grapheme_set_size == 29
 
 
 def test_validate_to_csv(runs, tmp_path):
@@ -254,31 +254,44 @@ def test_validate_to_csv(runs, tmp_path):
 
 
 def test_facade_refusals(tmp_path):
+    """What the facade still refuses, with the ROADMAP.md item named; SpecAugment,
+    remat, dropout, the transfer load and the German configurations now construct."""
+    from speechless_tpu_torch.ops.specaugment import SpecAugment
+    from speechless_tpu_torch.text.charsets import german_frequent_characters
+
     chars = english_frequent_characters
     with pytest.raises(ValueError, match="frozen"):
         Wav2Letter(128, chars, frozen_layer_count=3, device="cpu")
     for kwargs, item in (({"use_asg": True}, "13"), ({"mesh": object()}, "13"),
-                         ({"spec_augment": True}, "5"), ({"remat": True}, "3"),
-                         ({"use_raw_wave_input": True}, "3"), ({"dropout": 0.1}, "3"),
-                         ({"activation": "tanh"}, "3")):
+                         ({"use_raw_wave_input": True}, "3"), ({"activation": "tanh"}, "3")):
         with pytest.raises(NotImplementedError, match="item {}".format(item)):
             Wav2Letter(128, chars, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Wav2Letter(128, chars, load_model_from_directory=tmp_path, load_epoch=0,
-                   allowed_characters_for_loaded_model=chars[:-1], device="cpu")
+    with pytest.raises(ValueError, match="raw-wave"):
+        Wav2Letter(1, chars, use_raw_wave_input=True, spec_augment=True, device="cpu")
+    trained = Wav2Letter(128, chars, spec_augment=True, remat=True, dropout=0.1, device="cpu")
+    assert trained.spec_augment == SpecAugment()
+    assert trained.config.remat and trained.config.dropout == 0.1
+    assert [spec.dropout_before for spec in trained.config.layers] == [True] * 8 + [False] * 3
     kenlm = tmp_path / "kenlm"
     kenlm.mkdir()
     (kenlm / "vocabulary").write_text("".join(chars).upper()[::-1])
     with pytest.raises(ValueError, match="differ"):
         Wav2Letter(128, chars, kenlm_directory=kenlm, device="cpu")
-    for factory in (Configuration.german, Configuration.mixed_german_english):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            factory()
+    directories = DataDirectories(tmp_path)
+    assert Configuration.german(directories=directories).allowed_characters \
+        == german_frequent_characters
+    mixed = Configuration.mixed_german_english(directories)
+    assert (mixed.name, mixed.allowed_characters) == ("mixed-English-German",
+                                                      german_frequent_characters)
 
 
 def test_device_resident_refuses(runs):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        runs["config"].train(runs["port"], run_name="x", epoch_limit=1, device_resident=True)
+    """The device-resident path refuses a batch larger than the training corpus (3
+    utterances) before it packs anything."""
+    with pytest.raises(ValueError, match="exceeds corpus size"):
+        runs["config"].train(runs["port"], run_name="x", epoch_limit=1, device_resident=True,
+                             batch_size=4)
+    assert not (runs["config"].directories.tensorboard_log_base_directory / "x").exists()
 
 
 @pytest.fixture(scope="module")
@@ -315,17 +328,24 @@ def test_cli_workflow_on_the_cpu(cli_data, caplog):
         assert "All corpora: Average over" in caplog.text
 
 
+# The ids are those the cases had when --device-resident, --spec-augment, --remat and
+# the German configurations were refused (argv0-2, argv5-6); those cases now check the
+# refusals of `average`, of `transfer`'s parser and of the German configuration's test.
 @pytest.mark.parametrize("argv, message", [
-    (["train", "--device-resident"], "--device-resident is not ported"),
-    (["train", "--spec-augment"], "--spec-augment is not ported"),
-    (["train", "--remat"], "--remat is not ported"),
+    (["average", "--run", "r", "--last", "0"], "--last must be >= 1"),
+    (["average", "--run", "r", "--epochs", "1", "2", "--write-epoch", "2"], "overwrite"),
+    (["average", "--run", "missing"], "no checkpoints under"),
     (["train", "--lr-decay", "cosine"], "--lr-decay requires --lr-decay-steps"),
     (["train", "--lr-decay-steps", "9"], "has no effect without --lr-decay"),
-    (["train", "--config", "german"], "item 9"),
-    (["summarize", "--config", "mixed_german_english"], "item 9"),
+    (["transfer", "--config", "german", "--freeze", "x"], "invalid int value"),
+    (["test", "--config", "mixed_german_english", "--run", "r", "--epoch", "1",
+      "--beam-width", "8"], "require --kenlm"),
     (["fill-cache", "--config", "nope"], "Unknown configuration"),
     (["test", "--run", "r", "--epoch", "1", "--lm-weight", "2"], "require --kenlm"),
-])
+], ids=["argv0---device-resident is not ported", "argv1---spec-augment is not ported",
+        "argv2---remat is not ported", "argv3---lr-decay requires --lr-decay-steps",
+        "argv4-has no effect without --lr-decay", "argv5-item 9", "argv6-item 9",
+        "argv7-Unknown configuration", "argv8-require --kenlm"])
 def test_cli_refusals(cli_data, capsys, argv, message):
     with pytest.raises(SystemExit) as raised:
         main([*argv, "--data-dir", str(cli_data)])
