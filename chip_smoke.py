@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: LM-fused serving, streaming
-sessions, offline decoding on every beam route, training, and the training and
-evaluation facade.
+sessions, offline decoding on every beam route, training, the training and evaluation
+facade, and the Transcriber's other routes (int8 serving, alignment, FLAC, the beam
+warm-up).
 
     python3 chip_smoke.py [--profile]
 
@@ -140,6 +141,22 @@ source, all started together) and prints ptxas's registers and spills, then:
   a resident corpus of train-clean-100's size (28,539 x 3,072 frames x 128 mel fp16,
   22.4 GB) built on the card and 4 steps at B=64 timed by CUDA events, the sampling and
   gather split off.
+* phase H (after phase E, on phase B's seeded weights and LM): `Transcriber(
+  quantize_weights=True)` on the 16 x 8 s batch with the LM beam (one span and one
+  backtrace launch a batch): served log-probs within `FP32_TOLERANCE` of the same int8
+  model on the CPU and transcripts equal to the plain loop's on the same log-probs; the
+  weights' device bytes and the per-call dequantize; the same for `int8_compute=True`,
+  with big_conv_1's and big_conv_2's int32 sums on the card equal to an exact CPU
+  product of the same x_q, the log-prob gap card vs CPU within `INT8_LOGPROB_LIMIT`, the
+  int8 product's time beside the fp32 conv's; how many rows' transcripts of the CPU's
+  own log-probs equal the card's (fp32, weight-only, int8); the alignment of an 8 s
+  request to its greedy transcript, spans equal to the CPU Viterbi's on the same
+  log-probs; the request as FLAC and as wav through ``transcribe`` (the same line); a
+  fresh ``serve --warm-beam --no-warm-up`` process, which must load the span and stitch
+  kernels before it binds and none during a first beam session; one quantized resident
+  device-pool session against the host pool's sync beam; `measure_latency(4.0)`. After
+  phase G: ``transcribe --config english --run R --epoch 2`` on phase F's run prints
+  what ``--checkpoint`` on the same file prints.
 * with ``--facade-only``: the kernel builds and phases F and G alone, and no result.
 * with ``--profile`` only: the split of one 16 x 8 s `transcribe_batch` into features,
   model and beam, single-request latencies, and the device's busy share and kernel
@@ -3114,6 +3131,462 @@ def phase_g(device, card: str, facade: dict, data: Path) -> dict:
     return numbers
 
 
+# ---- phase H: the rest of the Transcriber's routes ---------------------------------------
+# int8 compute on the card vs the CPU: the activation scales are per tensor, so an fp32
+# trunk that rounds otherwise on the card moves some x_q by one step, and the log-probs
+# by more than the fp32 limit: 2.50e-3 at most on phase B's batch on an NVIDIA H100 80GB
+# HBM3 (700 W), with 63 and 28,046 x_q entries one step apart at big_conv_1 and
+# big_conv_2. The limit is four times that.
+INT8_LOGPROB_LIMIT = 1e-2
+WARM_BEAM_KERNELS = {"lm_beam_span", "stream_stitch"}  # what a kernel-route beam feed loads
+
+
+def exact_int8_sums(x_q, w_q, spec):
+    """The int32 sums of a SAME-padded int8 conv computed exactly on the CPU: ``x_q``
+    ``(B, Cin, T)`` and ``w_q`` ``(Cout, Cin, K)`` as float64, unfolded and multiplied
+    (every product and partial sum is an integer below ``Cin * K * 127**2 < 2**53``, so
+    float64 is exact in any order), returned as int64 ``(B, T', Cout)``."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechless_tpu_torch.models.wav2letter import same_padding
+
+    batch, _, frames = x_q.shape
+    x = F.pad(x_q.to(torch.float64), same_padding(frames, spec.kernel_size, spec.stride))
+    columns = x.unfold(2, spec.kernel_size, spec.stride).permute(0, 2, 1, 3)
+    out_frames = columns.shape[1]
+    sums = columns.reshape(batch * out_frames, -1) @ w_q.to(torch.float64).reshape(
+        w_q.shape[0], -1).t()
+    return sums.round().to(torch.int64).reshape(batch, out_frames, -1)
+
+
+def kernel_loads(lines):
+    """The kernel names of `_kernels`' "loaded kernel <name>" log lines."""
+    return [line.split("loaded kernel ", 1)[1].split()[0] for line in lines
+            if "loaded kernel " in line]
+
+
+def warm_beam_server(npz: Path, lm_directory: Path, audio, device) -> dict:
+    """A fresh ``serve --warm-beam --no-warm-up`` process on the host pool: the kernels
+    it loads before it binds, then one ``/v1/stream`` beam session fed ``audio`` in
+    0.5 s chunks and finished, and the kernels loaded after the bind."""
+    import queue
+    import signal
+
+    process = subprocess.Popen(
+        [sys.executable, "-m", "speechless_tpu_torch", "serve", "--checkpoint", str(npz),
+         "--kenlm", str(lm_directory), "--warm-beam", "--no-warm-up", "--port", "0",
+         "--device", str(device)], cwd=str(ROOT), stderr=subprocess.PIPE, text=True)
+    lines = queue.Queue()
+
+    def read_log():
+        for log_line in process.stderr:
+            lines.put(log_line)
+        lines.put(None)
+
+    threading.Thread(target=read_log, daemon=True).start()
+    start, before, after = time.perf_counter(), [], []
+    try:
+        while not before or "serving on http://" not in before[-1]:
+            before.append(lines.get(timeout=600))
+            check(before[-1] is not None, "serve --warm-beam exited: {}".format(
+                "".join(before[:-1])[-3000:]))
+        bound_s = time.perf_counter() - start
+        port = int(before[-1].rsplit(":", 1)[1].split()[0])
+        status, created, _ = http_request(port, "/v1/stream", b'{"partial_decode": "beam"}')
+        check(status == 200, "stream create answered {}".format(status))
+        sid = created["session"]
+        feeds = []
+        for begin in range(0, len(audio), 8000):
+            status, _, seconds = http_request(port, "/v1/stream/" + sid,
+                                              audio[begin:begin + 8000].astype("<f4")
+                                              .tobytes(), "application/octet-stream")
+            check(status == 200, "a stream feed answered {}".format(status))
+            feeds.append(seconds)
+        status, final, _ = http_request(port, "/v1/stream/{}/finish".format(sid))
+        check(status == 200, "the stream finish answered {}".format(status))
+    finally:
+        process.send_signal(signal.SIGINT)
+        try:
+            process.wait(timeout=60)
+        finally:
+            process.kill()
+    while True:
+        line = lines.get(timeout=60)
+        if line is None:
+            break
+        after.append(line)
+    return {"before": kernel_loads(before), "after": kernel_loads(after),
+            "bound_s": bound_s, "feeds_s": feeds, "text": final["text"]}
+
+
+def phase_h(device, card: str, transcriber, batch, lm_directory: Path, batch_s: float
+            ) -> dict:
+    """The rest of the Transcriber's routes at full width on phase B's weights and LM:
+    weight-only int8 and int8-compute serving (card vs CPU), forced alignment (card vs
+    CPU Viterbi), FLAC input through ``transcribe``, the host pool's beam warm-up in a
+    fresh ``serve --warm-beam`` process, a quantized resident device-pool session
+    against the host pool, and `measure_latency`."""
+    import contextlib
+    import io
+
+    import scipy.io.wavfile as wavfile
+    import torch
+
+    from speechless_tpu_torch.__main__ import main as cli
+    from speechless_tpu_torch.features.flac_encoder import encode_flac
+    from speechless_tpu_torch.features.spectrogram import features_batch
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.ops import beam_common, decode_lm
+    from speechless_tpu_torch.ops.decode_incremental_kernel import stream_stitch
+    from speechless_tpu_torch.ops.device_beam import beam_search_decode_device
+    from speechless_tpu_torch.ops.forced_align import ctc_forced_align
+    from speechless_tpu_torch.precision import ieee_fp32
+    from speechless_tpu_torch.serving import CHARSETS, Transcriber, grouped_padded_batches
+    from speechless_tpu_torch.serving_streaming import StreamingSessionPool
+
+    alphabet = CHARSETS["english"]
+    config = transcriber.config
+    params = serving_params(config)
+    numbers = {"launches": {}, "walls_s": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        numbers["walls_s"][name] = round(now - clock[0], 3)
+        clock[0] = now
+
+    def reset():
+        decode_lm.lm_span.launches = decode_lm.lm_step.launches = 0
+        beam_common.beam_backtrace.launches = stream_stitch.launches = 0
+
+    def launches():
+        return {"lm_beam_span": decode_lm.lm_span.launches,
+                "beam_backtrace": beam_common.beam_backtrace.launches,
+                "stream_stitch": stream_stitch.launches,
+                "lm_beam_step": decode_lm.lm_step.launches}
+
+    _, wavs, lengths = next(grouped_padded_batches(batch, transcriber._bucket, 16))
+    with torch.inference_mode():
+        cpu_features, _ = features_batch(torch.from_numpy(wavs), torch.from_numpy(lengths))
+        features, _ = features_batch(torch.from_numpy(wavs).to(device),
+                                     torch.from_numpy(lengths).to(device))
+
+    def card_and_cpu(card_transcriber, cpu_transcriber, plain=True):
+        """Served log-probs of the 16 x 8 s group on the card and the same model's on
+        the CPU, the valid-frame mask, the plain loop's transcripts of the card's
+        log-probs on the card (``plain``; the kernels must give the same) and the
+        transcripts of the CPU's own log-probs through the CPU's beam."""
+        with torch.inference_mode():
+            log_probs, frames = card_transcriber._log_probs(wavs, lengths)
+            cpu_log_probs = torch.log_softmax(cpu_transcriber.model(cpu_features), dim=-1)
+            decoder = cpu_transcriber._decoder
+            texts = []
+            if plain:
+                tokens, counts = decode_lm._beam_search(
+                    log_probs, frames, card_transcriber.blank_index,
+                    card_transcriber.word_lm, decoder["beam_width"], log_probs.shape[1],
+                    decoder["lm_weight"], decoder["word_count_weight"],
+                    decoder["valid_word_count_weight"], decoder["prune_classes"],
+                    step=decode_lm.lm_step_reference)
+                texts.append((tokens.cpu(), counts.cpu()))
+            texts.append(beam_search_decode_device(
+                cpu_log_probs, frames.cpu(), blank=cpu_transcriber.blank_index,
+                word_lm=cpu_transcriber.word_lm, max_decoded_length=cpu_log_probs.shape[1],
+                **decoder))
+        texts = [[cpu_transcriber.codec.decode_graphemes(
+            tokens[row, :int(counts[row])].tolist(), merge_repeated=False)
+            for row in range(len(batch))] for tokens, counts in texts]
+        valid = torch.arange(log_probs.shape[1])[None, :] < frames.cpu()[:, None]
+        return log_probs.cpu(), cpu_log_probs, valid, texts
+
+    def served(route_transcriber, name):
+        """``transcribe_batch`` of the 16 x 8 s batch: the texts, the launches of one
+        call and the ms a batch over 5 timed calls."""
+        route_transcriber.transcribe_batch(batch)
+        torch.cuda.synchronize()
+        reset()
+        texts = [text for text, _ in route_transcriber.transcribe_batch(batch)]
+        torch.cuda.synchronize()
+        numbers["launches"][name] = launches()
+        check(numbers["launches"][name] == {"lm_beam_span": 1, "beam_backtrace": 1,
+                                            "stream_stitch": 0, "lm_beam_step": 0},
+              "{} serving of 16 x 8 s launched {}".format(name, numbers["launches"][name]))
+        start = time.perf_counter()
+        for _ in range(5):
+            route_transcriber.transcribe_batch(batch)
+        torch.cuda.synchronize()
+        numbers[name + "_batch_ms"] = (time.perf_counter() - start) / 5 * 1e3
+        return texts
+
+    # -- weight-only int8 ---------------------------------------------------------------
+    quantized = Transcriber(config, params, alphabet, device=device,
+                            kenlm_directory=lm_directory, quantize_weights=True)
+    cpu_quantized = Transcriber(config, params, alphabet, device="cpu",
+                                kenlm_directory=lm_directory, quantize_weights=True)
+    texts = served(quantized, "quantized")
+    lap("weight-only int8: transcribers and served batches")
+    log_probs, cpu_log_probs, valid, (same_texts, cpu_texts) = card_and_cpu(quantized,
+                                                                           cpu_quantized)
+    lap("weight-only int8: CPU model, plain loop, CPU beam")
+    check(bool(torch.isfinite(log_probs).all()), "quantized log-probs not finite")
+    numbers["quantized_gap"] = float((log_probs - cpu_log_probs).abs()[valid].max())
+    check(numbers["quantized_gap"] <= FP32_TOLERANCE, "weight-only int8 log-probs card vs "
+          "CPU differ by {} > {}".format(numbers["quantized_gap"], FP32_TOLERANCE))
+    check(texts == same_texts, "weight-only int8 transcripts differ from the plain loop's "
+          "on the same log-probs: {} vs {}".format(texts[:2], same_texts[:2]))
+    # End to end (the CPU's own log-probs through the CPU's beam), rounding can flip a
+    # near-tie of the beam on these random weights; the count is recorded, for the fp32
+    # model too.
+    fp32_cpu = Transcriber(config, params, alphabet, device="cpu",
+                           kenlm_directory=lm_directory)
+    fp32_texts = [text for text, _ in transcriber.transcribe_batch(batch)]
+    _, _, _, (fp32_cpu_texts,) = card_and_cpu(transcriber, fp32_cpu, plain=False)
+    lap("fp32: CPU model and CPU beam")
+    numbers["end_to_end_equal"] = {
+        "fp32": sum(a == b for a, b in zip(fp32_texts, fp32_cpu_texts)),
+        "quantized": sum(a == b for a, b in zip(texts, cpu_texts))}
+    numbers["weight_bytes"] = {
+        "fp32": sum(t.numel() * t.element_size() for t in transcriber.model.parameters()),
+        "int8": sum(t.numel() * t.element_size() for t in quantized.model.buffers())}
+    with torch.inference_mode():
+        numbers["dequantize_ms"] = cuda_ms(lambda: [conv.dequantized(torch.float32)
+                                                    for conv in quantized.model.layers], 20)
+        numbers["model_ms"] = {
+            "fp32": cuda_ms(lambda: transcriber.model(features), 10),
+            "quantized": cuda_ms(lambda: quantized.model(features), 10)}
+    print("phase H weight-only int8 (16 x 8 s, LM beam): log-probs card vs CPU max {} "
+          "(limit {}), transcripts equal the plain loop's on the same log-probs ({} of {} "
+          "non-empty); {:.3f} ms a batch "
+          "beside phase B's fp32 {:.3f} ms; model {:.3f} ms (fp32 {:.3f} ms), of which the "
+          "per-call dequantize of all 11 layers {:.4f} ms; weights on the device {} bytes "
+          "int8 + scales + biases vs {} bytes fp32; launches {}; transcripts of the CPU's "
+          "own log-probs equal the card's in {} of {} rows (fp32 model: {})".format(
+              numbers["quantized_gap"], FP32_TOLERANCE, sum(bool(t) for t in texts),
+              len(texts),
+              numbers["quantized_batch_ms"], batch_s * 1e3,
+              numbers["model_ms"]["quantized"], numbers["model_ms"]["fp32"],
+              numbers["dequantize_ms"], numbers["weight_bytes"]["int8"],
+              numbers["weight_bytes"]["fp32"], numbers["launches"]["quantized"],
+              numbers["end_to_end_equal"]["quantized"], len(texts),
+              numbers["end_to_end_equal"]["fp32"]), flush=True)
+
+    lap("weight-only int8: timings")
+    # -- int8 compute -------------------------------------------------------------------
+    int8 = Transcriber(config, params, alphabet, device=device,
+                       kenlm_directory=lm_directory, int8_compute=True)
+    cpu_int8 = Transcriber(config, params, alphabet, device="cpu",
+                           kenlm_directory=lm_directory, int8_compute=True)
+    texts8 = served(int8, "int8")
+    lap("int8 compute: transcribers and served batches")
+    log_probs8, cpu_log_probs8, valid, (same_texts8, cpu_texts8) = card_and_cpu(int8,
+                                                                                cpu_int8)
+    lap("int8 compute: CPU model, plain loop, CPU beam")
+    first = config.layer_names.index("big_conv_1")
+    no_masks = [None] * len(config.layers)
+    numbers["x_q_steps"], numbers["x_q_differing"] = [], []
+    with torch.inference_mode():  # each big conv's input, as the forward computes it
+        inputs = [int8.model._layers(features.transpose(1, 2), 0, first, no_masks)]
+        inputs.append(int8.model._layers(inputs[0], first, first + 1, no_masks))
+        cpu_inputs = [cpu_int8.model._layers(cpu_features.transpose(1, 2), 0, first,
+                                             no_masks)]
+        cpu_inputs.append(cpu_int8.model._layers(cpu_inputs[0], first, first + 1,
+                                                 no_masks))
+    for layer_index, x_in, cpu_x_in in zip((first, first + 1), inputs, cpu_inputs):
+        spec, layer = config.layers[layer_index], int8.model.layers[layer_index]
+        with torch.inference_mode():
+            x_q, _ = w2l.quantize_activations(x_in)
+            cpu_x_q, _ = w2l.quantize_activations(cpu_x_in)
+            sums = w2l.int8_conv_sums(x_q, layer.w_q, spec)
+        exact = exact_int8_sums(x_q.cpu(), layer.w_q.cpu(), spec)
+        check(sums.dtype == torch.int32 and torch.equal(sums.cpu().to(torch.int64), exact),
+              "{}'s int32 sums on the card differ from the exact CPU product".format(
+                  spec.name))
+        steps = (x_q.cpu().to(torch.int32) - cpu_x_q.to(torch.int32)).abs()
+        numbers["x_q_steps"].append(int(steps.max()))
+        numbers["x_q_differing"].append(int((steps > 0).sum()))
+    lap("int8 compute: x_q and the exact sums")
+    numbers["int8_gap"] = float((log_probs8 - cpu_log_probs8).abs()[valid].max())
+    numbers["int8_vs_fp32_gap"] = float((log_probs8 - cpu_log_probs).abs()[valid].max())
+    check(bool(torch.isfinite(log_probs8).all()), "int8 log-probs not finite")
+    check(numbers["int8_gap"] <= INT8_LOGPROB_LIMIT, "int8 log-probs card vs CPU differ by "
+          "{} > {}".format(numbers["int8_gap"], INT8_LOGPROB_LIMIT))
+    check(texts8 == same_texts8, "int8 transcripts differ from the plain loop's on the same "
+          "log-probs: {} vs {}".format(texts8[:2], same_texts8[:2]))
+    numbers["end_to_end_equal"]["int8"] = sum(a == b for a, b in zip(texts8, cpu_texts8))
+    layer = int8.model.layers[first]
+    with torch.inference_mode():
+        x_q, _ = w2l.quantize_activations(inputs[0])
+        padded = torch.nn.functional.pad(x_q, w2l.same_padding(x_q.shape[2], 32, 1))
+        columns = padded.unfold(2, 32, 1).permute(0, 2, 1, 3).reshape(-1, 250 * 32)
+        weight = layer.w_q.reshape(layer.w_q.shape[0], -1).t()
+        numbers["int8_mm_ms"] = cuda_ms(lambda: w2l.int8_matmul(columns, weight), 20)
+        activations = torch.randn((16, 250, x_q.shape[2]), device=device)
+        numbers["int8_conv_ms"] = cuda_ms(lambda: w2l.int8_conv(
+            activations, layer, config.layers[first], torch.float32), 20)
+        fp32_conv = transcriber.model.layers[first]
+        fp32_input = torch.nn.functional.pad(activations, w2l.same_padding(
+            x_q.shape[2], 32, 1))
+        with ieee_fp32():
+            numbers["fp32_conv_ms"] = cuda_ms(lambda: fp32_conv(fp32_input), 20)
+        numbers["model_ms"]["int8"] = cuda_ms(lambda: int8.model(features), 10)
+    rows, depth = columns.shape
+    numbers["int8_mm_tops"] = 2.0 * rows * depth * weight.shape[1] / numbers["int8_mm_ms"] / 1e9
+    print("phase H int8 compute (16 x 8 s, LM beam): big_conv_1/big_conv_2 int32 sums on "
+          "the card equal the exact CPU product of the same x_q (bitwise); x_q card vs CPU "
+          "differ in {} entries by at most {} step(s); log-probs card vs CPU max {} (limit "
+          "{}), vs the weight-only model on the CPU {}; transcripts equal the plain loop's on "
+          "the same log-probs, and the CPU int8 model's end to end in {} of {} rows; {:.3f} ms a "
+          "batch; big_conv_1's int8 product ({} x {} x {}, cuBLAS torch._int_mm) {:.4f} ms "
+          "({:.1f} TOPS), its whole int8 path {:.4f} ms, the fp32 implicit-GEMM conv "
+          "{:.4f} ms (TF32 off); model {:.3f} ms; launches {}".format(
+              numbers["x_q_differing"], max(numbers["x_q_steps"]), numbers["int8_gap"],
+              INT8_LOGPROB_LIMIT, numbers["int8_vs_fp32_gap"],
+              numbers["end_to_end_equal"]["int8"], len(texts8), numbers["int8_batch_ms"],
+              rows, depth, weight.shape[1], numbers["int8_mm_ms"], numbers["int8_mm_tops"],
+              numbers["int8_conv_ms"], numbers["fp32_conv_ms"], numbers["model_ms"]["int8"],
+              numbers["launches"]["int8"]), flush=True)
+
+    lap("int8 compute: timings")
+    # -- forced alignment ---------------------------------------------------------------
+    audio = batch[0]
+    frame_log_probs = transcriber.frame_log_probs(audio)
+    best = frame_log_probs.argmax(axis=-1)
+    greedy = [int(t) for i, t in enumerate(best)
+              if t != transcriber.blank_index and (i == 0 or t != best[i - 1])]
+    text = transcriber.codec.decode_graphemes(greedy, merge_repeated=False)
+    labels = transcriber.codec.encode(text)
+    check(len(labels) > 10, "the greedy transcript is too short: {!r}".format(text))
+    outputs = []
+    for on in (device, torch.device("cpu")):
+        outputs.append([x.cpu() for x in ctc_forced_align(
+            torch.from_numpy(frame_log_probs[None]).to(on),
+            torch.tensor([len(frame_log_probs)], device=on),
+            torch.tensor([labels], dtype=torch.int32, device=on),
+            torch.tensor([len(labels)], device=on), blank=transcriber.blank_index)])
+    (starts, ends, score), (cpu_starts, cpu_ends, cpu_score) = outputs
+    check(torch.equal(starts, cpu_starts) and torch.equal(ends, cpu_ends),
+          "alignment spans on the card differ from the CPU Viterbi's")
+    check(float(score[0]) > -1e29, "the greedy transcript did not align")
+    numbers["align_score_gap"] = abs(float(score[0]) - float(cpu_score[0]))
+    words = transcriber.align_audio(audio, text)
+    start = time.perf_counter()
+    words = transcriber.align_audio(audio, text)
+    numbers["align_s"] = time.perf_counter() - start
+    check(len(words) == len(text.split()), "align_audio gave {} words for {} in the text"
+          .format(len(words), len(text.split())))
+    print("phase H alignment: 8 s request ({} frames) to its greedy transcript ({} labels, "
+          "{} words); spans card == CPU Viterbi; score gap {}; align_audio wall {:.4f} s "
+          "(a host-issued frame loop of {} steps and a reverse walk)".format(
+              len(frame_log_probs), len(labels), len(words), numbers["align_score_gap"],
+              numbers["align_s"], len(frame_log_probs) - 1), flush=True)
+
+    lap("alignment")
+    # -- FLAC through the transcribe CLI ------------------------------------------------
+    work = lm_directory / "phase-h"
+    work.mkdir()
+    npz = work / "weights-epoch1.npz"
+    np.savez(npz, **{"layer{}.{}".format(i, key): value for i, layer in enumerate(params)
+                     for key, value in layer.items()})
+    pcm = np.clip(np.round(batch[0] * 32767), -32768, 32767).astype(np.int16)
+    wavfile.write(work / "request.wav", 16000, pcm)
+    start = time.perf_counter()
+    encode_flac(str(work / "request.flac"), [pcm.astype(np.int64).tolist()])
+    numbers["flac_encode_s"] = time.perf_counter() - start
+    printed = []
+    for name in ("request.wav", "request.flac"):  # one file a call: the one-row route
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli(["transcribe", str(work / name), "--checkpoint", str(npz), "--kenlm",
+                 str(lm_directory), "--device", str(device)])
+        printed += [line.split("\t", 1) for line in out.getvalue().splitlines()]
+    direct = transcriber.transcribe_audio(pcm.astype(np.float32) / 32768.0)
+    check(len(printed) == 2 and printed[0][1] == printed[1][1] == direct,
+          "transcribe printed {} for the wav and the FLAC, the direct call {!r}".format(
+              printed, direct))
+    print("phase H FLAC: the 8 s request as 16-bit FLAC ({} bytes, encoded in {:.2f} s) and "
+          "wav: transcribe prints the same text for both, equal to a direct call: "
+          "{!r}".format((work / "request.flac").stat().st_size, numbers["flac_encode_s"],
+                        direct[:60]), flush=True)
+
+    lap("FLAC")
+    # -- the host pool's beam warm-up ---------------------------------------------------
+    pool = StreamingSessionPool(quantized)
+    reset()
+    pool.warm_up_beam()
+    torch.cuda.synchronize()
+    numbers["launches"]["warm_up_beam"] = launches()
+    check(numbers["launches"]["warm_up_beam"]["lm_beam_span"] == 2
+          and numbers["launches"]["warm_up_beam"]["stream_stitch"] == 2,
+          "warm_up_beam launched {}".format(numbers["launches"]["warm_up_beam"]))
+    server = warm_beam_server(npz, lm_directory, batch[1], device)
+    numbers["warm_beam"] = server
+    check(WARM_BEAM_KERNELS <= set(server["before"]), "serve --warm-beam loaded {} before "
+          "binding (want {})".format(server["before"], sorted(WARM_BEAM_KERNELS)))
+    check(not server["after"], "the first beam session's feeds loaded {}".format(
+        server["after"]))
+    check(bool(server["text"]), "the beam session's final is empty")
+    print("phase H serve --warm-beam (a fresh process, host pool, --no-warm-up): kernels "
+          "loaded before binding {} (bound {:.2f} s after start); the first /v1/stream beam "
+          "session ({} feeds of 0.5 s, p50 {:.4f} s, first {:.4f} s) loaded {}; in process, "
+          "warm_up_beam launches {}".format(
+              server["before"], server["bound_s"], len(server["feeds_s"]),
+              float(np.median(server["feeds_s"])), server["feeds_s"][0],
+              server["after"] or "none",
+              numbers["launches"]["warm_up_beam"]), flush=True)
+
+    lap("warm-beam")
+    # -- a quantized resident device-pool session -----------------------------------------
+    reset()
+    resident_against_host_pool(quantized, [batch[2]], 8000, [None])
+    torch.cuda.synchronize()
+    numbers["launches"]["quantized_pools"] = launches()
+    check(numbers["launches"]["quantized_pools"]["lm_beam_span"] > 0
+          and numbers["launches"]["quantized_pools"]["stream_stitch"] > 0,
+          "the quantized pools launched {}".format(numbers["launches"]["quantized_pools"]))
+    print("phase H quantized device pool: one resident session equals the host pool's sync "
+          "beam on the quantized transcriber; launches of both pools {}".format(
+              numbers["launches"]["quantized_pools"]), flush=True)
+
+    lap("quantized pools")
+    # -- measure_latency ------------------------------------------------------------------
+    numbers["latency"] = {"fp32": transcriber.measure_latency(4.0),
+                          "quantized": quantized.measure_latency(4.0),
+                          "int8": int8.measure_latency(4.0)}
+    print(card)
+    lap("measure_latency")
+    print("phase H measure_latency(4.0) p50/p95 s (one 4 s request, LM beam): {}; walls (s) "
+          "{}".format({name: [round(v, 5) for v in pair]
+                       for name, pair in numbers["latency"].items()}, numbers["walls_s"]),
+          flush=True)
+    return numbers
+
+
+def phase_h_cli(device, data: Path, run: str) -> None:
+    """``transcribe --config english --data-dir --run --epoch 2`` over phase F's run
+    prints what ``--checkpoint`` on the same file prints."""
+    import contextlib
+    import io
+
+    from speechless_tpu_torch.__main__ import main as cli
+
+    files = [str(f) for f in sorted((data / "corpus" / "English").rglob("*.wav"))[:3]]
+    printed = []
+    for backend in (["--config", "english", "--data-dir", str(data), "--run", run,
+                     "--epoch", str(FACADE_EPOCHS)],
+                    ["--checkpoint", str(data / "nets" / run / "weights-epoch{}.npz".format(
+                        FACADE_EPOCHS))]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli(["transcribe", *files, *backend, "--json", "--device", str(device)])
+        printed.append([json.loads(line) for line in out.getvalue().splitlines()])
+    check(len(printed[0]) == 3 and printed[0] == printed[1],
+          "transcribe --run/--epoch printed {}, --checkpoint {}".format(*printed))
+    print("phase H transcribe --json --run {} --epoch {} == --checkpoint (texts and "
+          "confidences): {}".format(run, FACADE_EPOCHS, [(r["text"][:40], r["confidence"])
+                                                         for r in printed[0]]), flush=True)
+
+
 def main() -> None:
     import argparse
 
@@ -3189,10 +3662,12 @@ def main() -> None:
         offline = phase_e(device, transcriber, batch, Path(lm_directory),
                           {word for sentence in sentences for word in sentence.split()},
                           step["decode_outputs"])
+        routes = phase_h(device, card, transcriber, batch, Path(lm_directory), batch_s)
     train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
     with tempfile.TemporaryDirectory() as directory:
         facade = phase_f(device, card, train["train"], Path(directory))
         transfer = phase_g(device, card, facade, Path(directory))
+        phase_h_cli(device, Path(directory), facade["run"])
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "speechless_tpu")],
           "the port imported jax or the JAX package")
 
@@ -3200,6 +3675,8 @@ def main() -> None:
     backtrace = offline["backtraces"]["span"]
     print("phase G launches on its paths (ctc_alpha, ctc_beta_grad): {}".format(
         transfer["launches"]))
+    print("phase H launches on its paths (lm_beam_span, beam_backtrace, stream_stitch, "
+          "lm_beam_step): {}".format(routes["launches"]))
     print(card)  # again beside the summary: the long output's head may be cut
     print("summary: span kernel {:.4f} ms per 16 x 513 launch ({:.2f} us per frame; "
           "no LM {:.4f} ms); step entry {:.5f} ms per frame on the sorted network, {:.5f} "

@@ -3,10 +3,14 @@
     python -m speechless_tpu_torch fill-cache --config english --data-dir D
     python -m speechless_tpu_torch train --config english --data-dir D --epochs 2
     python -m speechless_tpu_torch test --config english --data-dir D --run R --epoch 2
+    python -m speechless_tpu_torch serve --config english --data-dir D --run R \\
+        --epoch 9 --kenlm [--quantize [--int8-compute]] [--warm-beam] --port 8000
     python -m speechless_tpu_torch serve --checkpoint nets/run/weights-epoch9.npz \\
         --kenlm kenlm/english --device cuda:0 --port 8000
     python -m speechless_tpu_torch transcribe --checkpoint nets/run/weights-epoch9.npz \\
-        --kenlm kenlm/english --json --nbest 3 a.wav b.wav
+        --kenlm kenlm/english --json --nbest 3 a.wav b.flac
+    python -m speechless_tpu_torch align a.flac --text "the cat sat" --config english \\
+        --data-dir D --run R --epoch 9 [--quantize]
 
     python -m speechless_tpu_torch transfer --config german --data-dir D --freeze 8 \
         --epochs 1691
@@ -20,9 +24,14 @@ English baseline run remapped to the configuration's characters and continues it
 numbering, so ``--epochs`` counts from the donor's epoch (1689). ``average`` writes the
 mean of several epoch checkpoints of a run as a new epoch.
 ``serve`` runs the port's HTTP transcription API (`serving_http.py`: ``/v1/transcribe``
-and the ``/v1/stream`` session routes); ``transcribe`` decodes wav files offline and
-prints ``file<TAB>text`` lines or one JSON object per file. Both read a checkpoint
-written by either package (``layer{i}.{w,b}`` entries). Every command runs on
+and the ``/v1/stream`` session routes); ``transcribe`` decodes wav or FLAC files
+offline and prints ``file<TAB>text`` lines or one JSON object per file; ``align``
+prints the word timestamps of a known transcript as one JSON object. Their model is
+either a run of a configuration (``--config --data-dir --run --epoch``, as the JAX CLI
+takes it) or a checkpoint file (``--checkpoint FILE --charset``), written by either
+package, float or int8 (``layer{i}.{w,b}`` or ``layer{i}.{w_q,w_scale,b}``).
+``--kenlm`` alone takes the configuration's LM directory (``<data-dir>/kenlm/<name>``),
+as the JAX flag does; ``--kenlm DIR`` names the directory. Every command runs on
 ``--device`` (default ``cuda:0``).
 """
 import argparse
@@ -33,6 +42,9 @@ from pathlib import Path
 from .models.wav2letter import Wav2LetterConfig
 from .serving import CHARSETS, Transcriber
 from .train.checkpoint import load_params_npz
+
+_BUNDLES_NOT_PORTED = ("--bundle: export bundles are not ported yet (ROADMAP.md, item "
+                       "13: export bundles)")
 
 
 def _configuration(name: str, data_dir=None, batch_size=None, batches_per_epoch=None):
@@ -243,26 +255,79 @@ def _run_workflow(args, parsers: dict) -> None:
         configuration.fill_cache(repair_incorrect=args.repair)
 
 
-def _model_args(parser: argparse.ArgumentParser) -> None:
-    parser.add_argument("--checkpoint", required=True,
-                        help="weights file (weights-epoch{n}.npz)")
-    parser.add_argument("--kenlm", default=None,
-                        help="directory holding lm.arpa: LM-fused beam transcriptions "
-                             "(default: greedy)")
-    parser.add_argument("--lexicon", action="store_true",
-                        help="lexicon-constrained beam: every decoded word is in the LM "
-                             "vocabulary (requires --kenlm)")
-    parser.add_argument("--charset", choices=sorted(CHARSETS), default="english")
-    parser.add_argument("--device", default="cuda:0", help="torch device to run on")
+def _model_args(parser: argparse.ArgumentParser, kenlm: bool = True,
+                int8_compute: bool = False) -> None:
+    """The serving commands' model options: a configuration's run or a checkpoint
+    file, the LM, the lexicon and int8 serving."""
+    _add_config_args(parser)
+    parser.add_argument("--run", default=None, help="run name under nets/")
+    parser.add_argument("--epoch", type=int, default=None)
+    parser.add_argument("--checkpoint", default=None,
+                        help="weights file (weights-epoch{n}.npz) instead of --run/--epoch")
+    parser.add_argument("--charset", choices=sorted(CHARSETS), default=None,
+                        help="the characters of a --checkpoint model (default english)")
+    parser.add_argument("--bundle", default=None,
+                        help="an export bundle (not ported yet: refused)")
+    parser.add_argument("--quantize", action="store_true",
+                        help="serve from int8 per-channel weights")
+    if int8_compute:
+        parser.add_argument("--int8-compute", action="store_true",
+                            help="also run the big convs as int8 products (implies "
+                                 "--quantize)")
+    if kenlm:
+        parser.add_argument("--kenlm", nargs="?", const=True, default=None,
+                            metavar="DIR",
+                            help="LM-fused beam transcriptions: alone, with the "
+                                 "configuration's LM (<data-dir>/kenlm/<name>); with DIR, "
+                                 "with the ARPA model in DIR (default: greedy)")
+        parser.add_argument("--lexicon", action="store_true",
+                            help="lexicon-constrained beam: every decoded word is in the "
+                                 "LM vocabulary (requires --kenlm)")
+    else:
+        parser.set_defaults(kenlm=None, lexicon=False)  # alignment needs no LM
 
 
-def _transcriber(args) -> Transcriber:
-    characters = CHARSETS[args.charset]
+def _check_backend_args(args, parser: argparse.ArgumentParser) -> None:
+    """The JAX CLI's refusals (with its messages) before anything loads."""
+    if args.bundle is not None:
+        parser.error(_BUNDLES_NOT_PORTED)
+    if (args.checkpoint is None) == (args.run is None):
+        parser.error("{} needs exactly one of --checkpoint or --run/--epoch".format(
+            args.command))
+    if args.run is not None and args.epoch is None:
+        parser.error("--run requires --epoch")
+    if args.run is not None and args.charset is not None:
+        parser.error("--charset is for --checkpoint: --run serves the configuration's "
+                     "characters")
+    if args.lexicon and not args.kenlm:
+        parser.error("--lexicon requires --kenlm (the vocabulary trie rides in the word "
+                     "LM)")
+
+
+def _serving_backend(args) -> Transcriber:
+    """The Transcriber of ``serve``, ``transcribe`` and ``align``: a configuration's run
+    (``--run --epoch``, as the JAX CLI builds it) or a checkpoint file."""
+    configuration = _configuration(args.config, args.data_dir, args.batch_size,
+                                   args.batches_per_epoch)
+    kenlm_directory = args.kenlm
+    if kenlm_directory is True:
+        kenlm_directory = (configuration.directories.kenlm_base_directory
+                           / configuration.name.lower())
+    options = dict(device=args.device, kenlm_directory=kenlm_directory,
+                   quantize_weights=args.quantize,
+                   int8_compute=getattr(args, "int8_compute", False),
+                   lexicon_constrained=args.lexicon)
+    if args.run is not None:
+        return Transcriber.from_checkpoint(
+            configuration.directories.nets_base_directory / args.run, args.epoch,
+            configuration.allowed_characters,
+            mel_frequency_count=configuration.mel_frequency_count, **options)
+    characters = CHARSETS[args.charset or "english"]
     params = load_params_npz(Path(args.checkpoint))
-    config = Wav2LetterConfig(input_size_per_time_step=params[0]["w"].shape[1],
+    first = params[0]["w" if "w" in params[0] else "w_q"]
+    config = Wav2LetterConfig(input_size_per_time_step=first.shape[1],
                               grapheme_set_size=len(characters) + 1)
-    return Transcriber(config, params, characters, device=args.device,
-                       kenlm_directory=args.kenlm, lexicon_constrained=args.lexicon)
+    return Transcriber(config, params, characters, **options)
 
 
 def _transcribe(args, parser: argparse.ArgumentParser) -> None:
@@ -282,7 +347,8 @@ def _transcribe(args, parser: argparse.ArgumentParser) -> None:
         parser.error("--nbest requires --json")
     if args.nbest > 1 and (args.timestamps or args.long_form):
         parser.error("--nbest is mutually exclusive with --timestamps and --long-form")
-    transcriber = _transcriber(args)
+    _check_backend_args(args, parser)
+    transcriber = _serving_backend(args)
     if args.nbest > transcriber.beam_width:
         parser.error("--nbest must be <= the decoder's beam width ({})".format(
             transcriber.beam_width))
@@ -297,10 +363,16 @@ def _transcribe(args, parser: argparse.ArgumentParser) -> None:
         return
     if args.long_form:
         decoded = [(transcriber.transcribe_long_audio(audio), None) for audio in audios]
-    else:
+    elif len(audios) > 1 and transcriber.has_batched_programs:
         decoded = transcriber.transcribe_batch(audios, batch_size=args.dispatch_batch)
-    frames = (transcriber.frame_tokens_batch(audios, batch_size=args.dispatch_batch)
-              if args.timestamps else [None] * len(audios))
+    else:
+        decoded = [transcriber.transcribe_audio_with_confidence(audio) for audio in audios]
+    if not args.timestamps:
+        frames = [None] * len(audios)
+    elif len(audios) > 1:
+        frames = transcriber.frame_tokens_batch(audios, batch_size=args.dispatch_batch)
+    else:
+        frames = [transcriber.frame_tokens(audio) for audio in audios]
     for name, tokens, (text, confidence) in zip(args.files, frames, decoded):
         if not args.as_json:
             print("{}\t{}".format(name, text))
@@ -317,6 +389,19 @@ def _transcribe(args, parser: argparse.ArgumentParser) -> None:
         print(json.dumps(record))
 
 
+def _align(args, parser: argparse.ArgumentParser) -> None:
+    """The ``align`` command: one JSON object ``{"file", "text", "words"}``."""
+    from .features.audio_io import load_audio
+
+    if (args.text is None) == (args.text_file is None):
+        parser.error("align needs exactly one of --text or --text-file")
+    _check_backend_args(args, parser)
+    transcript = (args.text if args.text is not None
+                  else Path(args.text_file).read_text(encoding="utf8").strip())
+    words = _serving_backend(args).align_audio(load_audio(Path(args.file)), transcript)
+    print(json.dumps({"file": args.file, "text": transcript, "words": words}))
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="speechless_tpu_torch",
                                      description="wav2letter speech recognition on "
@@ -325,7 +410,7 @@ def main(argv=None) -> None:
     workflow_parsers = _add_workflow_commands(sub)
     p_serve = sub.add_parser("serve",
                              help="HTTP transcription service (dynamic micro-batching)")
-    _model_args(p_serve)
+    _model_args(p_serve, int8_compute=True)
     p_serve.add_argument("--host", default="127.0.0.1")
     p_serve.add_argument("--port", type=int, default=8000)
     p_serve.add_argument("--max-batch", type=int, default=16,
@@ -338,6 +423,10 @@ def main(argv=None) -> None:
                               "0 = unbounded)")
     p_serve.add_argument("--no-warm-up", action="store_true",
                          help="skip running every length bucket once before binding")
+    p_serve.add_argument("--warm-beam", action="store_true",
+                         help="also load (and build, where none is cached) the stream "
+                              "beam's kernels before binding, so that the first beam "
+                              "session's feeds load none")
     p_serve.add_argument("--device-streams", action="store_true",
                          help="device-resident streaming sessions: every session's window "
                               "stays on the device")
@@ -351,8 +440,9 @@ def main(argv=None) -> None:
                          help="stream beam decoder: 'pallas' the span and stitch kernels, "
                               "'xla' the plain batched beam step, 'auto' the kernels "
                               "whenever they express the search")
-    p_transcribe = sub.add_parser("transcribe", help="transcribe wav files offline")
-    p_transcribe.add_argument("files", nargs="+", help="audio files (wav)")
+    p_transcribe = sub.add_parser("transcribe",
+                                  help="transcribe audio files offline (wav/flac)")
+    p_transcribe.add_argument("files", nargs="+", help="audio files (wav or flac)")
     _model_args(p_transcribe)
     p_transcribe.add_argument("--timestamps", action="store_true",
                               help="include word-level emission timestamps (requires "
@@ -367,18 +457,26 @@ def main(argv=None) -> None:
     p_transcribe.add_argument("--nbest", type=int, default=1,
                               help="emit the top-N hypotheses with path scores (requires "
                                    "--json)")
+    p_align = sub.add_parser(
+        "align", help="forced alignment: word timestamps for a known transcript")
+    p_align.add_argument("file", help="audio file (wav or flac)")
+    p_align.add_argument("--text", default=None,
+                         help="the transcript to align (default: read from --text-file)")
+    p_align.add_argument("--text-file", default=None, help="file holding the transcript")
+    _model_args(p_align, kenlm=False)
     args = parser.parse_args(argv)
     if args.command in ("train", "transfer", "test", "validate", "average", "summarize",
                         "fill-cache"):
         _run_workflow(args, workflow_parsers)
         return
-    # Refused before any weights load or warm-up runs.
-    if args.lexicon and not args.kenlm:
-        parser.error("--lexicon requires --kenlm (the vocabulary trie rides in the word "
-                     "LM)")
     if args.command == "transcribe":
         _transcribe(args, p_transcribe)
         return
+    if args.command == "align":
+        _align(args, p_align)
+        return
+    # Refused before any weights load or warm-up runs.
+    _check_backend_args(args, p_serve)
     if args.beam_mode == "resident" and not args.device_streams:
         p_serve.error("--beam-mode resident needs --device-streams (the beam carry lives "
                       "in the pooled device state)")
@@ -389,7 +487,7 @@ def main(argv=None) -> None:
     from .serving_http import TranscriptionServer
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
-    transcriber = _transcriber(args)
+    transcriber = _serving_backend(args)
     if not args.no_warm_up:
         transcriber.warm_up()
     server = TranscriptionServer(transcriber, host=args.host, port=args.port,
@@ -399,6 +497,16 @@ def main(argv=None) -> None:
                                  beam_engine=args.beam_engine, beam_mode=args.beam_mode)
     if args.device_streams and not args.no_warm_up:
         server.streams.warm_up()
+    if args.warm_beam:
+        from .ops import _kernels
+
+        try:
+            server.streams.warm_up_beam()
+        except ValueError as error:  # a pool whose feed returns no posteriors
+            raise SystemExit("--warm-beam: {}".format(error))
+        logging.getLogger(__name__).info(
+            "beam warm-up done; kernels built or found in this process: %s",
+            ", ".join(_kernels.builds) or "none")
     server.serve_forever()
 
 

@@ -1,10 +1,11 @@
 """Host audio decode and encode (jax-free port of `speechless_tpu/features/audio_io.py`):
-wav bytes or files via scipy, header probes via the stdlib `wave` module, polyphase
-resampling, 16-bit PCM wav writing. Results are mono float32 in [-1, 1]. FLAC, which
-the JAX package decodes with its native extension, is not ported yet (ROADMAP.md,
-item 13): every FLAC entry point raises.
+wav bytes or files via scipy, FLAC via the port's C++ decoder (``native/flac.cpp``,
+built with g++ at first use), header probes via the stdlib `wave` module and the FLAC
+STREAMINFO block, polyphase resampling, 16-bit PCM wav writing. Results are mono
+float32 in [-1, 1].
 """
 import io
+import struct
 import wave
 from fractions import Fraction
 from pathlib import Path
@@ -13,9 +14,6 @@ from typing import Tuple
 import numpy as np
 
 from ..utils.tools import log
-
-_FLAC_NOT_PORTED = ("unsupported audio format {} (the port reads wav; FLAC is not ported "
-                    "yet, ROADMAP.md item 13)")
 
 
 def _normalize_pcm(data: np.ndarray) -> np.ndarray:
@@ -48,12 +46,24 @@ def _decode_wav(path: Path) -> Tuple[np.ndarray, int]:
     return _normalize_pcm(data), int(sample_rate)
 
 
+def _decode_flac(path: Path) -> Tuple[np.ndarray, int]:
+    """Decode a FLAC file with the native decoder (built on first use; a failed build
+    raises)."""
+    from ..native import library
+
+    return library().decode_flac(str(path))
+
+
 def decode_audio(path: Path) -> Tuple[np.ndarray, int]:
-    """Decode an audio file to (mono float32, original sample rate). Wav only."""
+    """Decode an audio file to (mono float32, original sample rate). Supports wav and
+    flac."""
     path = Path(path)
-    if path.suffix.lower() == ".wav":
+    suffix = path.suffix.lower()
+    if suffix == ".flac":
+        return _decode_flac(path)
+    if suffix == ".wav":
         return _decode_wav(path)
-    raise ValueError(_FLAC_NOT_PORTED.format(path))
+    raise ValueError("Unsupported audio format: {}".format(path))
 
 
 def resample(audio: np.ndarray, original_rate: int, target_rate: int) -> np.ndarray:
@@ -73,24 +83,46 @@ def load_audio(path: Path, sample_rate: int = 16000) -> np.ndarray:
     return resample(audio, original_rate, sample_rate)
 
 
+def _flac_streaminfo(path: Path) -> Tuple[int, int]:
+    """Parse (sample_rate, total_samples) from a FLAC STREAMINFO header. Raises
+    ValueError for anything malformed, truncated files included."""
+    with Path(path).open("rb") as f:
+        header = f.read(26)
+    if len(header) < 26 or header[:4] != b"fLaC":
+        raise ValueError("Not a valid FLAC file: {}".format(path))
+    bits = struct.unpack(">Q", header[18:26])[0]
+    sample_rate = bits >> 44
+    total_samples = bits & ((1 << 36) - 1)
+    if sample_rate == 0:
+        raise ValueError("Invalid FLAC sample rate in {}".format(path))
+    return int(sample_rate), int(total_samples)
+
+
 def file_sample_rate(path: Path) -> int:
-    """Read the sample rate from the wav header without decoding samples."""
+    """Read the sample rate from the container header without decoding samples."""
     path = Path(path)
-    if path.suffix.lower() == ".wav":
+    suffix = path.suffix.lower()
+    if suffix == ".wav":
         with wave.open(str(path), "rb") as f:
             return f.getframerate()
-    raise ValueError(_FLAC_NOT_PORTED.format(path))
+    if suffix == ".flac":
+        return _flac_streaminfo(path)[0]
+    raise ValueError("Unsupported audio format: {}".format(path))
 
 
 def probe_duration_in_s(path: Path) -> float:
-    """Duration from the wav header; 0 on failure (the reference degrades the same
-    way)."""
+    """Duration from the container header; 0 on failure (the reference degrades the
+    same way)."""
     path = Path(path)
     try:
-        if path.suffix.lower() != ".wav":
-            raise ValueError(_FLAC_NOT_PORTED.format(path))
-        with wave.open(str(path), "rb") as f:
-            return f.getnframes() / f.getframerate()
+        suffix = path.suffix.lower()
+        if suffix == ".wav":
+            with wave.open(str(path), "rb") as f:
+                return f.getnframes() / f.getframerate()
+        if suffix == ".flac":
+            sample_rate, total_samples = _flac_streaminfo(path)
+            return total_samples / sample_rate
+        raise ValueError("Unsupported audio format")
     except Exception as e:
         log("Failed to get duration of {}: {}".format(path, e))
         return 0.0

@@ -27,10 +27,17 @@ Training (``forward(..., train=True)``) adds the JAX model's two options:
   backward recomputes each block from its input instead of storing its activations.
   The masks are drawn before any block runs, so a recompute applies the same ones.
 
+Serving takes the int8 layout of `models/quantize.py` too: a layer given as ``{"w_q",
+"w_scale", "b"}`` becomes a `QuantizedConv1d`, which keeps ``w_q`` (int8) and
+``w_scale`` on the device and dequantizes in the forward as JAX does, ``(w_q * w_scale)``
+in fp32, then cast to the compute type. With ``config.int8_compute`` the big convs run
+as int8 x int8 products accumulated in int32 (`int8_conv`), with the activations
+quantized per tensor; the trunk stays weight-only, as in JAX.
+
 The transfer helpers (`character_remap_indices`, `remap_output_layer`) remap the output
 layer's per-character filters between character sets. The raw-wave frontend, other
-activations, int8 compute and tensor-parallel constraints of the JAX model are not
-ported yet (ROADMAP.md, item 3).
+activations and tensor-parallel constraints of the JAX model are not ported yet
+(ROADMAP.md, item 3).
 """
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -64,13 +71,15 @@ class Wav2LetterConfig:
     """Architecture, compute type and training options of one model instance
     (``layers`` overrides the default stack; ``compute_dtype`` is float32 or bfloat16;
     ``dropout`` is the rate before the non-big convs, None for none; ``remat``
-    recomputes activations in the backward)."""
+    recomputes activations in the backward; ``int8_compute``, for inference on int8
+    weights, runs the big convs as int8 products: see `int8_conv`)."""
     input_size_per_time_step: int
     grapheme_set_size: int
     layers: Tuple[ConvSpec, ...] = field(default=None)
     compute_dtype: torch.dtype = torch.float32
     dropout: Optional[float] = None
     remat: bool = False
+    int8_compute: bool = False
 
     def __post_init__(self):
         if self.layers is None:
@@ -141,17 +150,96 @@ def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
     raise ValueError("Unknown activation: {}".format(activation))
 
 
-class Wav2Letter(nn.Module):
-    """``(batch, time, features) -> (batch, time / stride_ratio, graphemes)`` logits."""
+# `torch._int_mm` on CUDA needs more than 16 rows; shorter inputs are padded with zero
+# rows, whose sums are sliced away.
+_INT_MM_MIN_ROWS = 17
 
-    def __init__(self, config: Wav2LetterConfig, *, device):
+
+class QuantizedConv1d(nn.Module):
+    """A conv layer served from int8 weights (`models/quantize.py`'s layout): buffers
+    ``w_q`` ``(Cout, Cin, K)`` int8, ``w_scale`` ``(Cout,)`` fp32 and ``bias`` ``(Cout,)``
+    fp32, a quarter of the fp32 weights' device memory."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, *, device):
+        super().__init__()
+        self.register_buffer("w_q", torch.zeros((out_channels, in_channels, kernel_size),
+                                                dtype=torch.int8, device=device))
+        self.register_buffer("w_scale", torch.ones(out_channels, device=device))
+        self.register_buffer("bias", torch.zeros(out_channels, device=device))
+
+    def dequantized(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight as JAX's forward forms it: ``(w_q * w_scale)`` in fp32, then cast
+        to ``dtype``. It is formed on every call (one elementwise pass over the int8
+        weights), never stored."""
+        return (self.w_q.to(torch.float32) * self.w_scale[:, None, None]).to(dtype)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` ``(M, K)`` int8 times ``b`` ``(K, N)`` int8, summed in int32 (exact:
+    ``K * 127**2`` stays below 2**31 for every layer of the model). `torch._int_mm`:
+    cuBLAS on the card (K and N must be multiples of 8 there), oneDNN on the CPU."""
+    rows = a.shape[0]
+    if rows < _INT_MM_MIN_ROWS:
+        a = F.pad(a, (0, 0, 0, _INT_MM_MIN_ROWS - rows))
+    return torch._int_mm(a, b)[:rows]
+
+
+def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantization of ``x``, as JAX's int8 path does it:
+    ``(x_q, scale)`` with ``scale = max(max|x|, 1e-12) / 127`` in fp32 and ``x_q =
+    clip(round(x / scale), -127, 127)`` as int8 (torch and jnp both round half to
+    even). The scale covers the whole tensor, padded frames and rows included."""
+    scale = torch.clamp(x.abs().amax().to(torch.float32), min=1e-12) / 127.0
+    x_q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127.0, 127.0)
+    return x_q.to(torch.int8), scale
+
+
+def int8_conv_sums(x_q: torch.Tensor, w_q: torch.Tensor, spec: ConvSpec) -> torch.Tensor:
+    """The int32 sums of a SAME-padded conv of ``x_q`` ``(batch, Cin, frames)`` int8
+    with ``w_q`` ``(Cout, Cin, K)`` int8: the padded input unfolded to ``(batch *
+    frames', Cin * K)`` (15 frames left and 16 right for big_conv_1's K = 32), times
+    ``w_q`` as ``(Cin * K, Cout)``. Returns ``(batch, frames', Cout)`` int32."""
+    batch, _, frames = x_q.shape
+    padded = F.pad(x_q, same_padding(frames, spec.kernel_size, spec.stride))
+    columns = padded.unfold(2, spec.kernel_size, spec.stride)    # (B, Cin, T', K)
+    out_frames = columns.shape[2]
+    columns = columns.permute(0, 2, 1, 3).reshape(batch * out_frames, -1)
+    sums = int8_matmul(columns, w_q.reshape(w_q.shape[0], -1).t())
+    return sums.reshape(batch, out_frames, -1)
+
+
+def int8_conv(x: torch.Tensor, conv: QuantizedConv1d, spec: ConvSpec,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The int8 path of a big conv, as `speechless_tpu/models/wav2letter.py` computes it:
+    ``x`` ``(batch, channels, frames)`` quantized per tensor (`quantize_activations`),
+    its int32 sums with ``w_q`` (`int8_conv_sums`) rescaled by ``scale * w_scale`` (that
+    product formed first), cast to ``dtype``, biased and activated. Since the scale
+    spans the whole batch, a result depends on the batch it ran in."""
+    x_q, scale = quantize_activations(x)
+    acc = int8_conv_sums(x_q, conv.w_q, spec)
+    y = (acc.to(torch.float32) * (scale * conv.w_scale)).to(dtype)
+    return _activate(y + conv.bias.to(dtype), spec.activation).transpose(1, 2)
+
+
+class Wav2Letter(nn.Module):
+    """``(batch, time, features) -> (batch, time / stride_ratio, graphemes)`` logits.
+    ``quantized`` marks the layers served from int8 weights (`QuantizedConv1d`), for
+    inference only."""
+
+    def __init__(self, config: Wav2LetterConfig, *, device,
+                 quantized: Optional[Sequence[bool]] = None):
         super().__init__()
         self.config = config
+        quantized = quantized or [False] * len(config.layers)
         convs = []
         in_channels = config.input_size_per_time_step
-        for spec in config.layers:
-            convs.append(nn.Conv1d(in_channels, spec.filters, spec.kernel_size,
-                                   stride=spec.stride, device=device))
+        for spec, int8 in zip(config.layers, quantized):
+            if int8:
+                convs.append(QuantizedConv1d(in_channels, spec.filters, spec.kernel_size,
+                                             device=device))
+            else:
+                convs.append(nn.Conv1d(in_channels, spec.filters, spec.kernel_size,
+                                       stride=spec.stride, device=device))
             in_channels = spec.filters
         self.layers = nn.ModuleList(convs)
 
@@ -190,6 +278,15 @@ class Wav2Letter(nn.Module):
                 if masks[index] is not None:
                     x = torch.where(masks[index].transpose(1, 2), x / (1.0 - config.dropout),
                                     0.0).to(dtype)
+                if isinstance(conv, QuantizedConv1d):
+                    if config.int8_compute and spec.name.startswith("big_conv"):
+                        x = int8_conv(x, conv, spec, dtype)
+                        continue
+                    x = F.pad(x, same_padding(x.shape[2], spec.kernel_size, spec.stride))
+                    x = F.conv1d(x, conv.dequantized(dtype), None, spec.stride) \
+                        + conv.bias.to(dtype)[:, None]
+                    x = _activate(x, spec.activation)
+                    continue
                 x = F.pad(x, same_padding(x.shape[2], spec.kernel_size, spec.stride))
                 if dtype == torch.float32:
                     x = conv(x)
@@ -239,18 +336,28 @@ def init_params_from_generator(config: Wav2LetterConfig,
 
 def params_from_jax(params: Sequence[Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
     """The JAX package's ``[{"w": (K, Cin, Cout), "b": (Cout,)}]`` list as a
-    `Wav2Letter` state dict (conv weights transposed to ``(Cout, Cin, K)``)."""
+    `Wav2Letter` state dict (conv weights transposed to ``(Cout, Cin, K)``). An int8
+    layer ``{"w_q": (K, Cin, Cout) int8, "w_scale": (Cout,), "b"}`` gives the
+    `QuantizedConv1d` buffers ``w_q`` ``(Cout, Cin, K)`` int8 and ``w_scale`` fp32."""
     state = {}
     for i, layer in enumerate(params):
-        if "w" not in layer:
-            raise NotImplementedError(
-                "layer {} holds {}: only float conv weights are ported (quantized "
-                "serving: ROADMAP.md, Transcriber routes)".format(i, sorted(layer)))
-        w = np.asarray(layer["w"], np.float32)
-        state["layers.{}.weight".format(i)] = torch.from_numpy(
-            np.ascontiguousarray(w.transpose(2, 1, 0)))
-        state["layers.{}.bias".format(i)] = torch.from_numpy(
-            np.asarray(layer["b"], np.float32).copy())
+        prefix = "layers.{}.".format(i)
+        if "w_q" in layer:
+            w_q = np.asarray(layer["w_q"])
+            if w_q.dtype != np.int8:
+                raise ValueError("layer {}: w_q must be int8, got {}".format(i, w_q.dtype))
+            state[prefix + "w_q"] = torch.from_numpy(np.ascontiguousarray(
+                w_q.transpose(2, 1, 0)))
+            state[prefix + "w_scale"] = torch.from_numpy(
+                np.asarray(layer["w_scale"], np.float32).copy())
+        elif "w" in layer:
+            w = np.asarray(layer["w"], np.float32)
+            state[prefix + "weight"] = torch.from_numpy(
+                np.ascontiguousarray(w.transpose(2, 1, 0)))
+        else:
+            raise ValueError("layer {} holds {}: neither float (w) nor int8 (w_q, "
+                             "w_scale) conv weights".format(i, sorted(layer)))
+        state[prefix + "bias"] = torch.from_numpy(np.asarray(layer["b"], np.float32).copy())
     return state
 
 
@@ -261,8 +368,9 @@ def params_to_jax(model: Wav2Letter) -> Params:
 
 
 def build_model(config: Wav2LetterConfig, params: Params, *, device) -> Wav2Letter:
-    """A `Wav2Letter` on ``device`` holding ``params`` (JAX layout), in eval mode."""
-    model = Wav2Letter(config, device=device)
+    """A `Wav2Letter` on ``device`` holding ``params`` (JAX layout, float or int8 layers),
+    in eval mode."""
+    model = Wav2Letter(config, device=device, quantized=["w_q" in layer for layer in params])
     model.load_state_dict(params_from_jax(params))
     return model.eval()
 

@@ -1,9 +1,10 @@
 """Native (C++) host routines of the port, loaded with ctypes: edit distance for evaluation
-(``levenshtein.cpp``), the ARPA n-gram scorer (``ngram_lm.cpp``) and the threaded CTC
-prefix beam with word-LM fusion that the facade evaluates with (``beam_search.cpp``).
+(``levenshtein.cpp``), the ARPA n-gram scorer (``ngram_lm.cpp``), the threaded CTC
+prefix beam with word-LM fusion that the facade evaluates with (``beam_search.cpp``) and
+the FLAC decoder of `features/audio_io.py` (``flac.cpp``).
 
-The sources are the port's own copies of the JAX package's ``native/`` (FLAC decoding
-is not ported yet, ROADMAP.md item 13). Nothing is built at import: `library()`
+The sources are the port's own copies of the JAX package's ``native/``. Nothing is
+built at import: `library()`
 compiles them at first use with ``g++ -O3 -fPIC -shared -std=c++17 -pthread`` into
 ``build/speechless_tpu_torch_native/<hash>.so`` beside the package, where the hash
 covers the sources and the flags, so an edited source is rebuilt and never confused
@@ -21,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 SOURCE_DIR = Path(__file__).resolve().parent
-SOURCES = ("levenshtein.cpp", "ngram_lm.cpp", "beam_search.cpp")
+SOURCES = ("levenshtein.cpp", "ngram_lm.cpp", "beam_search.cpp", "flac.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "speechless_tpu_torch_native"
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 
@@ -70,6 +71,7 @@ def library() -> "NativeLibrary":
 
 
 _P = ctypes.c_void_p
+_FP = ctypes.POINTER(ctypes.c_float)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 
@@ -96,6 +98,11 @@ class NativeLibrary:
             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_int,
             _I32P, ctypes.c_int, ctypes.c_int, _P, _U32P, ctypes.c_int, ctypes.c_double,
             ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_int, _I32P, _I32P]
+        lib.sl_decode_flac.restype = ctypes.c_int
+        lib.sl_decode_flac.argtypes = [ctypes.c_char_p, ctypes.POINTER(_FP),
+                                       ctypes.POINTER(ctypes.c_int64), _I32P]
+        lib.sl_free_buffer.restype = None
+        lib.sl_free_buffer.argtypes = [_FP]
 
     def levenshtein(self, a: str, b: str) -> int:
         def codepoints(text: str):
@@ -150,3 +157,20 @@ class NativeLibrary:
         if status != 0:
             raise ValueError("native beam search failed (status {})".format(status))
         return tokens, counts
+
+    def decode_flac(self, path: str) -> Tuple[np.ndarray, int]:
+        """Decode a FLAC file to ``(mono float32 samples, sample rate)``: channels are
+        averaged, 16-bit samples scaled by 1/32768. Raises ValueError for a file the
+        decoder refuses (corrupt, truncated, an unsupported subset)."""
+        samples = _FP()
+        count = ctypes.c_int64()
+        sample_rate = ctypes.c_int32()
+        status = self._lib.sl_decode_flac(path.encode(), ctypes.byref(samples),
+                                          ctypes.byref(count), ctypes.byref(sample_rate))
+        if status != 0:
+            raise ValueError("FLAC decode failed for {} (error {})".format(path, status))
+        try:
+            audio = np.ctypeslib.as_array(samples, shape=(count.value,)).copy()
+        finally:
+            self._lib.sl_free_buffer(samples)
+        return audio, int(sample_rate.value)

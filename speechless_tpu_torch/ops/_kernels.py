@@ -2,13 +2,14 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/speechless_tpu_torch_kernels/<name>-<hash>.so`` beside the
-package, then loaded with `ctypes`. The file name carries a hash of the source, the
-shared headers (``csrc/*.cuh``) and the flags, so an edited kernel or header is rebuilt
-and never confused with a stale library. Nothing is built or loaded at import: the CPU
-tests import every module without a CUDA toolkit.
+package, then loaded with `ctypes` (each load is logged). The file name carries a hash
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited kernel or
+header is rebuilt and never confused with a stale library. Nothing is built or loaded at
+import: the CPU tests import every module without a CUDA toolkit.
 """
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -37,6 +38,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _functions = {}
 builds = {}  # name -> {"seconds": build time (0 when reused), "log": nvcc output, "path"}
+_log = logging.getLogger(__name__)
 
 
 def _nvcc() -> str:
@@ -102,4 +104,6 @@ def function(name: str):
             entry.argtypes = SIGNATURES[name]
             entry.restype = ctypes.c_int
             _functions[name] = entry
+            _log.info("loaded kernel %s from %s (built in %.2f s)", name,
+                      Path(builds[name]["path"]).name, builds[name]["seconds"])
         return _functions[name]

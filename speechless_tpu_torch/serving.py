@@ -7,11 +7,15 @@ decode is the word-LM-fused beam on the beam-step kernel (`ops/device_beam.py`),
 ``lexicon_constrained`` the plain batched beam kept on the LM's vocabulary; without,
 greedy. ``max_decoded_length`` is the frame count: CTC emits at most one grapheme per
 frame, so nothing is truncated. `transcribe_nbest` runs the plain batched beam's n-best
-search (`ops/decode_beam.py`).
+search (`ops/decode_beam.py`), `align_audio` the forced alignment of a known transcript
+(`ops/forced_align.py`). ``quantize_weights`` serves every route from int8 weights, and
+``int8_compute`` runs the big convs as int8 products too (`models/wav2letter.py`).
 
-Not ported yet (each raises `NotImplementedError` naming its ROADMAP.md item): meshes,
-quantized weights, sequence-parallel long-form decoding and ``align_audio``.
+Not ported yet (each raises `NotImplementedError` naming its ROADMAP.md item): meshes
+and sequence-parallel long-form decoding.
 """
+import dataclasses
+import time
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from .data.batching import DEFAULT_TIME_BUCKETS
+from .features import audio_io
 from .features.spectrogram import features_batch
 from .models import wav2letter as w2l
 from .ops.decode import greedy_decode
@@ -31,7 +36,7 @@ from .text.graphemes import CtcGraphemeCodec
 # holds them, and past the last bucket to a multiple of 65536 samples, as the JAX
 # Transcriber does.
 _FALLBACK_MULTIPLE = 65536
-_NOT_PORTED = "{} is not ported yet (ROADMAP.md, Transcriber routes)"
+_NOT_PORTED = "{} is not ported yet (ROADMAP.md, item 13: parallelism)"
 # Grapheme sets a model can be served with (the blank is appended after them).
 CHARSETS = {"english": english_frequent_characters, "german": german_frequent_characters}
 
@@ -67,20 +72,67 @@ def words_from_frame_tokens(frames: np.ndarray, codec: CtcGraphemeCodec,
     return words
 
 
-def grouped_padded_batches(audios: Sequence[np.ndarray], bucket_fn, batch_size: int):
+def align_audio(backend, audio: np.ndarray, transcript: str) -> List[dict]:
+    """Forced alignment of a known ``transcript`` over any serving backend with
+    ``frame_log_probs``, ``codec``, ``blank_index``, ``seconds_per_frame`` and
+    ``device``: word timestamps ``[{"word", "start_s", "end_s"}, ...]`` from the
+    maximum-score path through the transcript's CTC lattice (`ops/forced_align.py`), run
+    on the backend's device. Characters outside the model's alphabet become spaces
+    and whitespace runs collapse; a transcript with nothing left raises ValueError
+    naming the alphabet, and an empty one gives ``[]``. Raises ValueError when the
+    transcript needs more output frames than the audio has."""
+    from .ops.forced_align import ctc_forced_align, word_spans_from_alignment
+
+    text = transcript.lower()
+    allowed = set(backend.codec.allowed_characters)
+    if any(c not in allowed for c in text):
+        text = "".join(c if c in allowed else " " for c in text)
+        if " " in allowed:
+            text = " ".join(text.split())
+        else:
+            text = text.replace(" ", "")
+    if not text:
+        if transcript.strip():
+            raise ValueError(
+                "transcript has no characters in the model alphabet ({!r}); "
+                "got {!r}".format(backend.codec.allowed_characters, transcript))
+        return []
+    tokens = backend.codec.encode(text)
+    if not tokens:
+        return []
+    device = backend.device
+    log_probs = backend.frame_log_probs(audio)
+    starts, ends, scores = ctc_forced_align(
+        torch.from_numpy(np.ascontiguousarray(log_probs[None], np.float32)).to(device),
+        torch.tensor([log_probs.shape[0]], device=device),
+        torch.tensor([tokens], dtype=torch.int32, device=device),
+        torch.tensor([len(tokens)], device=device), blank=backend.blank_index)
+    if float(scores[0]) <= -1e29:
+        raise ValueError(
+            "transcript cannot be aligned: {} labels need more than the "
+            "{} output frames available".format(len(tokens), log_probs.shape[0]))
+    return word_spans_from_alignment(backend.codec, tokens, starts[0].cpu().numpy(),
+                                     ends[0].cpu().numpy(), backend.seconds_per_frame)
+
+
+def grouped_padded_batches(audios: Sequence[np.ndarray], bucket_fn, batch_size: int,
+                           pad_rows: bool = False):
     """Yield ``(indices, wavs, lengths)``: utterances grouped by sample bucket
     (``bucket_fn(num_samples)``), at most ``batch_size`` per group, zero-padded to
     ``(len(indices), bucket)`` float32 with int32 lengths; ``indices`` maps rows back.
-    Unlike the JAX package's, a short group is not padded with empty rows: there is no
-    compiled program per batch shape to reuse, so they would be wasted work."""
+    Unlike the JAX package's, a short group is not padded with empty rows unless
+    ``pad_rows`` asks for it: there is no compiled program per batch shape to reuse, so
+    they would be wasted work. ``pad_rows`` pads every group to ``batch_size`` rows, as
+    JAX does, for a model whose results depend on the whole batch (``int8_compute``)."""
     by_bucket: dict = {}
     for index, audio in enumerate(audios):
         by_bucket.setdefault(bucket_fn(len(audio)), []).append(index)
     for bucket, indices in sorted(by_bucket.items()):
         for group_start in range(0, len(indices), batch_size):
             group = indices[group_start:group_start + batch_size]
-            wavs = np.zeros((len(group), bucket), dtype=np.float32)
-            lengths = np.zeros(len(group), dtype=np.int32)
+            rows = batch_size if pad_rows else len(group)
+            wavs = np.zeros((rows, bucket), dtype=np.float32)
+            lengths = np.zeros(rows, dtype=np.int32)
             for row, index in enumerate(group):
                 audio = audios[index]
                 wavs[row, :len(audio)] = audio
@@ -134,14 +186,29 @@ class Transcriber:
         ``kenlm_directory``: serve LM-fused beam transcriptions with the ARPA model in
         that directory (its tables live on ``device``). ``lexicon_constrained``:
         restrict that beam to vocabulary words (character extensions stay on the trie,
-        spaces only end complete words); requires ``kenlm_directory``."""
+        spaces only end complete words); requires ``kenlm_directory``.
+
+        ``quantize_weights``: serve from int8 per-channel weights (`models/quantize.py`),
+        kept int8 on the device and dequantized in each forward. ``int8_compute``: also
+        run the big convs as int8 products with per-tensor activation scales (implies
+        ``quantize_weights``). Since that scale spans the whole batch, the batched
+        routes then pad a short group with empty rows to ``batch_size``, as the JAX
+        package does, so that a group gives JAX's results. Params already in the int8
+        layout are served as they are."""
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED.format("mesh-sharded serving"))
-        if quantize_weights or int8_compute:
-            raise NotImplementedError(_NOT_PORTED.format("quantized serving"))
         if lexicon_constrained and kenlm_directory is None:
             raise ValueError("lexicon_constrained requires kenlm_directory (the "
                              "vocabulary trie rides in the word LM)")
+        if int8_compute:
+            quantize_weights = True
+            config = dataclasses.replace(config, int8_compute=True)
+        if quantize_weights:
+            from .models.quantize import quantize_params_int8
+
+            params = quantize_params_int8(params)
+        self.quantized = quantize_weights
+        self.int8_compute = int8_compute
         self.lexicon_constrained = lexicon_constrained
         self.config = config
         self.device = torch.device(device)
@@ -167,6 +234,8 @@ class Transcriber:
     def from_checkpoint(net_directory: Path, epoch: int, allowed_characters: List[str], *,
                         device, mel_frequency_count: int = 128,
                         kenlm_directory: Optional[Path] = None,
+                        quantize_weights: bool = False,
+                        int8_compute: bool = False,
                         lexicon_constrained: bool = False,
                         **config_kwargs) -> "Transcriber":
         from .train.checkpoint import load_params
@@ -176,6 +245,7 @@ class Transcriber:
             grapheme_set_size=len(allowed_characters) + 1, **config_kwargs)
         return Transcriber(config, load_params(net_directory, epoch), allowed_characters,
                            device=device, kenlm_directory=kenlm_directory,
+                           quantize_weights=quantize_weights, int8_compute=int8_compute,
                            lexicon_constrained=lexicon_constrained)
 
     @property
@@ -195,6 +265,16 @@ class Transcriber:
     @property
     def seconds_per_frame(self) -> float:
         return self.samples_per_frame / 16000.0
+
+    @property
+    def has_batched_programs(self) -> bool:
+        """Whether `transcribe_batch` serves multi-utterance dispatches: always, for a
+        live transcriber (the JAX CLI asks this of every backend)."""
+        return True
+
+    def _groups(self, audios: Sequence[np.ndarray], batch_size: int):
+        return grouped_padded_batches(audios, self._bucket, batch_size,
+                                      pad_rows=self.int8_compute)
 
     def _bucket(self, num_samples: int) -> int:
         for bucket in self.sample_buckets:
@@ -245,13 +325,24 @@ class Transcriber:
         """``(text, confidence)``; confidence is the mean per-frame max posterior."""
         return self._transcribe_rows(*self._padded(audio))[0]
 
+    def transcribe_file(self, path: Path, sample_rate: int = 16000) -> str:
+        """Transcribe a wav or FLAC file (decoded, downmixed and resampled to
+        ``sample_rate``)."""
+        return self.transcribe_audio(audio_io.load_audio(path, sample_rate))
+
+    def transcribe_audio_with_timestamps(self, audio: np.ndarray
+                                         ) -> List[Tuple[str, float, float]]:
+        """Word timestamps ``[(word, start_s, end_s), ...]`` from the greedy frame
+        decisions: each word spans its first to last non-blank emission."""
+        return words_from_frame_tokens(self.frame_tokens(audio), self.codec,
+                                       self.blank_index, self.seconds_per_frame)
+
     def transcribe_batch(self, audios: Sequence[np.ndarray],
                          batch_size: int = 16) -> List[Tuple[str, float]]:
         """Transcribe many waveforms, ``batch_size`` per dispatch within each length
         bucket. Returns ``(text, confidence)`` per input, in input order."""
         results: List[Optional[Tuple[str, float]]] = [None] * len(audios)
-        for group, wavs, lengths in grouped_padded_batches(audios, self._bucket,
-                                                           batch_size):
+        for group, wavs, lengths in self._groups(audios, batch_size):
             for index, result in zip(group, self._transcribe_rows(wavs, lengths)):
                 results[index] = result
         return results
@@ -274,8 +365,7 @@ class Transcriber:
         `transcribe_batch` groups. One trimmed ``(frames, classes)`` array per input, in
         input order."""
         results: List[Optional[np.ndarray]] = [None] * len(audios)
-        for group, wavs, lengths in grouped_padded_batches(audios, self._bucket,
-                                                           batch_size):
+        for group, wavs, lengths in self._groups(audios, batch_size):
             log_probs, counts = self._log_probs(wavs, lengths)
             log_probs, counts = log_probs.cpu().numpy(), counts.cpu().numpy()
             for row, index in enumerate(group):
@@ -345,5 +435,24 @@ class Transcriber:
                 hypotheses.append((text, float(scores[i])))
         return hypotheses
 
-    def align_audio(self, audio: np.ndarray, transcript: str):
-        raise NotImplementedError(_NOT_PORTED.format("forced alignment"))
+    def align_audio(self, audio: np.ndarray, transcript: str) -> List[dict]:
+        """Forced alignment: word timestamps ``[{"word", "start_s", "end_s"}, ...]``
+        for a known transcript (the module function `align_audio`, on this
+        transcriber's device). Raises ValueError when the transcript cannot be
+        aligned."""
+        return align_audio(self, audio, transcript)
+
+    def measure_latency(self, duration_s: float = 4.0, iterations: int = 20
+                        ) -> Tuple[float, float]:
+        """``(p50, p95)`` seconds of a single-utterance `transcribe_audio` request on
+        seeded audio (``RandomState(0)``), after one untimed call. Each timed call ends
+        with its result on the host, so it covers the device's work."""
+        audio = (0.1 * np.random.RandomState(0).randn(int(duration_s * 16000))
+                 ).astype(np.float32)
+        self.transcribe_audio(audio)
+        times = []
+        for _ in range(iterations):
+            start = time.perf_counter()
+            self.transcribe_audio(audio)
+            times.append(time.perf_counter() - start)
+        return float(np.percentile(times, 50)), float(np.percentile(times, 95))

@@ -532,6 +532,18 @@ class BeamAdvanceBatcher(MicroBatcher):
         ``(new_state, BeamStreamResult)``): the pipelined-partials path."""
         return self._enqueue((state, log_probs))
 
+    def warm_up(self, classes: int) -> None:
+        """Load, building where none is cached, every kernel a beam feed launches,
+        before beam traffic arrives: one throwaway single-stream feed (the path of a
+        lone advance) and one two-stream `feed_batch` (the batched path; the kernels
+        take any row count, so one size covers every batch), each of zero frames on a
+        fresh state (one advance with count 0, which launches the same kernels and
+        changes nothing). ``classes`` is the posterior class count (``blank_index +
+        1``). The decoder holds no per-stream state, so no session sees a trace."""
+        empty = np.zeros((0, classes), np.float32)
+        self.decoder.feed(self.decoder.init_state(), empty)
+        self.decoder.feed_batch([self.decoder.init_state()] * 2, [empty] * 2)
+
     def _serve(self, batch):
         if len(batch) == 1:
             state, rows = batch[0].payload
@@ -659,6 +671,19 @@ class StreamingSessionPool:
             if self._started:
                 self.beam_batcher.start()
         return self.beam_batcher
+
+    def warm_up_beam(self) -> None:
+        """Load the shared beam decoder's kernels (`BeamAdvanceBatcher.warm_up`) before
+        beam traffic arrives, so that no live feed builds or loads one: with an empty
+        build directory the first feed would otherwise run nvcc. Pools that never serve
+        beam sessions skip this. Raises like ``create(partial_decode='beam')`` when the
+        backend has no posteriors."""
+        if self.posterior_batcher is None:
+            raise ValueError("beam partials need per-frame posteriors; this "
+                             "backend has no frame_log_probs program")
+        with self._lock:
+            batcher = self._ensure_beam_batcher_locked()
+        batcher.warm_up(self._transcriber.blank_index + 1)
 
     def feed(self, session_id: str, chunk: np.ndarray) -> str:
         return self.feed_with_text(session_id, chunk)[0]

@@ -78,7 +78,9 @@ def load_opt_state(directory: Path, epoch: int, opt_state, strict: bool = True):
 
 
 def load_params_npz(path: Path) -> Params:
-    """Load ``[{"w", "b"}, ...]`` from an ``.npz`` file at an arbitrary path."""
+    """Load ``[{"w", "b"}, ...]`` from an ``.npz`` file at an arbitrary path. Each layer
+    keeps the keys it was saved with: an int8 checkpoint's layers hold ``w_q`` and
+    ``w_scale`` (`models/quantize.py`), which the serving model takes as they are."""
     with np.load(str(path)) as data:
         layer_keys: dict = {}
         for name in data.files:
@@ -88,11 +90,6 @@ def load_params_npz(path: Path) -> Params:
             layer_keys.setdefault(int(index_part[len("layer"):]), []).append(key)
         params = [{key: np.asarray(data["layer{}.{}".format(i, key)])
                    for key in sorted(layer_keys[i])} for i in sorted(layer_keys)]
-    for i, layer in enumerate(params):
-        if "w_q" in layer or "w_scale" in layer:
-            raise NotImplementedError(
-                "{} layer {} holds int8-quantized weights; quantized serving is not "
-                "ported yet (ROADMAP.md, Transcriber routes)".format(path, i))
     return params
 
 

@@ -164,12 +164,21 @@ def test_checkpoint_written_by_jax_loads(tmp_path):
             np.testing.assert_array_equal(want["b"], got["b"])
 
 
-def test_quantized_checkpoint_is_refused(tmp_path):
-    np.savez(tmp_path / "q.npz", **{"layer0.w_q": np.zeros((1, 2, 3), np.int8),
+def test_quantized_checkpoint_loads(tmp_path):
+    """An int8 checkpoint's ``w_q``/``w_scale`` layers load as saved (they were refused
+    before quantized serving was ported) and build the int8 serving layer."""
+    w_q = np.arange(-3, 3, dtype=np.int8).reshape(1, 2, 3)
+    np.savez(tmp_path / "q.npz", **{"layer0.w_q": w_q,
                                     "layer0.w_scale": np.ones(3, np.float32),
                                     "layer0.b": np.zeros(3, np.float32)})
-    with pytest.raises(NotImplementedError, match="quantized"):
-        load_params_npz(tmp_path / "q.npz")
+    loaded = load_params_npz(tmp_path / "q.npz")
+    assert sorted(loaded[0]) == ["b", "w_q", "w_scale"] and loaded[0]["w_q"].dtype == np.int8
+    np.testing.assert_array_equal(loaded[0]["w_q"], w_q)
+    config = w2l.Wav2LetterConfig(2, 3, layers=(w2l.ConvSpec("output_conv", 3, 1, 1,
+                                                             "linear"),))
+    model = w2l.build_model(config, loaded, device="cpu")
+    assert isinstance(model.layers[0], w2l.QuantizedConv1d)
+    np.testing.assert_array_equal(model.layers[0].w_q.numpy(), w_q.transpose(2, 1, 0))
 
 
 def test_greedy_decode_matches_jax():

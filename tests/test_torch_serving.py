@@ -300,18 +300,26 @@ def test_long_transcripts_are_not_truncated(setup, kenlm):
 
 
 def test_unported_options_raise(setup, port_lm):
+    """Meshes and sequence-parallel decoding still raise, naming their ROADMAP item.
+    Quantized serving and forced alignment, which raised here before they were ported,
+    now serve (their parity with JAX: `test_torch_quantize.py`,
+    `test_torch_forced_align.py`)."""
     config, params, _ = setup
-    for option in (dict(mesh=object()), dict(quantize_weights=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Transcriber(config, params, ALPHABET, device="cpu", **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 13"):
+        Transcriber(config, params, ALPHABET, device="cpu", mesh=object())
+    quantized = Transcriber(config, params, ALPHABET, device="cpu", quantize_weights=True,
+                            sample_buckets=BUCKETS)
+    assert quantized.quantized and not quantized.int8_compute
+    assert isinstance(quantized.model.layers[0], w2l.QuantizedConv1d)
+    assert isinstance(quantized.transcribe_audio(AUDIOS[0]), str)
     with pytest.raises(ValueError, match="requires kenlm_directory"):
         Transcriber(config, params, ALPHABET, device="cpu", lexicon_constrained=True)
     with pytest.raises(ValueError, match="nbest must be in"):
         port_lm.transcribe_nbest(AUDIOS[0], 9)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 13"):
         port_lm.transcribe_long_audio(AUDIOS[0], sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_lm.align_audio(AUDIOS[0], "a cat")
+    words = port_lm.align_audio(AUDIOS[0], "a cat")
+    assert [w["word"] for w in words] == ["a", "cat"]
 
 
 def test_cli_serves_a_full_width_checkpoint(setup, tmp_path):
@@ -415,3 +423,70 @@ def test_long_audio_segments_like_jax(port_lm):
     assert len(segments) > 1
     assert port_lm.transcribe_long_audio(audio, max_segment_s=1.0) == " ".join(
         text for text in map(port_lm.transcribe_audio, segments) if text)
+
+
+def test_file_timestamps_and_latency_routes(setup, port_lm, tmp_path):
+    """`transcribe_file` on wav and FLAC, `has_batched_programs`,
+    `transcribe_audio_with_timestamps` (equal to the JAX Transcriber's) and
+    `measure_latency`."""
+    import scipy.io.wavfile as wavfile
+
+    from speechless_tpu_torch.features.flac_encoder import encode_flac
+
+    pcm = np.clip(np.round(AUDIOS[0] * 32767), -32768, 32767).astype(np.int16)
+    wavfile.write(tmp_path / "a.wav", 16000, pcm)
+    encode_flac(str(tmp_path / "a.flac"), [pcm.astype(np.int64).tolist()])
+    want = port_lm.transcribe_audio(pcm.astype(np.float32) / 32768.0)
+    assert port_lm.transcribe_file(tmp_path / "a.wav") == want
+    assert port_lm.transcribe_file(tmp_path / "a.flac") == want
+    assert port_lm.has_batched_programs is True
+    theirs = _jax_transcriber(setup, kenlm=False)
+    for audio in AUDIOS[:3]:
+        got = port_lm.transcribe_audio_with_timestamps(audio)
+        assert got == theirs.transcribe_audio_with_timestamps(audio)
+    assert any(port_lm.transcribe_audio_with_timestamps(a) for a in AUDIOS[:3])
+    calls = []
+    transcribe_audio = port_lm.transcribe_audio
+    port_lm.transcribe_audio = lambda audio: calls.append(audio) or transcribe_audio(audio)
+    try:
+        p50, p95 = port_lm.measure_latency(duration_s=0.5, iterations=3)
+    finally:
+        del port_lm.transcribe_audio
+    assert len(calls) == 4 and 0.0 < p50 <= p95
+    expected = (0.1 * np.random.RandomState(0).randn(8000)).astype(np.float32)
+    assert all(np.array_equal(audio, expected) for audio in calls)
+
+
+def test_warm_up_beam_leaves_no_trace(port_lm):
+    """The host pool's beam warm-up runs throwaway feeds on the shared decoder: a beam
+    session fed after it gives the replies of one fed on a pool that never warmed up.
+    A backend without posteriors is refused with the JAX pool's message."""
+    from speechless_tpu_torch.serving_streaming import StreamingSessionPool
+
+    audio = np.concatenate(AUDIOS[:3])
+    replies = []
+    for warm in (True, False):
+        pool = StreamingSessionPool(port_lm, window_s=1.0, margin_s=0.25, max_wait_ms=1.0)
+        if warm:
+            pool.warm_up_beam()
+            assert pool.beam_batcher is not None
+        pool.start()
+        try:
+            sid = pool.create(partial_decode="beam")
+            replies.append([pool.feed_with_state(sid, audio[i:i + 4000])
+                            for i in range(0, len(audio), 4000)]
+                           + [pool.finish_with_state(sid)])
+        finally:
+            pool.stop()
+    assert json.dumps(replies[0], sort_keys=True) == json.dumps(replies[1], sort_keys=True)
+    assert replies[0][-1]["text"]
+
+    class NoPosteriors:
+        supports_posteriors = False
+
+        def __getattr__(self, name):
+            return getattr(port_lm, name)
+
+    with pytest.raises(ValueError, match="beam partials need per-frame posteriors; this "
+                                         "backend has no frame_log_probs program"):
+        StreamingSessionPool(NoPosteriors()).warm_up_beam()
