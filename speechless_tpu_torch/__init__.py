@@ -19,7 +19,9 @@ decoding on every beam route (`ops/device_beam.py`: the whole-utterance kernel
 served by ``?nbest=N``, ``serve --lexicon`` and ``python -m speechless_tpu_torch
 transcribe``; and the training and evaluation facade (`system.py::Wav2Letter`,
 `configuration.py`, `experiments.py`, the corpus pipeline in `data/`) behind ``python -m
-speechless_tpu_torch train | test | validate | summarize | fill-cache``.
+speechless_tpu_torch train | test | validate | summarize | fill-cache``; and the model
+variants: the ASG criterion (`ops/asg.py`), the raw-wave family and the activations,
+and the reference's Keras ``.h5`` checkpoints (`train/keras_import.py`, ``convert``).
 """
 
 __version__ = "0.2.0"

@@ -15,6 +15,7 @@
     python -m speechless_tpu_torch transfer --config german --data-dir D --freeze 8 \
         --epochs 1691
     python -m speechless_tpu_torch average --config german --data-dir D --run R --last 2
+    python -m speechless_tpu_torch convert nets/run/weights-epoch9.h5 weights-epoch9.npz
 
 ``train``, ``transfer``, ``test``, ``validate``, ``average``, ``summarize`` and
 ``fill-cache`` are the JAX CLI's workflows over a named `Configuration` (``english``,
@@ -23,6 +24,8 @@
 English baseline run remapped to the configuration's characters and continues its epoch
 numbering, so ``--epochs`` counts from the donor's epoch (1689). ``average`` writes the
 mean of several epoch checkpoints of a run as a new epoch.
+``convert`` turns a checkpoint's weights from ``.npz`` into the reference's Keras ``.h5``
+or back (`train/keras_import.py`; it needs h5py).
 ``serve`` runs the port's HTTP transcription API (`serving_http.py`: ``/v1/transcribe``
 and the ``/v1/stream`` session routes); ``transcribe`` decodes wav or FLAC files
 offline and prints ``file<TAB>text`` lines or one JSON object per file; ``align``
@@ -255,6 +258,50 @@ def _run_workflow(args, parsers: dict) -> None:
         configuration.fill_cache(repair_incorrect=args.repair)
 
 
+def _convert_checkpoint(source: Path, destination: Path) -> None:
+    """``convert``: a checkpoint's weights between the ``.npz`` of either package and the
+    reference's Keras ``.h5``. An ``.h5`` file in a run directory also loads without
+    conversion (`train/checkpoint.py::load_params`); this is for one-off conversion,
+    mainly to take a model trained here back to Keras. The ``.npz`` to ``.h5`` direction
+    infers the reference geometry from the weights (a first kernel of (250, 1, ...) is
+    the raw-wave model), drops a trained-ASG pseudo-layer and refuses int8 weights."""
+    from .train import checkpoint as ckpt
+    from .train.keras_import import (is_keras_weight_file, load_keras_params,
+                                     save_keras_params)
+
+    if is_keras_weight_file(source) and destination.suffix == ".npz":
+        ckpt.save_params_npz(destination, load_keras_params(source))
+        print("Wrote {}".format(destination))
+        return
+    if source.suffix == ".npz" and is_keras_weight_file(destination):
+        params = load_params_npz(source)
+        if any("w_q" in layer for layer in params):
+            raise SystemExit("{} holds int8-quantized weights, which have no Keras "
+                             "representation; convert the float checkpoint.".format(source))
+        conv_layers = [layer for layer in params if "w" in layer]
+        if len(conv_layers) != len(params):
+            print("Dropping {} non-conv parameter group(s) (e.g. trained ASG "
+                  "transitions) — Keras files carry conv weights only.".format(
+                      len(params) - len(conv_layers)))
+        if not conv_layers:
+            raise SystemExit("{} holds no conv layers".format(source))
+        first_kernel = conv_layers[0]["w"]
+        config = Wav2LetterConfig(
+            input_size_per_time_step=int(first_kernel.shape[1]),
+            grapheme_set_size=int(conv_layers[-1]["w"].shape[2]),
+            use_raw_wave_input=(first_kernel.shape[1] == 1 and first_kernel.shape[0] == 250))
+        if len(config.layers) != len(conv_layers):
+            raise SystemExit(
+                "{} has {} conv layers — not the reference wav2letter geometry of {} "
+                "layers, so Keras layer names cannot be assigned.".format(
+                    source, len(conv_layers), len(config.layers)))
+        save_keras_params(destination, config, conv_layers)
+        print("Wrote {}".format(destination))
+        return
+    raise SystemExit("convert needs one .npz and one .h5/.hdf5 path "
+                     "(got {} -> {})".format(source, destination))
+
+
 def _model_args(parser: argparse.ArgumentParser, kenlm: bool = True,
                 int8_compute: bool = False) -> None:
     """The serving commands' model options: a configuration's run or a checkpoint
@@ -464,7 +511,14 @@ def main(argv=None) -> None:
                          help="the transcript to align (default: read from --text-file)")
     p_align.add_argument("--text-file", default=None, help="file holding the transcript")
     _model_args(p_align, kenlm=False)
+    p_convert = sub.add_parser(
+        "convert", help="convert a checkpoint between .npz and the reference's Keras .h5")
+    p_convert.add_argument("source", help="weights file (.npz or .h5/.hdf5)")
+    p_convert.add_argument("destination", help="output file with the other extension")
     args = parser.parse_args(argv)
+    if args.command == "convert":
+        _convert_checkpoint(Path(args.source), Path(args.destination))
+        return
     if args.command in ("train", "transfer", "test", "validate", "average", "summarize",
                         "fill-cache"):
         _run_workflow(args, workflow_parsers)

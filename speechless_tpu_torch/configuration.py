@@ -6,8 +6,11 @@ Preserves the reference's public API (the original speechless `configuration.py`
 ``allowed_characters_for_loaded_model`` transfer, the German and mixed German-English
 configurations, ``train_transfer_from_best_english_model``,
 ``test_model_grouped_by_loaded_corpus_name``, the ``~/speechless-data`` directory layout,
-and the ``LoggedRun`` per-run file logging. Not ported yet: multi-process training
-(ROADMAP.md, item 13), which refuses with its item named.
+and the ``LoggedRun`` per-run file logging. ``wav2letter_kwargs`` choose the model
+variant (``use_asg``, ``train_asg_transitions``, ``use_raw_wave_input``, which also
+sets the input size to 1, and ``activation``) on the fresh and on the resume path. Not
+ported yet: multi-process training (ROADMAP.md, item 13), which refuses with its item
+named.
 """
 import logging
 from collections import OrderedDict

@@ -168,12 +168,28 @@ def pad_to_bucket(spectrograms: List[np.ndarray], labels: List[str], codec: Grap
                  labels=padded_labels, label_lengths=label_lengths)
 
 
+# Raw-wave inputs bucket on sample counts: the frame buckets times the 128-sample feature
+# hop, so that a corpus buckets alike whether fed as mel frames or as samples.
+RAW_WAVE_SAMPLE_BUCKETS = tuple(b * 128 for b in DEFAULT_TIME_BUCKETS)
+
+
 def batch_from_spectrograms(batch: List[LabeledSpectrogram], codec: GraphemeCodec,
-                            **kwargs) -> Tuple[Batch, List[str]]:
+                            raw_wave: bool = False, **kwargs) -> Tuple[Batch, List[str]]:
     """Load features for a list of `LabeledSpectrogram`s and bucket-pad them. Returns the
-    host `Batch` and the expected transcripts. (The raw-wave model family's batches
-    are not ported yet: ROADMAP.md, item 3.)"""
-    spectrograms = [s.z_normalized_transposed_spectrogram() for s in batch]
+    host `Batch` and the expected transcripts. ``raw_wave=True`` feeds ``(samples, 1)``
+    z-normalized waveforms on the sample-count buckets instead of mel frames (the
+    ``use_raw_wave_input`` model family). A batch with ``bucket_hints`` ``(frames,
+    labels)`` floors the buckets at them (frames times 128 for raw waves)."""
+    hints = getattr(batch, "bucket_hints", None)
+    if hints is not None:
+        scale = 128 if raw_wave else 1
+        kwargs.setdefault("min_frames", hints[0] * scale)
+        kwargs.setdefault("min_label_length", hints[1])
+    if raw_wave:
+        kwargs.setdefault("time_buckets", RAW_WAVE_SAMPLE_BUCKETS)
+        spectrograms = [s.z_normalized_raw_wave() for s in batch]
+    else:
+        spectrograms = [s.z_normalized_transposed_spectrogram() for s in batch]
     labels = [s.label for s in batch]
     return pad_to_bucket(spectrograms, labels, codec, **kwargs), labels
 

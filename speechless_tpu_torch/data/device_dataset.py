@@ -9,7 +9,9 @@ an epoch copies no feature or label byte from the host.
 * `build_device_dataset` loads every cached feature, packs it and copies it to the
   device once (features as fp16 when the model computes in bf16, half the bytes), after
   checking that it fits the device's free memory: a corpus that does not fit raises, and
-  never falls back to the host pipeline;
+  never falls back to the host pipeline. For the raw-wave model family it packs
+  ``(samples, 1)`` z-normalized waveforms on the sample-count buckets instead (16 kHz
+  audio is ~32 KB a second in fp16);
 * `trainer.make_device_epoch_step` samples each step's rows on the device without
   replacement within the batch and gathers them with `index_select`.
 
@@ -92,15 +94,24 @@ def check_fits(nbytes: int, device) -> None:
 
 def build_device_dataset(labeled_spectrograms: List[LabeledSpectrogram],
                          codec: GraphemeCodec, device, compute_dtype=None,
-                         time_buckets: Sequence[int] = DEFAULT_TIME_BUCKETS
-                         ) -> Tuple[DeviceDataset, float]:
+                         time_buckets: Sequence[int] = DEFAULT_TIME_BUCKETS,
+                         raw_wave: bool = False) -> Tuple[DeviceDataset, float]:
     """Load every cached feature, pack it and place it on ``device``. Returns the
     dataset and its resident megabytes. Features travel as fp16 when ``compute_dtype``
-    is bf16 (numpy has no bf16; the model casts them). Raises `MemoryError` before any
-    copy when the corpus does not fit (`check_fits`)."""
+    is bf16 (numpy has no bf16; the model casts them). ``raw_wave=True`` packs
+    ``(samples, 1)`` waveforms on `batching.RAW_WAVE_SAMPLE_BUCKETS` (unless other
+    ``time_buckets`` are given). Raises `MemoryError` before any copy when the corpus
+    does not fit (`check_fits`)."""
     import torch
 
-    spectrograms = [s.z_normalized_transposed_spectrogram() for s in labeled_spectrograms]
+    if raw_wave:
+        from .batching import RAW_WAVE_SAMPLE_BUCKETS
+        if time_buckets is DEFAULT_TIME_BUCKETS:
+            time_buckets = RAW_WAVE_SAMPLE_BUCKETS
+        spectrograms = [s.z_normalized_raw_wave() for s in labeled_spectrograms]
+    else:
+        spectrograms = [s.z_normalized_transposed_spectrogram()
+                        for s in labeled_spectrograms]
     labels = [s.label for s in labeled_spectrograms]
     dtype = np.float16 if compute_dtype == torch.bfloat16 else np.float32
     host = pack_dataset(spectrograms, labels, codec, time_buckets=time_buckets, dtype=dtype)

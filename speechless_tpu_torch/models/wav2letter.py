@@ -1,20 +1,26 @@
 """The wav2letter acoustic model as a `torch.nn.Module` (port of
 `speechless_tpu/models/wav2letter.py`).
 
-Geometry matches the JAX package's mel-input model: a striding conv (250, k=48,
-stride 2), 7 inner convs (250, k=7), big_conv_1 (2000, k=32), big_conv_2 (2000, k=1) and
-a linear output conv (grapheme_set_size, k=1), ReLU between them. Every conv is
-SAME-padded by XLA's rule. Compute is IEEE fp32 by default, the serving path: the
-forward turns TF32 off itself (`precision.ieee_fp32`). With ``compute_dtype=bfloat16``
-(the training path on the card) the parameters stay fp32 and are cast inside the
-forward, so gradients reach the fp32 parameters; each conv runs in bf16 and adds its
-bias in bf16 after the conv, as `jax.lax.conv_general_dilated` and the JAX ``x + b`` do,
-and the logits come back in fp32.
+Geometry matches the JAX package's model: with ``use_raw_wave_input`` a raw-wave
+frontend conv first (250, k=250, stride 160, over ``(samples, 1)`` waveforms), then a
+striding conv (250, k=48, stride 2), 7 inner convs (250, k=7), big_conv_1 (2000, k=32),
+big_conv_2 (2000, k=1) and a linear output conv (grapheme_set_size, k=1), with
+``activation`` (relu, elu, linear or softmax over the channels) after every hidden
+conv. Every conv is SAME-padded by XLA's rule, so a layer of stride s turns T frames
+into ceil(T / s). Compute is IEEE fp32 by default, the serving path: the forward turns
+TF32 off itself (`precision.ieee_fp32`). With ``compute_dtype=bfloat16`` (the training
+path on the card) the parameters stay fp32 and are cast inside the forward, so
+gradients reach the fp32 parameters; each conv runs in bf16 and adds its bias in bf16
+after the conv, as `jax.lax.conv_general_dilated` and the JAX ``x + b`` do, and the
+logits come back in fp32.
 
 The public layout stays the JAX one — ``(batch, time, channels)`` in and out — and the
 weight bridge (`params_from_jax` / `params_to_jax`) moves the JAX package's
 ``[{"w": (K, Cin, Cout), "b": (Cout,)}, ...]`` parameter list to and from this module's
-state (`nn.Conv1d` weights are ``(Cout, Cin, K)``).
+state (`nn.Conv1d` weights are ``(Cout, Cin, K)``). A trainable-ASG run's list ends in
+the criterion's pseudo-layer ``{"asg_transitions": (C, C), "asg_initials": (C,)}``;
+the module holds it as `AsgTables` (``model.asg``), which the forward does not touch
+and the optimizer trains beside the convs.
 
 Training (``forward(..., train=True)``) adds the JAX model's two options:
 * dropout before every non-big conv (``ConvSpec.dropout_before``) at rate
@@ -35,9 +41,8 @@ as int8 x int8 products accumulated in int32 (`int8_conv`), with the activations
 quantized per tensor; the trunk stays weight-only, as in JAX.
 
 The transfer helpers (`character_remap_indices`, `remap_output_layer`) remap the output
-layer's per-character filters between character sets. The raw-wave frontend, other
-activations and tensor-parallel constraints of the JAX model are not ported yet
-(ROADMAP.md, item 3).
+layer's per-character filters between character sets. The JAX model's tensor-parallel
+activation constraint waits for the port's parallelism (ROADMAP.md, item 13).
 """
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -62,17 +67,19 @@ class ConvSpec:
     filters: int
     kernel_size: int
     stride: int = 1
-    activation: str = "relu"  # or "linear"
+    activation: str = "relu"  # or "elu", "linear", "softmax"
     dropout_before: bool = False
 
 
 @dataclass(frozen=True)
 class Wav2LetterConfig:
     """Architecture, compute type and training options of one model instance
-    (``layers`` overrides the default stack; ``compute_dtype`` is float32 or bfloat16;
-    ``dropout`` is the rate before the non-big convs, None for none; ``remat``
-    recomputes activations in the backward; ``int8_compute``, for inference on int8
-    weights, runs the big convs as int8 products: see `int8_conv`)."""
+    (``layers`` overrides the default stack; ``use_raw_wave_input`` puts the wave conv
+    first, for ``(samples, 1)`` inputs; ``activation`` follows every hidden conv;
+    ``compute_dtype`` is float32 or bfloat16; ``dropout`` is the rate before the non-big
+    convs, None for none; ``remat`` recomputes activations in the backward;
+    ``int8_compute``, for inference on int8 weights, runs the big convs as int8
+    products: see `int8_conv`)."""
     input_size_per_time_step: int
     grapheme_set_size: int
     layers: Tuple[ConvSpec, ...] = field(default=None)
@@ -80,19 +87,25 @@ class Wav2LetterConfig:
     dropout: Optional[float] = None
     remat: bool = False
     int8_compute: bool = False
+    use_raw_wave_input: bool = False
+    activation: str = "relu"
 
     def __post_init__(self):
         if self.layers is None:
             object.__setattr__(self, "layers", tuple(self._build_layers()))
 
     def _build_layers(self) -> List[ConvSpec]:
+        act = self.activation
         use_dropout = self.dropout is not None
-        layers = [ConvSpec("striding_conv", MAIN_FILTER_COUNT, 48, 2, "relu", use_dropout)]
+        layers = []
+        if self.use_raw_wave_input:
+            layers.append(ConvSpec("wave_conv", MAIN_FILTER_COUNT, 250, 160, act, use_dropout))
+        layers.append(ConvSpec("striding_conv", MAIN_FILTER_COUNT, 48, 2, act, use_dropout))
         for i in range(1, 8):
             layers.append(ConvSpec("inner_conv_{}".format(i), MAIN_FILTER_COUNT, 7, 1,
-                                   "relu", use_dropout))
-        layers.append(ConvSpec("big_conv_1", BIG_FILTER_COUNT, 32, 1))
-        layers.append(ConvSpec("big_conv_2", BIG_FILTER_COUNT, 1, 1))
+                                   act, use_dropout))
+        layers.append(ConvSpec("big_conv_1", BIG_FILTER_COUNT, 32, 1, act))
+        layers.append(ConvSpec("big_conv_2", BIG_FILTER_COUNT, 1, 1, act))
         layers.append(ConvSpec("output_conv", self.grapheme_set_size, 1, 1, "linear"))
         return layers
 
@@ -143,10 +156,16 @@ def same_padding(length: int, kernel_size: int, stride: int) -> Tuple[int, int]:
 
 
 def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
+    """``activation`` on ``x`` of layout ``(batch, channels, frames)``: the softmax is
+    over the channels, JAX's last axis of ``(batch, frames, channels)``."""
     if activation == "relu":
         return F.relu(x)
+    if activation == "elu":
+        return F.elu(x)
     if activation == "linear":
         return x
+    if activation == "softmax":
+        return torch.softmax(x, dim=1)
     raise ValueError("Unknown activation: {}".format(activation))
 
 
@@ -218,16 +237,33 @@ def int8_conv(x: torch.Tensor, conv: QuantizedConv1d, spec: ConvSpec,
     x_q, scale = quantize_activations(x)
     acc = int8_conv_sums(x_q, conv.w_q, spec)
     y = (acc.to(torch.float32) * (scale * conv.w_scale)).to(dtype)
-    return _activate(y + conv.bias.to(dtype), spec.activation).transpose(1, 2)
+    return _activate((y + conv.bias.to(dtype)).transpose(1, 2), spec.activation)
+
+
+def is_asg_layer(layer) -> bool:
+    """Whether a JAX-layout layer is a trainable-ASG run's criterion pseudo-layer."""
+    return "asg_transitions" in layer
+
+
+class AsgTables(nn.Module):
+    """A trainable-ASG run's log-score tables (`ops/asg.py`): ``transitions`` ``(C, C)``
+    (``[to, from]``) and ``initials`` ``(C,)``, fp32 parameters."""
+
+    def __init__(self, class_count: int, *, device):
+        super().__init__()
+        self.transitions = nn.Parameter(torch.zeros((class_count, class_count),
+                                                    device=device))
+        self.initials = nn.Parameter(torch.zeros(class_count, device=device))
 
 
 class Wav2Letter(nn.Module):
     """``(batch, time, features) -> (batch, time / stride_ratio, graphemes)`` logits.
     ``quantized`` marks the layers served from int8 weights (`QuantizedConv1d`), for
-    inference only."""
+    inference only; ``asg_tables`` adds a trainable-ASG run's `AsgTables` as
+    ``self.asg`` (None otherwise), which the forward does not use."""
 
     def __init__(self, config: Wav2LetterConfig, *, device,
-                 quantized: Optional[Sequence[bool]] = None):
+                 quantized: Optional[Sequence[bool]] = None, asg_tables: bool = False):
         super().__init__()
         self.config = config
         quantized = quantized or [False] * len(config.layers)
@@ -242,6 +278,17 @@ class Wav2Letter(nn.Module):
                                        stride=spec.stride, device=device))
             in_channels = spec.filters
         self.layers = nn.ModuleList(convs)
+        self.asg = AsgTables(config.grapheme_set_size, device=device) if asg_tables else None
+
+    def parameter_layers(self) -> List[List[Tuple[torch.Tensor, bool]]]:
+        """The parameters of each layer of the JAX layout, the ASG pseudo-layer last,
+        each in ``jax.tree_util.tree_leaves`` order (``b`` before ``w``; ``asg_initials``
+        before ``asg_transitions``), with a flag marking the conv weights (JAX keeps them
+        as ``(K, Cin, Cout)``)."""
+        layers = [[(conv.bias, False), (conv.weight, True)] for conv in self.layers]
+        if self.asg is not None:
+            layers.append([(self.asg.initials, False), (self.asg.transitions, False)])
+        return layers
 
     def forward(self, inputs: torch.Tensor, train: bool = False,
                 dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
@@ -338,10 +385,20 @@ def params_from_jax(params: Sequence[Dict[str, np.ndarray]]) -> Dict[str, torch.
     """The JAX package's ``[{"w": (K, Cin, Cout), "b": (Cout,)}]`` list as a
     `Wav2Letter` state dict (conv weights transposed to ``(Cout, Cin, K)``). An int8
     layer ``{"w_q": (K, Cin, Cout) int8, "w_scale": (Cout,), "b"}`` gives the
-    `QuantizedConv1d` buffers ``w_q`` ``(Cout, Cin, K)`` int8 and ``w_scale`` fp32."""
+    `QuantizedConv1d` buffers ``w_q`` ``(Cout, Cin, K)`` int8 and ``w_scale`` fp32. A
+    trailing ASG pseudo-layer gives ``asg.transitions`` and ``asg.initials``."""
     state = {}
     for i, layer in enumerate(params):
         prefix = "layers.{}.".format(i)
+        if is_asg_layer(layer):
+            if i != len(params) - 1:
+                raise ValueError("the ASG pseudo-layer must be the last layer, got it at "
+                                 "{} of {}".format(i, len(params)))
+            state["asg.transitions"] = torch.from_numpy(
+                np.asarray(layer["asg_transitions"], np.float32).copy())
+            state["asg.initials"] = torch.from_numpy(
+                np.asarray(layer["asg_initials"], np.float32).copy())
+            continue
         if "w_q" in layer:
             w_q = np.asarray(layer["w_q"])
             if w_q.dtype != np.int8:
@@ -362,15 +419,23 @@ def params_from_jax(params: Sequence[Dict[str, np.ndarray]]) -> Dict[str, torch.
 
 
 def params_to_jax(model: Wav2Letter) -> Params:
-    """Inverse of `params_from_jax`: the module's weights in the JAX layout (numpy)."""
-    return [{"w": conv.weight.detach().cpu().numpy().transpose(2, 1, 0).copy(),
-             "b": conv.bias.detach().cpu().numpy().copy()} for conv in model.layers]
+    """Inverse of `params_from_jax`: the module's weights in the JAX layout (numpy), with
+    the ASG pseudo-layer last when the model has one."""
+    params = [{"w": conv.weight.detach().cpu().numpy().transpose(2, 1, 0).copy(),
+               "b": conv.bias.detach().cpu().numpy().copy()} for conv in model.layers]
+    if model.asg is not None:
+        params.append({"asg_transitions": model.asg.transitions.detach().cpu().numpy().copy(),
+                       "asg_initials": model.asg.initials.detach().cpu().numpy().copy()})
+    return params
 
 
 def build_model(config: Wav2LetterConfig, params: Params, *, device) -> Wav2Letter:
-    """A `Wav2Letter` on ``device`` holding ``params`` (JAX layout, float or int8 layers),
-    in eval mode."""
-    model = Wav2Letter(config, device=device, quantized=["w_q" in layer for layer in params])
+    """A `Wav2Letter` on ``device`` holding ``params`` (JAX layout, float or int8 layers,
+    optionally ending in the ASG pseudo-layer), in eval mode."""
+    asg_tables = bool(params) and is_asg_layer(params[-1])
+    convs = params[:-1] if asg_tables else params
+    model = Wav2Letter(config, device=device, quantized=["w_q" in layer for layer in convs],
+                       asg_tables=asg_tables)
     model.load_state_dict(params_from_jax(params))
     return model.eval()
 

@@ -18,12 +18,20 @@ public model API on the port's stack.
   layers frozen (no gradient is computed for them), and with
   ``reinitialize_trainable_loaded_layers`` the layers above them drawn afresh;
 * SpecAugment, dropout and remat in training;
+* the model variants of the JAX facade: the raw-wave family (``use_raw_wave_input``:
+  ``(samples, 1)`` z-normalized waveforms, sample-count buckets), the activations
+  (relu, elu, linear, softmax), and the ASG criterion (``use_asg``: `AsgGraphemeCodec`,
+  the reference's random tables, decoded by per-frame argmax), with trainable tables
+  (``train_asg_transitions``: a pseudo-layer of the parameters that Adam updates and the
+  checkpoints carry, decoded by the Viterbi over them);
+* the reference's Keras ``.h5`` checkpoints, loaded when no ``.npz`` is there
+  (`train/checkpoint.py`);
 * the KenLM vocabulary-consistency check of the reference.
 
 Compute is bf16 on CUDA (features copied as fp16, parameters, logits and the loss in
 fp32) and fp32 on the CPU, as the JAX facade picks by backend. Runs on ``cuda:0``
-unless the caller passes ``device``. Not ported yet, and refused with the ROADMAP.md
-item named: ASG, the mesh, the raw-wave model and other activations than ReLU.
+unless the caller passes ``device``. The mesh is not ported yet, and is refused with
+its ROADMAP.md item named.
 """
 import csv
 import math
@@ -41,7 +49,7 @@ from .features.example import LabeledSpectrogram
 from .models import wav2letter as w2l
 from .ops.decode import beam_search_decode, greedy_decode
 from .ops.specaugment import SpecAugment
-from .text.graphemes import CtcGraphemeCodec
+from .text.graphemes import AsgGraphemeCodec, CtcGraphemeCodec
 from .text.metrics import (ExpectationsVsPredictions, ExpectationsVsPredictionsInBatches,
                            ExpectationsVsPredictionsInGroupedBatches, ExpectationVsPrediction)
 from .train import checkpoint as ckpt
@@ -83,6 +91,8 @@ class Wav2Letter:
                  frozen_layer_count: int = 0,
                  reinitialize_trainable_loaded_layers: bool = False,
                  use_asg: bool = False,
+                 asg_transition_probabilities: Optional[np.ndarray] = None,
+                 asg_initial_probabilities: Optional[np.ndarray] = None,
                  train_asg_transitions: bool = False,
                  kenlm_directory: Optional[Path] = None,
                  beam_width: int = DEFAULT_BEAM_WIDTH,
@@ -102,22 +112,36 @@ class Wav2Letter:
                              "(kenlm_directory would be silently ignored).")
         if train_asg_transitions and not use_asg:
             raise ValueError("train_asg_transitions requires use_asg=True.")
+        if use_raw_wave_input and input_size_per_time_step != 1:
+            raise ValueError("Raw-wave input feeds (samples, 1) waveforms; "
+                             "input_size_per_time_step must be 1, got {}."
+                             .format(input_size_per_time_step))
         if use_raw_wave_input and spec_augment:
             # SpecAugment masks mel bins; on a (samples, 1) waveform any frequency mask
             # would zero the entire signal.
             raise ValueError("spec_augment is a mel-feature augmentation and does not "
                              "apply to the raw-wave model family.")
-        for requested, what, item in (
-                (use_asg, "ASG (use_asg)", 13), (mesh is not None, "the mesh (mesh)", 13),
-                (use_raw_wave_input, "the raw-wave model", 3),
-                (activation != "relu", "activation {!r}".format(activation), 3)):
-            if requested:
-                raise NotImplementedError(_NOT_PORTED.format(what, item))
+        if mesh is not None:
+            raise NotImplementedError(_NOT_PORTED.format("the mesh (mesh)", 13))
         # True selects the default policy; training only, eval never sees masked features.
         self.spec_augment = SpecAugment() if spec_augment is True else spec_augment or None
 
         self.device = torch.device(device)
-        self.grapheme_encoding = CtcGraphemeCodec(allowed_characters)
+        self.use_asg = use_asg
+        self.train_asg_transitions = use_asg and train_asg_transitions
+        self.grapheme_encoding = (AsgGraphemeCodec(allowed_characters) if use_asg
+                                  else CtcGraphemeCodec(allowed_characters))
+        if use_asg:
+            from .ops.asg import (default_asg_initial_probabilities,
+                                  default_asg_transition_probabilities)
+            if asg_transition_probabilities is None:
+                asg_transition_probabilities = default_asg_transition_probabilities(
+                    self.grapheme_encoding.grapheme_set_size)
+            if asg_initial_probabilities is None:
+                asg_initial_probabilities = default_asg_initial_probabilities(
+                    self.grapheme_encoding.grapheme_set_size)
+        self.asg_transition_probabilities = asg_transition_probabilities
+        self.asg_initial_probabilities = asg_initial_probabilities
         self.kenlm_directory = Path(kenlm_directory) if kenlm_directory else None
         self.beam_width = beam_width
         self.lm_weight = lm_weight
@@ -131,7 +155,8 @@ class Wav2Letter:
             compute_dtype = torch.float32 if self.device.type == "cpu" else torch.bfloat16
         self.config = w2l.Wav2LetterConfig(
             input_size_per_time_step, self.grapheme_encoding.grapheme_set_size,
-            compute_dtype=compute_dtype, dropout=dropout, remat=remat)
+            compute_dtype=compute_dtype, dropout=dropout, remat=remat,
+            use_raw_wave_input=use_raw_wave_input, activation=activation)
 
         if self.kenlm_directory is not None:
             expected_characters = list(single(
@@ -146,6 +171,8 @@ class Wav2Letter:
         else:
             self.language_model = None
 
+        # With trainable ASG tables the optimizer trains them too: freezing applies to
+        # the acoustic model's layers only.
         self.optimizer = make_optimizer(
             make_lr_schedule(learning_rate, warmup_steps=lr_warmup_steps,
                              decay=lr_decay, decay_steps=lr_decay_steps),
@@ -162,7 +189,8 @@ class Wav2Letter:
                     "(pick one of experiments.available_epochs)")
             load_model_from_directory = Path(load_model_from_directory)
             if allowed_characters_for_loaded_model is None:
-                params = ckpt.load_params(load_model_from_directory, load_epoch)
+                params = ckpt.load_params(load_model_from_directory, load_epoch,
+                                          config=self.config)
             else:
                 params = ckpt.load_params_with_character_remap(
                     load_model_from_directory, load_epoch,
@@ -172,10 +200,16 @@ class Wav2Letter:
                                                if reinitialize_trainable_loaded_layers
                                                else None),
                     init_generator=torch.Generator().manual_seed(seed))
-            if params and "asg_transitions" in params[-1]:
-                # A trainable-ASG checkpoint: drop the criterion pseudo-layer, as the
-                # JAX facade does for a CTC run.
-                params = params[:-1]
+        if self.train_asg_transitions:
+            if not w2l.is_asg_layer(params[-1]):
+                from .ops.asg import log_score_tables
+                trans, init = log_score_tables(asg_transition_probabilities,
+                                               asg_initial_probabilities)
+                params = list(params) + [{"asg_transitions": trans, "asg_initials": init}]
+        elif w2l.is_asg_layer(params[-1]):
+            # A fixed-table or CTC run loading a trainable-ASG checkpoint: drop the
+            # criterion pseudo-layer, as the JAX facade does.
+            params = list(params)[:-1]
         self.state = init_train_state(self.config, self.optimizer, seed=seed, params=params,
                                       device=self.device)
         if load_model_from_directory is not None \
@@ -187,8 +221,14 @@ class Wav2Letter:
             saved_step = ckpt.load_step(load_model_from_directory, load_epoch)
             if saved_step is not None:
                 self.state.step = saved_step
+        if use_asg:
+            self._criterion = "asg_trainable" if self.train_asg_transitions else "asg"
+        else:
+            self._criterion = "ctc"
+        self._asg_tables = dict(asg_transitions=asg_transition_probabilities,
+                                asg_initials=asg_initial_probabilities)
         self._train_step = None
-        self._eval_step = make_eval_step(self.config)
+        self._eval_step = make_eval_step(self.config, self._criterion, **self._asg_tables)
 
     # -- core model surface ----------------------------------------------
 
@@ -232,7 +272,8 @@ class Wav2Letter:
 
     def _prepare_batch(self, labeled_spectrogram_batch: List[LabeledSpectrogram]):
         batch, labels = batch_from_spectrograms(labeled_spectrogram_batch,
-                                                self.grapheme_encoding)
+                                                self.grapheme_encoding,
+                                                raw_wave=self.config.use_raw_wave_input)
         return self._device_batch(batch), labels
 
     # -- decoding / evaluation -------------------------------------------
@@ -248,7 +289,23 @@ class Wav2Letter:
 
     def _decode_tokens(self, log_probs: torch.Tensor,
                        prediction_lengths: torch.Tensor) -> List[str]:
-        """Greedy on the device, or with a KenLM directory the host's native LM beam."""
+        """Greedy on the device, or with a KenLM directory the host's native LM beam.
+        ASG has no blank: with trained tables the Viterbi path over them
+        (`ops/asg.py::asg_viterbi_decode`; the per-frame log-softmax shifts every path
+        alike, so it ranks them as the logits would), otherwise the per-frame argmax;
+        then the codec merges repeats and expands the repetition graphemes."""
+        if self.use_asg:
+            if self.train_asg_transitions:
+                from .ops.asg import asg_viterbi_decode
+                tables = self.state.model.asg
+                tokens = asg_viterbi_decode(log_probs, prediction_lengths,
+                                            tables.transitions.detach(),
+                                            tables.initials.detach())
+            else:
+                tokens = torch.argmax(log_probs, dim=2)
+            return self.grapheme_encoding.decode_grapheme_batch(
+                tokens.cpu().numpy(), list(prediction_lengths.cpu().numpy()),
+                merge_repeated=True)
         if self.kenlm_directory is None:
             return self._greedy_decode_tokens(log_probs, prediction_lengths)
         blank = self.grapheme_encoding.grapheme_set_size - 1
@@ -353,8 +410,9 @@ class Wav2Letter:
         if self._train_step is None or self._train_step[0] != multi_step:
             make = make_train_step if multi_step == 1 else make_multi_step
             self._train_step = (multi_step,
-                                make(self.config, self.optimizer, device=self.device,
-                                     spec_augment=self.spec_augment))
+                                make(self.config, self.optimizer, criterion=self._criterion,
+                                     device=self.device, spec_augment=self.spec_augment,
+                                     **self._asg_tables))
         train_step = self._train_step[1]
         self._print_preview_batch(preview_labeled_spectrogram_batch)
         tensorboard, scalar_log, new_log = self._open_logs(tensor_board_log_directory)
@@ -363,7 +421,8 @@ class Wav2Letter:
                                  prepare=self._prepare_batch, depth=2)
         else:
             def prepare_stacked(batch_group):
-                prepared = [batch_from_spectrograms(group, self.grapheme_encoding)
+                prepared = [batch_from_spectrograms(group, self.grapheme_encoding,
+                                                    raw_wave=self.config.use_raw_wave_input)
                             for group in batch_group]
                 stacked = stack_batches([host_batch for host_batch, _ in prepared])
                 return (self._device_batch(stacked),
@@ -459,12 +518,13 @@ class Wav2Letter:
         load_start = time.time()
         dataset, megabytes = build_device_dataset(
             examples, self.grapheme_encoding, self.device,
-            compute_dtype=self.config.compute_dtype)
+            compute_dtype=self.config.compute_dtype,
+            raw_wave=self.config.use_raw_wave_input)
         log("Device-resident corpus: {} examples, {:.0f} MB in HBM (packed + transferred "
             "in {:.1f}s).".format(len(examples), megabytes, time.time() - load_start))
         epoch_fn = make_device_epoch_step(self.config, self.optimizer, batch_size=batch_size,
-                                          steps=batches_per_epoch,
-                                          spec_augment=self.spec_augment)
+                                          steps=batches_per_epoch, criterion=self._criterion,
+                                          spec_augment=self.spec_augment, **self._asg_tables)
 
         def run_epoch(epoch):
             seed = int(np.random.SeedSequence([42, epoch]).generate_state(1)[0])

@@ -5,10 +5,16 @@ parameters in the JAX layout, the optimizer state as ``opt.{i}`` (the leaves of 
 optax state in ``tree_leaves`` order) and the global ``step``. The port writes and reads
 the same files, and its optimizer state converts to and from those leaves
 (`trainer.OptimizerState.leaves`), so either package resumes the other's run when both
-use the same optimizer options. `average_checkpoint_params` averages epochs of one run
+use the same optimizer options. A trainable-ASG run's parameters end in the criterion
+pseudo-layer (``layer{n}.asg_transitions``, ``layer{n}.asg_initials``), stored and
+averaged like any other layer. `average_checkpoint_params` averages epochs of one run
 (the CLI's ``average``) and `load_params_with_character_remap` is the transfer load
-(the CLI's ``transfer``). The reference's Keras ``.h5`` fallback is not ported yet
-(ROADMAP.md, item 7).
+(the CLI's ``transfer``).
+
+The reference's own checkpoints are Keras files, ``weights-epoch{n}.h5``: where an
+epoch has no ``.npz`` but has that file, `load_params` reads its weights
+(`train/keras_import.py`, which needs h5py), and `load_step` and `load_opt_state` find
+no step and no optimizer state, which the reference never saved.
 """
 import os
 from pathlib import Path
@@ -26,6 +32,32 @@ def model_file_name(epoch: int) -> str:
     return "weights-epoch{}.npz".format(epoch)
 
 
+def keras_model_file_name(epoch: int) -> str:
+    """The reference's own checkpoint name."""
+    return "weights-epoch{}.h5".format(epoch)
+
+
+def _keras_fallback_path(directory: Path, epoch: int) -> Optional[Path]:
+    """The epoch's reference ``.h5`` file when it has no ``.npz`` checkpoint, else None."""
+    if (Path(directory) / model_file_name(epoch)).exists():
+        return None
+    h5_path = Path(directory) / keras_model_file_name(epoch)
+    return h5_path if h5_path.exists() else None
+
+
+def _flatten_params(params: Params) -> dict:
+    """The ``layer{i}.{key}`` naming of every ``.npz`` writer."""
+    return {"layer{}.{}".format(i, key): np.asarray(value)
+            for i, layer in enumerate(params) for key, value in layer.items()}
+
+
+def _write_npz_atomically(path: Path, arrays: dict) -> None:
+    temp_path = path.with_name(path.name + ".tmp")
+    with temp_path.open("wb") as f:  # a file object: np.savez appends no suffix
+        np.savez(f, **arrays)
+    os.replace(str(temp_path), str(path))
+
+
 def save_checkpoint(directory: Path, epoch: int, params: Params, opt_state=None,
                     step: Optional[int] = None) -> Path:
     """Write ``params`` (JAX layout, e.g. `TrainState.params`), the optimizer state's
@@ -33,23 +65,28 @@ def save_checkpoint(directory: Path, epoch: int, params: Params, opt_state=None,
     (a temporary file, then a rename)."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
-    arrays = {"layer{}.{}".format(i, key): np.asarray(value)
-              for i, layer in enumerate(params) for key, value in layer.items()}
+    arrays = _flatten_params(params)
     if opt_state is not None:
         for i, leaf in enumerate(opt_state.leaves()):
             arrays["opt.{}".format(i)] = leaf
     if step is not None:
         arrays["step"] = np.asarray(int(step))
     path = directory / model_file_name(epoch)
-    temp_path = path.with_name(path.name + ".tmp")
-    with temp_path.open("wb") as f:  # a file object: np.savez appends no suffix
-        np.savez(f, **arrays)
-    os.replace(str(temp_path), str(path))
+    _write_npz_atomically(path, arrays)
     return path
 
 
+def save_params_npz(path: Path, params: Params) -> Path:
+    """Write a weights-only ``.npz`` at any path (the target of the CLI's ``convert``)."""
+    _write_npz_atomically(Path(path), _flatten_params(params))
+    return Path(path)
+
+
 def load_step(directory: Path, epoch: int) -> Optional[int]:
-    """The global step saved beside the weights (None if absent)."""
+    """The global step saved beside the weights (None if absent, and for a reference
+    ``.h5`` checkpoint)."""
+    if _keras_fallback_path(directory, epoch) is not None:
+        return None
     with np.load(str(Path(directory) / model_file_name(epoch))) as data:
         return int(data["step"]) if "step" in data.files else None
 
@@ -61,7 +98,9 @@ def load_opt_state(directory: Path, epoch: int, opt_state, strict: bool = True):
     options (another optimizer's state, or another set of frozen layers) it raises, or
     with ``strict=False`` logs and returns None, as the JAX package's load does (the
     facade loads a transfer run's checkpoint to evaluate it with all layers
-    trainable)."""
+    trainable). A reference ``.h5`` checkpoint holds no optimizer state: None."""
+    if _keras_fallback_path(directory, epoch) is not None:
+        return None
     with np.load(str(Path(directory) / model_file_name(epoch))) as data:
         keys = sorted((k for k in data.files if k.startswith("opt.")),
                       key=lambda k: int(k.split(".")[1]))
@@ -93,21 +132,32 @@ def load_params_npz(path: Path) -> Params:
     return params
 
 
-def load_params(directory: Path, epoch: int) -> Params:
-    """Load ``directory/weights-epoch{epoch}.npz``."""
+def load_params(directory: Path, epoch: int,
+                config: Optional[w2l.Wav2LetterConfig] = None) -> Params:
+    """Load ``directory/weights-epoch{epoch}.npz``, or the reference's
+    ``weights-epoch{epoch}.h5`` when only that exists. ``config`` checks an ``.h5``
+    file's layers and shapes against the model, so that a charset or geometry mismatch
+    fails here rather than decoding through a wrong blank index."""
+    keras_path = _keras_fallback_path(directory, epoch)
+    if keras_path is not None:
+        from .keras_import import load_keras_params
+        log("Loading reference-format Keras checkpoint {}".format(keras_path))
+        return load_keras_params(keras_path, config=config)
     return load_params_npz(Path(directory) / model_file_name(epoch))
 
 
-def average_checkpoint_params(directory: Path, epochs: List[int]) -> Params:
+def average_checkpoint_params(directory: Path, epochs: List[int],
+                              config: Optional[w2l.Wav2LetterConfig] = None) -> Params:
     """The uniform average of the parameters of several epoch checkpoints of one run,
     accumulated in float64 and returned as float32 (weights only: optimizer state means
     nothing for an averaged model). All checkpoints must share one structure: the same
-    layers, keys and shapes."""
+    layers, keys and shapes (a trained-ASG pseudo-layer's tables average like any other
+    leaf). ``config`` checks reference ``.h5`` epochs as `load_params` does."""
     if not epochs:
         raise ValueError("need at least one epoch to average")
     accumulated: Optional[List[dict]] = None
     for epoch in epochs:
-        params = load_params(directory, epoch)
+        params = load_params(directory, epoch, config=config)
         if accumulated is None:
             accumulated = [{key: np.asarray(value, np.float64) for key, value in layer.items()}
                            for layer in params]

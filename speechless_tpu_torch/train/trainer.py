@@ -1,9 +1,16 @@
-"""The CTC training step (port of `speechless_tpu/train/trainer.py`).
+"""The training step (port of `speechless_tpu/train/trainer.py`).
 
-* loss: the batch mean of per-utterance CTC NLL on the logits, with the JAX package's
-  infeasible-label guard (a label needing more frames than the utterance has scores 0);
-  the CTC runs on the CUDA kernels K1/K2 for CUDA tensors and on the plain recursions
-  for CPU tensors (`ops/ctc_kernels.py`), so no CUDA tensor reaches the plain version;
+* loss: the batch mean of per-utterance losses under one of three criteria:
+  * ``"ctc"``: CTC NLL on the logits, with the JAX package's infeasible-label guard (a
+    label needing more frames than the utterance has scores 0); the CTC runs on the
+    CUDA kernels K1/K2 for CUDA tensors and on the plain recursions for CPU tensors
+    (`ops/ctc_kernels.py`), so no CUDA tensor reaches the plain version;
+  * ``"asg"``: the ASG loss (`ops/asg.py`) on the per-frame log-softmax, with fixed
+    tables (the step builders' ``asg_transitions`` / ``asg_initials`` probability
+    tables, by default the reference's random ones), converted to log scores once;
+  * ``"asg_trainable"``: the same loss on the model's own tables (`w2l.AsgTables`, the
+    JAX params' trailing pseudo-layer), which the optimizer trains beside the convs
+    and layer freezing never freezes;
 * optimizer: `torch.optim.Adam` with optax's defaults (b1 0.9, b2 0.999, eps 1e-8),
   optional global-norm clipping, frozen layers (no gradient, no moments, exactly zero
   updates), k-step gradient accumulation (`optax.MultiSteps`: the running mean of k
@@ -22,7 +29,6 @@ PyTorch runs eagerly, so a "step" is a Python function over a mutable `TrainStat
 updates the model and optimizer in place and returns the same state, where the JAX step
 returns a new one. Every step runs with TF32 off (`precision.ieee_fp32`): fp32 training
 is IEEE fp32 in the forward and the backward, and bf16 training is bf16 either way.
-Only the ``"ctc"`` criterion is ported; ASG is queued in ROADMAP.md (item 13).
 """
 import math
 from dataclasses import dataclass
@@ -33,11 +39,13 @@ import torch
 
 from ..features.spectrogram import features_batch
 from ..models import wav2letter as w2l
+from ..ops.asg import asg_loss, log_tables_on
 from ..ops.ctc_kernels import ctc_loss_from_logits
 from ..ops.specaugment import SpecAugment, apply_spec_augment
 from ..precision import ieee_fp32
 
 DEFAULT_DEVICE = "cuda:0"
+CRITERIA = ("ctc", "asg", "asg_trainable")
 
 
 class Batch(NamedTuple):
@@ -142,24 +150,30 @@ class OptimizerState:
     """The optimizer bound to one model: a `torch.optim.Adam` over the trainable
     layers' parameters, the update count, and the accumulation buffers.
 
-    `step` consumes the ``.grad`` of the trainable parameters (frozen layers get
-    ``requires_grad=False``, so the backward computes no gradient for them). `leaves`
-    and `load_leaves` give the state as the leaves of the JAX package's optax state, in
-    ``jax.tree_util.tree_leaves`` order, so either package resumes the other's run.
+    The layers are those of the JAX layout (`Wav2Letter.parameter_layers`): the convs,
+    whose ``trainable`` flags the optimizer holds, then a trainable-ASG model's table
+    pseudo-layer, which is always trainable (freezing applies to the convs only, as in
+    the JAX facade). `step` consumes the ``.grad`` of the trainable parameters (frozen
+    layers get ``requires_grad=False``, so the backward computes no gradient for them).
+    `leaves` and `load_leaves` give the state as the leaves of the JAX package's optax
+    state, in ``jax.tree_util.tree_leaves`` order, so either package resumes the
+    other's run.
     """
 
     def __init__(self, spec: Optimizer, model: w2l.Wav2Letter):
         self.spec = spec
-        self.layers = list(model.layers)
-        self.trainable = list(spec.trainable or [True] * len(self.layers))
-        if len(self.trainable) != len(self.layers):
+        self.layers = model.parameter_layers()
+        self.trainable = list(spec.trainable or [True] * len(model.layers))
+        if len(self.trainable) != len(model.layers):
             raise ValueError("trainable has {} flags for {} layers".format(
-                len(self.trainable), len(self.layers)))
-        for conv, flag in zip(self.layers, self.trainable):
-            conv.weight.requires_grad_(flag)
-            conv.bias.requires_grad_(flag)
-        self.params = [p for conv, flag in zip(self.layers, self.trainable) if flag
-                       for p in (conv.weight, conv.bias)]
+                len(self.trainable), len(model.layers)))
+        if model.asg is not None:
+            self.trainable.append(True)
+        for layer, flag in zip(self.layers, self.trainable):
+            for param, _ in layer:
+                param.requires_grad_(flag)
+        self.params = [param for layer, flag in zip(self.layers, self.trainable) if flag
+                       for param, _ in layer]
         self.adam = torch.optim.Adam(self.params, lr=self._learning_rate(0),
                                      betas=(0.9, 0.999), eps=1e-8)
         self.updates = 0     # optax's Adam count: real updates so far
@@ -203,10 +217,11 @@ class OptimizerState:
             param.grad = None
 
     # ---- the optax state as leaves ------------------------------------------------
-    def _param_pairs(self, trainable_only: bool):
-        """(conv, trainable) in optax's leaf order: each layer's ``b`` before its ``w``."""
-        return [(conv, flag) for conv, flag in zip(self.layers, self.trainable)
-                if flag or not trainable_only]
+    def _leaf_params(self, trainable_only: bool) -> List[Tuple[torch.Tensor, bool]]:
+        """(parameter, is conv weight) in optax's leaf order: layer by layer, each
+        layer's keys sorted (``b`` before ``w``)."""
+        return [pair for layer, flag in zip(self.layers, self.trainable)
+                if flag or not trainable_only for pair in layer]
 
     @staticmethod
     def _to_jax(tensor: torch.Tensor, is_weight: bool) -> np.ndarray:
@@ -225,11 +240,10 @@ class OptimizerState:
 
     def _moments(self, key: str) -> List[np.ndarray]:
         leaves = []
-        for conv, _ in self._param_pairs(trainable_only=True):
-            for param, is_weight in ((conv.bias, False), (conv.weight, True)):
-                state = self.adam.state.get(param)
-                value = state[key] if state else torch.zeros_like(param)
-                leaves.append(self._to_jax(value, is_weight))
+        for param, is_weight in self._leaf_params(trainable_only=True):
+            state = self.adam.state.get(param)
+            value = state[key] if state else torch.zeros_like(param)
+            leaves.append(self._to_jax(value, is_weight))
         return leaves
 
     def leaves(self) -> List[np.ndarray]:
@@ -244,11 +258,8 @@ class OptimizerState:
         if self.accumulated is None:
             return inner
         accumulated = dict(zip(self.params, self.accumulated))
-        acc = []
-        for conv, _ in self._param_pairs(trainable_only=False):
-            for param, is_weight in ((conv.bias, False), (conv.weight, True)):
-                acc.append(self._to_jax(accumulated.get(param, torch.zeros_like(param)),
-                                        is_weight))
+        acc = [self._to_jax(accumulated.get(param, torch.zeros_like(param)), is_weight)
+               for param, is_weight in self._leaf_params(trainable_only=False)]
         return [np.asarray(self.mini_step, np.int32), count] + inner + acc
 
     def load_leaves(self, leaves: Sequence[np.ndarray]) -> None:
@@ -260,20 +271,17 @@ class OptimizerState:
                              "options expect {}".format(len(leaves), expected))
         if self.accumulated is not None:
             self.mini_step = int(leaves[0])
-            acc_leaves = leaves[len(leaves) - 2 * len(self.layers):]
-            leaves = leaves[2:len(leaves) - 2 * len(self.layers)]
+            every = self._leaf_params(trainable_only=False)
+            acc_leaves = leaves[len(leaves) - len(every):]
+            leaves = leaves[2:len(leaves) - len(every)]
             accumulated = dict(zip(self.params, self.accumulated))
-            pairs = iter(acc_leaves)
-            for conv in self.layers:
-                for param in (conv.bias, conv.weight):
-                    value = next(pairs)
-                    if param in accumulated:
-                        accumulated[param].copy_(self._from_jax(value, param))
+            for (param, _), value in zip(every, acc_leaves):
+                if param in accumulated:
+                    accumulated[param].copy_(self._from_jax(value, param))
         self.updates = int(leaves[0])
         moments = len(self.params)
         mu, nu = leaves[1:1 + moments], leaves[1 + moments:1 + 2 * moments]
-        ordered = [param for conv, _ in self._param_pairs(trainable_only=True)
-                   for param in (conv.bias, conv.weight)]
+        ordered = [param for param, _ in self._leaf_params(trainable_only=True)]
         self.adam.state.clear()
         if self.updates > 0:
             for param, m, v in zip(ordered, mu, nu):
@@ -320,43 +328,80 @@ def _batch_to(batch, device) -> tuple:
 
 
 def _check_criterion(criterion: str) -> None:
-    if criterion in ("asg", "asg_trainable"):
-        raise NotImplementedError("criterion {!r} is not ported yet (ROADMAP.md, item "
-                                  "13)".format(criterion))
-    if criterion != "ctc":
+    if criterion not in CRITERIA:
         raise ValueError("Unknown criterion: {}".format(criterion))
+
+
+def _fixed_asg_tables(config: w2l.Wav2LetterConfig, criterion: str, asg_transitions,
+                      asg_initials, device="cpu"):
+    """The ``"asg"`` criterion's (transition, initial) log-score tensors on ``device``,
+    converted from the probability tables once, when the step is built; None for the
+    other criteria."""
+    _check_criterion(criterion)
+    if criterion != "asg":
+        return None
+    return log_tables_on(device, config.grapheme_set_size, asg_transitions, asg_initials)
+
+
+def _tables_to(tables, device):
+    return None if tables is None else tuple(t.to(device) for t in tables)
+
+
+def _per_example_loss(config: w2l.Wav2LetterConfig, model: w2l.Wav2Letter, criterion: str,
+                      logits: torch.Tensor, logit_lengths: torch.Tensor, batch: Batch,
+                      asg_tables) -> torch.Tensor:
+    """The criterion's per-example losses: CTC on the logits, or ASG on the per-frame
+    log-softmax (which shifts every path of both graphs by the same amount, so the loss
+    is unchanged, but keeps the logits' scale from drifting) with the fixed tables or
+    the model's own."""
+    if criterion == "ctc":
+        return ctc_loss_from_logits(logits, logit_lengths, batch.labels, batch.label_lengths,
+                                    config.grapheme_set_size - 1)
+    if criterion == "asg_trainable":
+        if model.asg is None:
+            raise ValueError("criterion 'asg_trainable' needs a model with ASG tables "
+                             "(params ending in the asg_transitions/asg_initials layer)")
+        asg_tables = (model.asg.transitions, model.asg.initials)
+    transitions, initials = asg_tables if asg_tables is not None else (None, None)
+    return asg_loss(torch.log_softmax(logits, dim=-1), logit_lengths, batch.labels,
+                    batch.label_lengths, transition_log_scores=transitions,
+                    initial_log_scores=initials)
 
 
 def loss_fn(config: w2l.Wav2LetterConfig, model: w2l.Wav2Letter, batch: Batch,
             criterion: str = "ctc", train: bool = True,
             generator: Optional[torch.Generator] = None,
-            dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+            dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+            asg_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean CTC loss over the batch, and the per-example losses. Examples whose label
-    needs more frames than they have (length plus adjacent repeats > frames) admit no
-    alignment and score 0, as in the JAX package. ``train`` runs the model's dropout
-    (masks given, or drawn from ``generator``) and remat."""
+    """Mean loss over the batch, and the per-example losses. Under CTC, examples whose
+    label needs more frames than they have (length plus adjacent repeats > frames) admit
+    no alignment and score 0, as in the JAX package; ASG's own guard zeroes empty and
+    too-long labels. ``asg_tables`` are the ``"asg"`` criterion's log-score tables on the
+    batch's device (default: the reference's random tables). ``train`` runs the model's
+    dropout (masks given, or drawn from ``generator``) and remat."""
     _check_criterion(criterion)
     logits = model(batch.inputs, train=train, dropout_masks=dropout_masks,
                    generator=generator)
     logit_lengths = w2l.prediction_lengths(config, batch.input_lengths).to(torch.int32)
-    labels, label_lengths = batch.labels, batch.label_lengths
-    per_example = ctc_loss_from_logits(logits, logit_lengths, labels, label_lengths,
-                                       config.grapheme_set_size - 1)
-    repeats = ((labels[:, 1:] == labels[:, :-1]) & (labels[:, 1:] >= 0)).sum(dim=1)
-    feasible = label_lengths + repeats <= logit_lengths
-    per_example = torch.where(feasible, per_example, 0.0)
+    per_example = _per_example_loss(config, model, criterion, logits, logit_lengths, batch,
+                                    asg_tables)
+    if criterion == "ctc":
+        labels = batch.labels
+        repeats = ((labels[:, 1:] == labels[:, :-1]) & (labels[:, 1:] >= 0)).sum(dim=1)
+        feasible = batch.label_lengths + repeats <= logit_lengths
+        per_example = torch.where(feasible, per_example, 0.0)
     return per_example.mean(), per_example
 
 
 def _update(config, criterion, state: TrainState, batch: Batch,
-            spec_augment: Optional[SpecAugment] = None):
+            spec_augment: Optional[SpecAugment] = None, asg_tables=None):
     with ieee_fp32():
         if spec_augment is not None:
             batch = batch._replace(inputs=apply_spec_augment(
                 batch.inputs, batch.input_lengths, spec_augment, generator=state.generator))
         loss, per_example = loss_fn(config, state.model, batch, criterion,
-                                    generator=state.generator)
+                                    generator=state.generator, asg_tables=asg_tables)
         loss.backward()
         state.opt_state.step()
     state.step += 1
@@ -370,15 +415,19 @@ def _wav_features(batch: WavBatch) -> Batch:
 
 def make_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
                     criterion: str = "ctc", device=DEFAULT_DEVICE,
-                    spec_augment: Optional[SpecAugment] = None):
+                    spec_augment: Optional[SpecAugment] = None,
+                    asg_transitions=None, asg_initials=None):
     """``(state, Batch) -> (state, {"loss", "per_example_loss"})``: one update on
     ``device`` (the batch is moved there; the state must be there already), with
-    SpecAugment on the features when ``spec_augment`` is given."""
+    SpecAugment on the features when ``spec_augment`` is given. ``asg_transitions`` /
+    ``asg_initials`` are the ``"asg"`` criterion's probability tables (reference
+    layout; default the reference's random ones)."""
     del optimizer  # bound into the state by `init_train_state`
+    tables = _fixed_asg_tables(config, criterion, asg_transitions, asg_initials, device)
 
     def train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
         loss, per_example = _update(config, criterion, state, _batch_to(batch, device),
-                                    spec_augment)
+                                    spec_augment, tables)
         return state, {"loss": loss, "per_example_loss": per_example}
 
     return train_step
@@ -386,14 +435,17 @@ def make_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
 
 def make_wav_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
                         criterion: str = "ctc", device=DEFAULT_DEVICE,
-                        spec_augment: Optional[SpecAugment] = None):
+                        spec_augment: Optional[SpecAugment] = None,
+                        asg_transitions=None, asg_initials=None):
     """``(state, WavBatch) -> (state, metrics)``: features on the device, then one
     update, as `make_train_step`."""
     del optimizer
+    tables = _fixed_asg_tables(config, criterion, asg_transitions, asg_initials, device)
 
     def train_step(state: TrainState, batch: WavBatch) -> Tuple[TrainState, Dict]:
         features = _wav_features(_batch_to(batch, device))
-        loss, per_example = _update(config, criterion, state, features, spec_augment)
+        loss, per_example = _update(config, criterion, state, features, spec_augment,
+                                    tables)
         return state, {"loss": loss, "per_example_loss": per_example}
 
     return train_step
@@ -401,12 +453,14 @@ def make_wav_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
 
 def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
                         criterion: str = "ctc", device=DEFAULT_DEVICE,
-                        spec_augment: Optional[SpecAugment] = None):
+                        spec_augment: Optional[SpecAugment] = None,
+                        asg_transitions=None, asg_initials=None):
     """``(state, stacked WavBatch) -> (state, {"loss": mean, "step_losses": (k,)})``:
-    k fused updates (features, forward, CTC, backward, Adam), one per row of the
+    k fused updates (features, forward, loss, backward, Adam), one per row of the
     leading steps axis, with no host sync between them; the losses stay on the
     device."""
     del optimizer
+    tables = _fixed_asg_tables(config, criterion, asg_transitions, asg_initials, device)
 
     def multi_step(state: TrainState, stacked: WavBatch) -> Tuple[TrainState, Dict]:
         stacked = _batch_to(stacked, device)
@@ -414,7 +468,7 @@ def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
         for index in range(stacked.wavs.shape[0]):
             micro = WavBatch(*(field[index] for field in stacked))
             losses.append(_update(config, criterion, state, _wav_features(micro),
-                                  spec_augment)[0])
+                                  spec_augment, tables)[0])
         losses = torch.stack(losses)
         return state, {"loss": losses.mean(), "step_losses": losses}
 
@@ -423,18 +477,20 @@ def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
 
 def make_multi_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
                     criterion: str = "ctc", device=DEFAULT_DEVICE,
-                    spec_augment: Optional[SpecAugment] = None):
+                    spec_augment: Optional[SpecAugment] = None,
+                    asg_transitions=None, asg_initials=None):
     """``(state, stacked Batch) -> (state, {"loss": mean, "step_losses": (k,)})``: k
     updates over feature batches stacked on a leading steps axis
     (`data.batching.stack_batches`), one per row, with no host sync between them; the
     losses stay on the device. The facade's ``multi_step=k``."""
     del optimizer
+    tables = _fixed_asg_tables(config, criterion, asg_transitions, asg_initials, device)
 
     def multi_step(state: TrainState, stacked: Batch) -> Tuple[TrainState, Dict]:
         stacked = _batch_to(stacked, device)
         losses = torch.stack([
             _update(config, criterion, state, Batch(*(field[index] for field in stacked)),
-                    spec_augment)[0]
+                    spec_augment, tables)[0]
             for index in range(stacked.inputs.shape[0])])
         return state, {"loss": losses.mean(), "step_losses": losses}
 
@@ -453,7 +509,8 @@ def sample_indices(example_count: int, batch_size: int, steps: int,
 
 def make_device_epoch_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
                            batch_size: int, steps: int, criterion: str = "ctc",
-                           spec_augment: Optional[SpecAugment] = None):
+                           spec_augment: Optional[SpecAugment] = None,
+                           asg_transitions=None, asg_initials=None):
     """``(state, dataset, generator=None, indices=None) -> (state, {"loss": mean,
     "step_losses": (steps,)})``: ``steps`` updates over a device-resident corpus
     (`data.device_dataset.DeviceDataset`, on the state's device). Each step's
@@ -465,6 +522,7 @@ def make_device_epoch_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
     if batch_size < 1 or steps < 1:
         raise ValueError("batch_size ({}) and steps ({}) must be >= 1".format(batch_size,
                                                                                steps))
+    tables = _fixed_asg_tables(config, criterion, asg_transitions, asg_initials)
 
     def epoch_step(state: TrainState, dataset, generator: Optional[torch.Generator] = None,
                    indices=None) -> Tuple[TrainState, Dict]:
@@ -481,29 +539,31 @@ def make_device_epoch_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
             if tuple(indices.shape) != (steps, batch_size):
                 raise ValueError("indices of shape {}, expected {}".format(
                     tuple(indices.shape), (steps, batch_size)))
+        step_tables = _tables_to(tables, device)
         losses = torch.stack([
             _update(config, criterion, state,
                     Batch(*(field.index_select(0, rows) for field in dataset)),
-                    spec_augment)[0]
+                    spec_augment, step_tables)[0]
             for rows in indices])
         return state, {"loss": losses.mean(), "step_losses": losses}
 
     return epoch_step
 
 
-def make_eval_step(config: w2l.Wav2LetterConfig, criterion: str = "ctc"):
+def make_eval_step(config: w2l.Wav2LetterConfig, criterion: str = "ctc",
+                   asg_transitions=None, asg_initials=None):
     """``(model, Batch) -> (log_probs, logit_lengths, per_example_loss)`` with no
-    gradient, on the device the model and batch lie on."""
-    _check_criterion(criterion)
+    gradient, on the device the model and batch lie on. Unlike training, the CTC losses
+    carry no feasibility guard, as in the JAX package."""
+    tables = _fixed_asg_tables(config, criterion, asg_transitions, asg_initials)
 
     def eval_step(model: w2l.Wav2Letter, batch: Batch):
         with torch.no_grad(), ieee_fp32():
             logits = model(batch.inputs)
             logit_lengths = w2l.prediction_lengths(config, batch.input_lengths).to(
                 torch.int32)
-            per_example = ctc_loss_from_logits(logits, logit_lengths, batch.labels,
-                                               batch.label_lengths,
-                                               config.grapheme_set_size - 1)
+            per_example = _per_example_loss(config, model, criterion, logits, logit_lengths,
+                                            batch, _tables_to(tables, logits.device))
             return torch.log_softmax(logits, dim=-1), logit_lengths, per_example
 
     return eval_step

@@ -3,6 +3,7 @@
 counterpart of `examples/scaled_quality_eval.py`.
 
     python3 synthetic_quality.py [--device cuda:0] [--out results.json] [--transfer]
+    python3 synthetic_quality.py --asg [--trainable-transitions]
     python3 synthetic_quality.py --smoke --device cpu      # a tiny run of the same flow
 
 Writes a LibriSpeech-layout corpus with `data/synthetic.py` (1,000 standard-tier
@@ -17,6 +18,11 @@ utterances (seed 100, 80 % training), the output layer remapped and layers 0-7 f
 8 epochs (numbered on from the English run's), and greedy and LM-beam LER/WER on the
 held-out 20 % with a German trigram of the training transcripts, printed beside the
 JAX package's record `QUALITY_r02_german_beam.json` (nothing holds one to the other).
+With ``--asg`` it trains the ASG criterion instead, as `examples/asg_quality_eval.py`
+does: the same corpus, 20 epochs of 100 batches of 64 on the device-resident corpus
+(``--trainable-transitions``: the tables trained too), and greedy LER/WER on the
+held-out 10 % (per-frame argmax, or with trained tables the Viterbi over them; ASG has
+no LM beam), printed beside the JAX package's record `QUALITY_r02_asg.json`.
 Prints one JSON object of walls, the train rates from ``scalars.csv``, LER/WER and the
 card's name and power limit, and writes it to ``--out``. Everything it writes lies
 under ``--data-dir`` (default ``build/synthetic-quality`` in the checkout, which git
@@ -49,7 +55,8 @@ def main() -> None:
                         help="results JSON (default: <data-dir>/quality_results.json)")
     parser.add_argument("--device", default="cuda:0")
     parser.add_argument("--utterances", type=int, default=1000)
-    parser.add_argument("--epochs", type=int, default=15)
+    parser.add_argument("--epochs", type=int, default=None,
+                        help="training epochs (default 15, with --asg 20)")
     parser.add_argument("--batch-size", type=int, default=64)
     parser.add_argument("--steps-per-epoch", type=int, default=100)
     parser.add_argument("--multi-step", type=int, default=10,
@@ -59,10 +66,19 @@ def main() -> None:
     parser.add_argument("--transfer-utterances", type=int, default=300)
     parser.add_argument("--transfer-epochs", type=int, default=8)
     parser.add_argument("--frozen-layers", type=int, default=8)
+    parser.add_argument("--asg", action="store_true",
+                        help="train the ASG criterion on the device-resident corpus "
+                             "instead (examples/asg_quality_eval.py's recipe)")
+    parser.add_argument("--trainable-transitions", action="store_true",
+                        help="with --asg: train the transition tables too")
     parser.add_argument("--smoke", action="store_true",
                         help="24 utterances, 2 epochs of 4 batches of 8 (12 German "
                              "utterances, 1 transfer epoch): the flow, not the numbers")
     args = parser.parse_args()
+    if args.trainable_transitions and not args.asg:
+        parser.error("--trainable-transitions requires --asg")
+    if args.epochs is None:
+        args.epochs = 20 if args.asg else 15
     if args.smoke:
         args.utterances, args.epochs, args.batch_size = 24, 2, 8
         args.steps_per_epoch, args.multi_step = 4, 2
@@ -105,6 +121,9 @@ def main() -> None:
                           directories.kenlm_base_directory / config.name.lower(),
                           allowed_characters=config.allowed_characters, order=3)
 
+    if args.asg:
+        asg(args, config, results)
+        return
     run_name = "quality-english" + ("-smoke" if args.smoke else "")
     start = time.perf_counter()
     config.train_or_resume(run_name, epoch_limit=args.epochs, callback_step=5,
@@ -127,23 +146,60 @@ def main() -> None:
                 "decode_wall_s": time.perf_counter() - start}
             log("[{}] {}".format(prefix + name, result.summary_line()))
 
-    def train_rates(run):
-        scalars = directories.tensorboard_log_base_directory / run / "scalars.csv"
-        rows = [line.split(",") for line in scalars.read_text().strip().splitlines()[1:]]
-        return [{"epoch": int(r[0]), "step": int(r[1]), "loss": float(r[2]),
-                 "utterances_per_s": float(r[3]), "s_per_batch": float(r[4])} for r in rows]
-
-    results["train"] = {"wall_s": train_wall_s, "epochs": train_rates(run_name)}
+    results["train"] = {"wall_s": train_wall_s, "epochs": train_rates(config, run_name)}
     evaluate(config, run_name, args.epochs)
     if args.transfer:
-        transfer(args, directories, run_name, results, evaluate, train_rates)
-    out = args.out or args.data_dir / "quality_results.json"
+        transfer(args, directories, run_name, results, evaluate)
+    write_results(args, results, "quality_results.json")
+
+
+def train_rates(configuration, run):
+    scalars = configuration.directories.tensorboard_log_base_directory / run / "scalars.csv"
+    rows = [line.split(",") for line in scalars.read_text().strip().splitlines()[1:]]
+    return [{"epoch": int(r[0]), "step": int(r[1]), "loss": float(r[2]),
+             "utterances_per_s": float(r[3]), "s_per_batch": float(r[4])} for r in rows]
+
+
+def write_results(args, results, default_name: str) -> None:
+    out = args.out or args.data_dir / default_name
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=2))
     print(json.dumps(results))
 
 
-def transfer(args, directories, english_run, results, evaluate, train_rates) -> None:
+def asg(args, config, results) -> None:
+    """`examples/asg_quality_eval.py`'s recipe: the ASG criterion (with
+    ``--trainable-transitions`` trained tables) on the device-resident corpus, then
+    greedy LER/WER on the held-out examples."""
+    from speechless_tpu_torch.utils.tools import log
+
+    options = {"device": args.device, "use_asg": True,
+               "train_asg_transitions": args.trainable_transitions}
+    run_name = "quality-asg" + ("-trainable" if args.trainable_transitions else "") + (
+        "-smoke" if args.smoke else "")
+    start = time.perf_counter()
+    config.train_or_resume(run_name, epoch_limit=args.epochs, callback_step=5,
+                           device_resident=True, wav2letter_kwargs=options)
+    results["asg_train"] = {"wall_s": time.perf_counter() - start,
+                            "trainable_transitions": args.trainable_transitions,
+                            "epochs": train_rates(config, run_name)}
+    wav2letter = config.load_model(run_name, args.epochs,
+                                   allowed_characters_for_loaded_model=None, **options)
+    start = time.perf_counter()
+    result = wav2letter.test_and_predict_batches(config.batch_generator.test_batches())
+    results["asg_greedy"] = {"letter_error_rate": result.average_letter_error_rate,
+                             "word_error_rate": result.average_word_error_rate,
+                             "loss": result.average_loss, "examples": len(result.results),
+                             "decode_wall_s": time.perf_counter() - start}
+    log("[asg] {}".format(result.summary_line()))
+    record = ROOT / "QUALITY_r02_asg.json"
+    if record.exists():
+        results["jax_tpu_record_asg"] = json.loads(record.read_text())
+    write_results(args, results, "asg_results{}.json".format(
+        "_trainable" if args.trainable_transitions else ""))
+
+
+def transfer(args, directories, english_run, results, evaluate) -> None:
     """English -> German: the English run's last epoch with its output layer remapped to
     the German characters and the first ``--frozen-layers`` layers frozen, trained on a
     synthetic German corpus, then evaluated greedily and with the LM beam."""
@@ -190,7 +246,7 @@ def transfer(args, directories, english_run, results, evaluate, train_rates) -> 
     results["transfer_train"] = {"wall_s": time.perf_counter() - start,
                                  "frozen_layers": args.frozen_layers,
                                  "utterances": args.transfer_utterances,
-                                 "epochs": train_rates(run)}
+                                 "epochs": train_rates(german, run)}
     evaluate(german, run, last_epoch, prefix="transfer_")
     record = ROOT / "QUALITY_r02_german_beam.json"
     if record.exists():

@@ -254,20 +254,27 @@ def test_validate_to_csv(runs, tmp_path):
 
 
 def test_facade_refusals(tmp_path):
-    """What the facade still refuses, with the ROADMAP.md item named; SpecAugment,
-    remat, dropout, the transfer load and the German configurations now construct."""
+    """What the facade still refuses, with the ROADMAP.md item named (the mesh only);
+    SpecAugment, remat, dropout, the transfer load, the German configurations, ASG, the
+    raw-wave model and the other activations now construct."""
     from speechless_tpu_torch.ops.specaugment import SpecAugment
     from speechless_tpu_torch.text.charsets import german_frequent_characters
 
     chars = english_frequent_characters
     with pytest.raises(ValueError, match="frozen"):
         Wav2Letter(128, chars, frozen_layer_count=3, device="cpu")
-    for kwargs, item in (({"use_asg": True}, "13"), ({"mesh": object()}, "13"),
-                         ({"use_raw_wave_input": True}, "3"), ({"activation": "tanh"}, "3")):
-        with pytest.raises(NotImplementedError, match="item {}".format(item)):
-            Wav2Letter(128, chars, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        Wav2Letter(128, chars, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="raw-wave"):
         Wav2Letter(1, chars, use_raw_wave_input=True, spec_augment=True, device="cpu")
+    with pytest.raises(ValueError, match="requires use_asg"):
+        Wav2Letter(128, chars, train_asg_transitions=True, device="cpu")
+    asg = Wav2Letter(128, chars, use_asg=True, train_asg_transitions=True, device="cpu")
+    assert asg.grapheme_encoding.grapheme_set_size == len(chars) + 2
+    assert sorted(asg.params[-1]) == ["asg_initials", "asg_transitions"]
+    raw = Wav2Letter(1, chars, use_raw_wave_input=True, activation="elu", device="cpu")
+    assert raw.config.layer_names[0] == "wave_conv"
+    assert {spec.activation for spec in raw.config.layers[:-1]} == {"elu"}
     trained = Wav2Letter(128, chars, spec_augment=True, remat=True, dropout=0.1, device="cpu")
     assert trained.spec_augment == SpecAugment()
     assert trained.config.remat and trained.config.dropout == 0.1

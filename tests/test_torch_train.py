@@ -373,10 +373,17 @@ def test_model_helpers_match_jax():
 
 
 def test_unported_criteria_raise():
+    """Every criterion of the JAX trainer but its TPU-only CTC spellings is ported
+    (``asg`` and ``asg_trainable``: `test_torch_asg.py`); an unknown one raises, and so
+    does ``asg_trainable`` on a model without ASG tables."""
     config = _configs()[0]
     model = w2l.build_model(config, w2l.init_params(config, seed=1), device="cpu")
     batch = trainer.Batch(*map(torch.from_numpy, _batch(0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.loss_fn(config, model, batch, criterion="asg")
-    with pytest.raises(ValueError, match="Unknown criterion"):
-        trainer.make_eval_step(config, criterion="nope")
+    assert trainer.CRITERIA == ("ctc", "asg", "asg_trainable")
+    with pytest.raises(ValueError, match="needs a model with ASG tables"):
+        trainer.loss_fn(config, model, batch, criterion="asg_trainable")
+    for criterion in ("nope", "ctc_pallas"):
+        with pytest.raises(ValueError, match="Unknown criterion"):
+            trainer.make_eval_step(config, criterion=criterion)
+        with pytest.raises(ValueError, match="Unknown criterion"):
+            trainer.make_train_step(config, None, criterion=criterion, device="cpu")
