@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: LM-fused serving, streaming
 sessions, offline decoding on every beam route, training, the training and evaluation
 facade, the Transcriber's other routes (int8 serving, alignment, FLAC, the beam
-warm-up), and the model variants (ASG, the raw-wave model, the activations).
+warm-up), the model variants (ASG, the raw-wave model, the activations) and export
+bundles.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --facade-only | --bundle-only]
 
 Builds every kernel of ``speechless_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
 source, all started together) and prints ptxas's registers and spills, then:
@@ -176,7 +177,21 @@ source, all started together) and prints ptxas's registers and spills, then:
   for 2 epochs (no CTC launch) and its grouped test (the Viterbi), then the raw-wave
   model for 1 epoch host-fed and 1 resident (the fused backward once a step), each
   test's LER/WER.
-* with ``--facade-only``: the kernel builds and phases F, I and G alone, and no result.
+* phase J (after phase H, on phase B's transcriber and LM): export bundles.
+  `export_transcriber` writes the 16 x 8 s batch's bucket for ``cuda`` (batch sizes 1
+  and 16, the streaming programs, the device pool's feed with posteriors): its wall and
+  bytes (programs, weights). A fresh ``python -X importtime -m speechless_tpu_torch
+  transcribe --bundle --json`` of the batch as float32 wavs prints the live
+  `transcribe_batch`'s texts (confidences within 1e-4) and imports no model, features
+  or Transcriber module. In process, `ExportedTranscriber`: the batched program's texts
+  equal the live ones with one span and one backtrace launch a dispatch; the 16 single
+  programs launch one each, their posteriors are within 1e-4 of the live log-probs and
+  their texts equal the plain loop (`lm_span_reference`, `backtrace_tokens`) on those
+  posteriors; ms per 16 x 8 s dispatch, bundle and live in turns; a greedy session on a
+  `DeviceStreamingPool` over the bundle gives the live pool's final, resident mode is
+  refused; a ``cpu``-only bundle is refused on the card.
+* with ``--facade-only``: the kernel builds and phases F, I and G alone, and no result;
+  with ``--bundle-only``: the kernel builds and phases B and J alone, and no result.
 * with ``--profile`` only: the split of one 16 x 8 s `transcribe_batch` into features,
   model and beam, single-request latencies, and the device's busy share and kernel
   counts from one `torch.profiler` trace (``chiprun_out/profile.json``); and the split of
@@ -4041,6 +4056,314 @@ def phase_h_cli(device, data: Path, run: str) -> None:
                                                          for r in printed[0]]), flush=True)
 
 
+BUNDLE_CONFIDENCE_TOLERANCE = 1e-4   # bundle vs live confidences and log-probs (fp32)
+
+
+def bundle_bytes(directory: Path) -> dict:
+    """A bundle's bytes: its program files and its weights."""
+    return {"programs": sum(f.stat().st_size for f in directory.glob("*.pt2")),
+            "weights": sum(f.stat().st_size for f in directory.glob("weights-*.npz"))}
+
+
+def fresh_bundle_transcribe(directory: Path, files, device) -> dict:
+    """``python -X importtime -m speechless_tpu_torch transcribe --bundle --json`` in a
+    fresh process: its records, its wall and the port modules it imported."""
+    start = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "speechless_tpu_torch", "transcribe",
+         *map(str, files), "--bundle", str(directory), "--json", "--device", str(device)],
+        cwd=str(ROOT),
+        capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - start
+    check(done.returncode == 0, "transcribe --bundle exited {}: {}".format(
+        done.returncode, done.stderr[-3000:]))
+    imported = {line.rsplit("|", 1)[-1].strip() for line in done.stderr.splitlines()
+                if line.startswith("import time:")}
+    return {"records": [json.loads(line) for line in done.stdout.splitlines() if line],
+            "wall_s": wall_s,
+            "port_modules": sorted(m for m in imported
+                                   if m.startswith("speechless_tpu_torch"))}
+
+
+def dispatch_profile(serve, batch) -> dict:
+    """One ``serve(batch)`` under `torch.profiler`: the device's busy ms and operations
+    (device-side events only), the host's aten operations and the wall in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    serve(batch)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve(batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    return {"device_ms": sum(e.time_range.elapsed_us() for e in device) / 1e3,
+            "device_ops": len(device),
+            "host_aten_ops": sum(1 for e in events if e.device_type == DeviceType.CPU
+                                 and e.name.startswith("aten::")),
+            "wall_ms": wall_ms}
+
+
+def issue_split(paths: dict, runs: int) -> dict:
+    """For each of ``paths`` (name -> a call that enqueues one dispatch and returns its
+    device tensors), the median ms until the call returns (the host issuing the
+    dispatch) and until the device has finished it, over ``runs`` calls of each path
+    in turns, each started on an idle device."""
+    import torch
+
+    times = {name: ([], []) for name in paths}
+    for _ in range(runs):
+        for name, fn in paths.items():
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            times[name][0].append(time.perf_counter() - start)
+            torch.cuda.synchronize()
+            times[name][1].append(time.perf_counter() - start)
+    return {name: {"issue_ms": float(np.median(issue)) * 1e3,
+                   "done_ms": float(np.median(done)) * 1e3}
+            for name, (issue, done) in times.items()}
+
+
+def phase_j(device, card: str, transcriber, batch, lm_directory: Path) -> dict:
+    """Export bundles on phase B's full-width transcriber and LM: export the 16 x 8 s
+    batch's bucket for cuda, replay it in a fresh ``transcribe --bundle`` process and in
+    this one, and hold it to the live path, the plain loop and the live device pool."""
+    import scipy.io.wavfile as wavfile
+    import torch
+
+    from speechless_tpu_torch.ops import beam_common, decode_lm
+    from speechless_tpu_torch.serving_device_stream import DeviceStreamingPool
+    from speechless_tpu_torch.serving_export import ExportedTranscriber, export_transcriber
+    from speechless_tpu_torch.serving_host import grouped_padded_batches
+
+    numbers = {"launches": {}}
+    phase_start = time.perf_counter()
+    bucket = transcriber._bucket(len(batch[0]))
+    check(all(transcriber._bucket(len(a)) == bucket for a in batch),
+          "the 16 x 8 s batch spans more than one bucket")
+
+    def reset():
+        torch.cuda.synchronize()
+        decode_lm.lm_span.launches = decode_lm.lm_step.launches = 0
+        beam_common.beam_backtrace.launches = 0
+
+    def launches():
+        torch.cuda.synchronize()
+        return {"lm_beam_span": decode_lm.lm_span.launches,
+                "beam_backtrace": beam_common.beam_backtrace.launches,
+                "lm_beam_step": decode_lm.lm_step.launches}
+
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        directory = work / "bundle"
+        start = time.perf_counter()
+        export_transcriber(transcriber, directory, platforms=(device.type,),
+                           sample_buckets=(bucket,), batch_sizes=(1, 16), streaming=True,
+                           device_streaming={"posteriors": True})
+        numbers["export_s"] = time.perf_counter() - start
+        numbers["bytes"] = bundle_bytes(directory)
+        print(card)
+        print("phase J export for {}: bucket {} ({} s), batch sizes 1 and 16, streaming, "
+              "device-streaming with posteriors: {:.2f} s; bundle bytes: programs {}, "
+              "weights {}; manifest lm_fused {}".format(
+                  device.type, bucket, bucket / 16000.0, numbers["export_s"],
+                  numbers["bytes"]["programs"], numbers["bytes"]["weights"],
+                  json.loads((directory / "manifest.json").read_text())["lm_fused"]),
+              flush=True)
+
+        # -- a fresh `transcribe --bundle` process: float32 wavs, read back exactly --------
+        files = []
+        for index, audio in enumerate(batch):
+            files.append(work / "utterance{:02d}.wav".format(index))
+            wavfile.write(files[-1], 16000, audio.astype(np.float32))
+        live = transcriber.transcribe_batch(batch)
+        # The fresh process runs beside the in-process checks below (most of its wall is
+        # its own start-up and loads), and is read before anything is timed.
+        fresh = {}
+        fresh_thread = threading.Thread(target=lambda: fresh.update(
+            fresh_bundle_transcribe(directory, files, device)))
+        fresh_thread.start()
+
+        # -- in process: the batched program against the live path -------------------------
+        start = time.perf_counter()
+        bundle = ExportedTranscriber(directory, device=device)
+        numbers["load_s"] = time.perf_counter() - start
+        bundle.transcribe_batch(batch)
+        reset()
+        replayed = bundle.transcribe_batch(batch)
+        numbers["launches"]["batch"] = launches()
+        check(numbers["launches"]["batch"] == {"lm_beam_span": 1, "beam_backtrace": 1,
+                                               "lm_beam_step": 0},
+              "one replayed 16 x 8 s dispatch launched {}".format(
+                  numbers["launches"]["batch"]))
+        check([text for text, _ in replayed] == [text for text, _ in live],
+              "the bundle's transcripts differ from the live ones")
+        gap = max(abs(a - b) for (_, a), (_, b) in zip(replayed, live))
+        check(gap <= BUNDLE_CONFIDENCE_TOLERANCE, "bundle confidences differ by {}".format(
+            gap))
+        numbers["confidence_gap"] = gap
+
+        # -- the single programs: posteriors, and tokens against the plain loop ------------
+        reset()
+        singles = [bundle.transcribe_audio(audio) for audio in batch]
+        posteriors = [bundle.frame_log_probs(audio) for audio in batch]
+        numbers["launches"]["singles"] = launches()
+        check(numbers["launches"]["singles"] == {"lm_beam_span": 16, "beam_backtrace": 16,
+                                                 "lm_beam_step": 0},
+              "16 single-utterance replays launched {}".format(
+                  numbers["launches"]["singles"]))
+        numbers["log_prob_gap"] = max(
+            float(np.abs(mine - transcriber.frame_log_probs(audio)).max())
+            for mine, audio in zip(posteriors, batch))
+        check(numbers["log_prob_gap"] <= BUNDLE_CONFIDENCE_TOLERANCE,
+              "bundle log-probs differ from the live ones by {}".format(
+                  numbers["log_prob_gap"]))
+        # The control: the posterior program replayed with TF32 on must fail that limit
+        # (no graph records the flags; the loader turns them off around each replay).
+        padded = np.zeros((1, bucket), np.float32)
+        padded[0, :len(batch[0])] = batch[0]
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.inference_mode():
+                tf32_log_probs, _ = bundle._posterior_programs[bucket].module(
+                    bundle.weights, torch.from_numpy(padded).to(device),
+                    torch.tensor([len(batch[0])], dtype=torch.int32, device=device))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        numbers["tf32_log_prob_gap"] = float(np.abs(
+            tf32_log_probs[0, :len(posteriors[0])].cpu().numpy() - posteriors[0]).max())
+        check(numbers["tf32_log_prob_gap"] > BUNDLE_CONFIDENCE_TOLERANCE,
+              "the TF32 control replay is within {} of the fp32 one".format(
+                  numbers["tf32_log_prob_gap"]))
+        frames = max(len(p) for p in posteriors)
+        stacked = np.zeros((len(batch), frames, posteriors[0].shape[1]), np.float32)
+        for row, rows in enumerate(posteriors):
+            stacked[row, :len(rows)] = rows
+        start = time.perf_counter()
+        tokens, counts = decode_lm._beam_search(
+            torch.from_numpy(stacked).to(device),
+            torch.tensor([len(p) for p in posteriors], device=device),
+            transcriber.blank_index, transcriber.word_lm, 25, frames, 0.8, 0.0, 2.3, 8,
+            step=decode_lm.lm_step_reference)
+        numbers["plain_s"] = time.perf_counter() - start
+        tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
+        plain = [transcriber.codec.decode_graphemes(tokens[row, :int(counts[row])].tolist(),
+                                                    merge_repeated=False)
+                 for row in range(len(batch))]
+        check(plain == singles, "the single programs' transcripts {} differ from the plain "
+              "loop's on their own posteriors {}".format(singles, plain))
+        print("phase J in process: load {:.2f} s; the batched program's 16 texts equal the "
+              "live ones (confidences within {:.3g}), one span and one backtrace launch a "
+              "dispatch; the 16 single programs' texts equal the plain loop "
+              "(lm_span_reference, backtrace_tokens; {:.2f} s) on their posteriors, which "
+              "are within {:.3g} of the live log-probs (replayed with TF32 on: {:.3g})"
+              .format(numbers["load_s"], gap, numbers["plain_s"], numbers["log_prob_gap"],
+                      numbers["tf32_log_prob_gap"]),
+              flush=True)
+
+        fresh_thread.join(timeout=600)
+        check(bool(fresh), "the fresh transcribe --bundle process did not finish")
+        numbers["fresh"] = {key: fresh[key] for key in ("wall_s", "port_modules")}
+        check([r["text"] for r in fresh["records"]] == [text for text, _ in live],
+              "transcribe --bundle printed {} (live {})".format(
+                  [r["text"] for r in fresh["records"]], [text for text, _ in live]))
+        fresh_gap = max(abs(r["confidence"] - c)
+                        for r, (_, c) in zip(fresh["records"], live))
+        check(fresh_gap <= BUNDLE_CONFIDENCE_TOLERANCE, "transcribe --bundle confidences "
+              "differ from the live ones by {}".format(fresh_gap))
+        model_code = [m for m in fresh["port_modules"] if m.startswith((
+            "speechless_tpu_torch.models", "speechless_tpu_torch.features.spectrogram"))
+            or m == "speechless_tpu_torch.serving"]
+        check(not model_code, "transcribe --bundle imported model code: {}".format(
+            model_code))
+        print("phase J a fresh `transcribe --bundle --json` of the 16 wavs (float32; run "
+              "beside the checks above): {:.2f} s, texts equal to the live "
+              "transcribe_batch, confidences within {:.3g}; it imported no model, features "
+              "or Transcriber module ({} port modules)".format(
+                  fresh["wall_s"], fresh_gap, len(fresh["port_modules"])), flush=True)
+
+        # -- ms per 16 x 8 s dispatch, bundle and live in turns ----------------------------
+        runs = 5
+        times = {"live": [], "bundle": []}
+        for name in ("live", "bundle", "bundle", "live"):
+            serve = (transcriber if name == "live" else bundle).transcribe_batch
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(runs):
+                serve(batch)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - start) / runs * 1e3)
+        numbers["ms"] = times
+        numbers["profile"] = {name: dispatch_profile(serve, batch) for name, serve in (
+            ("live", transcriber.transcribe_batch), ("bundle", bundle.transcribe_batch))}
+        _, wavs, lengths = next(grouped_padded_batches(batch, transcriber._bucket, 16))
+
+        def live_dispatch():
+            with torch.inference_mode():
+                return transcriber._decode(*transcriber._log_probs(wavs, lengths))
+
+        numbers["issue"] = issue_split({
+            "live": live_dispatch,
+            "bundle": lambda: bundle.replay(bundle._batch_programs[(bucket, 16)], wavs,
+                                            lengths)}, runs=10)
+        print(card)
+        print("phase J ms per 16 x 8 s dispatch (host clock after a sync, {} a turn, turns "
+              "live, bundle, bundle, live): bundle {}, live {}; one dispatch each under "
+              "torch.profiler: {}; the device tensors of a dispatch without the host's "
+              "fetch, medians of 10 in turns, ms until the call returns (the host's issue) "
+              "and until the device is done: {}".format(
+                  runs, [round(t, 4) for t in times["bundle"]],
+                  [round(t, 4) for t in times["live"]], json.dumps(numbers["profile"]),
+                  json.dumps(numbers["issue"])), flush=True)
+
+        # -- the device pool over the bundle against the live pool -------------------------
+        reset()
+        finals = {}
+        for name, backend in (("live", transcriber), ("bundle", bundle)):
+            pool = DeviceStreamingPool(backend, window_s=8.0, margin_s=2.0)
+            pool.start()
+            try:
+                finals[name] = pool.create_stream().transcribe_stream(batch[3], 8000)
+            finally:
+                pool.stop()
+        numbers["launches"]["pools"] = launches()
+        check(finals["bundle"] == finals["live"] and bool(finals["live"]),
+              "the bundle pool's final {!r} != the live pool's {!r}".format(
+                  finals["bundle"], finals["live"]))
+        try:
+            DeviceStreamingPool(bundle, beam_mode="resident")
+            check(False, "a bundle pool took beam_mode='resident'")
+        except ValueError as error:
+            check("resident" in str(error), "resident refusal: {}".format(error))
+        print("phase J device pool over the bundle (its baked 8 s window, 64 sessions, <= "
+              "16 rows a dispatch, posterior mode): one greedy session fed 8 s in 0.5 s "
+              "chunks gives the live pool's final ({} chars); beam_mode='resident' "
+              "refused".format(
+                  len(finals["live"])), flush=True)
+
+        # -- a cpu bundle on the card -----------------------------------------------------
+        cpu_only = work / "cpu-bundle"
+        cpu_only.mkdir()
+        manifest = json.loads((directory / "manifest.json").read_text())
+        manifest["platforms"] = ["cpu"]
+        (cpu_only / "manifest.json").write_text(json.dumps(manifest))
+        try:
+            ExportedTranscriber(cpu_only, device=device)
+            check(False, "a cpu bundle loaded on the card")
+        except ValueError as error:
+            check("exported for platforms" in str(error), "cpu refusal: {}".format(error))
+    numbers["wall_s"] = time.perf_counter() - phase_start
+    print("phase J a cpu-only bundle is refused on the card; phase J {:.1f} s".format(
+        numbers["wall_s"]), flush=True)
+    return numbers
+
+
 def main() -> None:
     import argparse
 
@@ -4055,6 +4378,9 @@ def main() -> None:
     parser.add_argument("--facade-only", action="store_true",
                         help="build the kernels and run phases F, I and G alone; prints "
                              "no result line")
+    parser.add_argument("--bundle-only", action="store_true",
+                        help="build the kernels and run phases B and J alone; prints no "
+                             "result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -4105,6 +4431,11 @@ def main() -> None:
             load_language_model(Path(lm_directory), prefer_native=False), alphabet).to(device)
         print("word LM: {} sentences of README.md, {} trie nodes, {} unigrams".format(
             len(sentences), word_lm.trie.shape[0], word_lm.uni_logp.shape[0]))
+        if args.bundle_only:
+            _, transcriber, batch, _, _, _ = phase_b(device, Path(lm_directory))
+            phase_j(device, card, transcriber, batch, Path(lm_directory))
+            print("chip_smoke --bundle-only: phases B and J passed; no result line")
+            return
         step = phase_a(device, len(alphabet), alphabet.index(" "), word_lm)
         launches, transcriber, batch, short_audio, make_audio, batch_s = phase_b(
             device, Path(lm_directory))
@@ -4118,6 +4449,7 @@ def main() -> None:
                           {word for sentence in sentences for word in sentence.split()},
                           step["decode_outputs"])
         routes = phase_h(device, card, transcriber, batch, Path(lm_directory), batch_s)
+        bundles = phase_j(device, card, transcriber, batch, Path(lm_directory))
     train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
     with tempfile.TemporaryDirectory() as directory:
         facade = phase_f(device, card, train["train"], Path(directory))
@@ -4136,6 +4468,10 @@ def main() -> None:
               name: run["launches"] for name, run in model_variants["facade"].items()}))
     print("phase H launches on its paths (lm_beam_span, beam_backtrace, stream_stitch, "
           "lm_beam_step): {}".format(routes["launches"]))
+    print("phase J launches on its paths (lm_beam_span, beam_backtrace, lm_beam_step): "
+          "{}".format(bundles["launches"]))
+    replayed = {name: sum(run[name] for run in bundles["launches"].values())
+                for name in ("lm_beam_span", "beam_backtrace")}
     print(card)  # again beside the summary: the long output's head may be cut
     print("summary: span kernel {:.4f} ms per 16 x 513 launch ({:.2f} us per frame; "
           "no LM {:.4f} ms); step entry {:.5f} ms per frame on the sorted network, {:.5f} "
@@ -4147,13 +4483,15 @@ def main() -> None:
         "name": "lm_beam_span", "route": "cuda",
         "source": "speechless_tpu_torch/csrc/lm_beam_span.cu",
         "replaces": "speechless_tpu/ops/decode_pallas_lm.py:124",
-        "launches": launches["lm_beam_span"], "max_abs_err": step["max_abs_err"],
+        "launches": launches["lm_beam_span"] + replayed["lm_beam_span"],
+        "max_abs_err": step["max_abs_err"],
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": None}, {
         "name": "beam_backtrace", "route": "cuda",
         "source": "speechless_tpu_torch/csrc/beam_backtrace.cu",
         "replaces": "speechless_tpu/ops/decode_jax.py:34",
-        "launches": launches["beam_backtrace"], "max_abs_err": backtrace["max_abs_err"],
+        "launches": launches["beam_backtrace"] + replayed["beam_backtrace"],
+        "max_abs_err": backtrace["max_abs_err"],
         "ms": backtrace["ms"], "plain_ms": backtrace["plain_ms"],
         "bound_ms": backtrace["bound_ms"], "bound_by": backtrace["bound_by"],
         "library_ms": None}, {

@@ -11,6 +11,9 @@
         --kenlm kenlm/english --json --nbest 3 a.wav b.flac
     python -m speechless_tpu_torch align a.flac --text "the cat sat" --config english \\
         --data-dir D --run R --epoch 9 [--quantize]
+    python -m speechless_tpu_torch export --config english --data-dir D --run R \\
+        --epoch 9 --kenlm --out bundle --batch-sizes 1 16 --streaming [--device-streaming]
+    python -m speechless_tpu_torch transcribe --bundle bundle a.wav b.flac
 
     python -m speechless_tpu_torch transfer --config german --data-dir D --freeze 8 \
         --epochs 1691
@@ -32,7 +35,9 @@ offline and prints ``file<TAB>text`` lines or one JSON object per file; ``align`
 prints the word timestamps of a known transcript as one JSON object. Their model is
 either a run of a configuration (``--config --data-dir --run --epoch``, as the JAX CLI
 takes it) or a checkpoint file (``--checkpoint FILE --charset``), written by either
-package, float or int8 (``layer{i}.{w,b}`` or ``layer{i}.{w_q,w_scale,b}``).
+package, float or int8 (``layer{i}.{w,b}`` or ``layer{i}.{w_q,w_scale,b}``), or an export
+bundle (``--bundle DIR``, `serving_export.py`), which ``export`` writes from such a model:
+`torch.export` programs that replay with no model code.
 ``--kenlm`` alone takes the configuration's LM directory (``<data-dir>/kenlm/<name>``),
 as the JAX flag does; ``--kenlm DIR`` names the directory. Every command runs on
 ``--device`` (default ``cuda:0``).
@@ -42,12 +47,10 @@ import json
 import logging
 from pathlib import Path
 
-from .models.wav2letter import Wav2LetterConfig
-from .serving import CHARSETS, Transcriber
-from .train.checkpoint import load_params_npz
+from .serving_host import CHARSETS
 
-_BUNDLES_NOT_PORTED = ("--bundle: export bundles are not ported yet (ROADMAP.md, item "
-                       "13: export bundles)")
+# Options a bundle bakes in at export time: with --bundle they would be ignored.
+_BAKED_OPTIONS = ("kenlm", "lexicon", "quantize", "int8_compute", "charset")
 
 
 def _configuration(name: str, data_dir=None, batch_size=None, batches_per_epoch=None):
@@ -265,6 +268,7 @@ def _convert_checkpoint(source: Path, destination: Path) -> None:
     mainly to take a model trained here back to Keras. The ``.npz`` to ``.h5`` direction
     infers the reference geometry from the weights (a first kernel of (250, 1, ...) is
     the raw-wave model), drops a trained-ASG pseudo-layer and refuses int8 weights."""
+    from .models.wav2letter import Wav2LetterConfig
     from .train import checkpoint as ckpt
     from .train.keras_import import (is_keras_weight_file, load_keras_params,
                                      save_keras_params)
@@ -274,7 +278,7 @@ def _convert_checkpoint(source: Path, destination: Path) -> None:
         print("Wrote {}".format(destination))
         return
     if source.suffix == ".npz" and is_keras_weight_file(destination):
-        params = load_params_npz(source)
+        params = ckpt.load_params_npz(source)
         if any("w_q" in layer for layer in params):
             raise SystemExit("{} holds int8-quantized weights, which have no Keras "
                              "representation; convert the float checkpoint.".format(source))
@@ -314,7 +318,8 @@ def _model_args(parser: argparse.ArgumentParser, kenlm: bool = True,
     parser.add_argument("--charset", choices=sorted(CHARSETS), default=None,
                         help="the characters of a --checkpoint model (default english)")
     parser.add_argument("--bundle", default=None,
-                        help="an export bundle (not ported yet: refused)")
+                        help="serve from an export bundle directory (see `export`) "
+                             "instead of a checkpoint")
     parser.add_argument("--quantize", action="store_true",
                         help="serve from int8 per-channel weights")
     if int8_compute:
@@ -337,7 +342,19 @@ def _model_args(parser: argparse.ArgumentParser, kenlm: bool = True,
 def _check_backend_args(args, parser: argparse.ArgumentParser) -> None:
     """The JAX CLI's refusals (with its messages) before anything loads."""
     if args.bundle is not None:
-        parser.error(_BUNDLES_NOT_PORTED)
+        if args.checkpoint is not None or args.run is not None:
+            parser.error("{} needs exactly one of --bundle or a checkpoint (--checkpoint "
+                         "or --run/--epoch)".format(args.command))
+        if args.lexicon:
+            parser.error("--lexicon needs a live checkpoint (--run/--epoch): AOT bundles "
+                         "bake their decoder at export time, so the flag would be "
+                         "silently ignored")
+        baked = ["--" + name.replace("_", "-") for name in _BAKED_OPTIONS
+                 if getattr(args, name, None)]
+        if baked:
+            parser.error("{} with --bundle: a bundle bakes its LM, weights and "
+                         "characters in at export time".format(", ".join(baked)))
+        return
     if (args.checkpoint is None) == (args.run is None):
         parser.error("{} needs exactly one of --checkpoint or --run/--epoch".format(
             args.command))
@@ -351,9 +368,19 @@ def _check_backend_args(args, parser: argparse.ArgumentParser) -> None:
                      "LM)")
 
 
-def _serving_backend(args) -> Transcriber:
-    """The Transcriber of ``serve``, ``transcribe`` and ``align``: a configuration's run
-    (``--run --epoch``, as the JAX CLI builds it) or a checkpoint file."""
+def _serving_backend(args):
+    """The backend of ``serve``, ``transcribe``, ``align`` and ``export``: an export
+    bundle (`serving_export.ExportedTranscriber`), or a `serving.Transcriber` of a
+    configuration's run (``--run --epoch``, as the JAX CLI builds it) or of a checkpoint
+    file."""
+    if getattr(args, "bundle", None) is not None:
+        from .serving_export import ExportedTranscriber
+
+        return ExportedTranscriber(Path(args.bundle), device=args.device)
+    from .models.wav2letter import Wav2LetterConfig
+    from .serving import Transcriber
+    from .train.checkpoint import load_params_npz
+
     configuration = _configuration(args.config, args.data_dir, args.batch_size,
                                    args.batches_per_epoch)
     kenlm_directory = args.kenlm
@@ -363,7 +390,7 @@ def _serving_backend(args) -> Transcriber:
     options = dict(device=args.device, kenlm_directory=kenlm_directory,
                    quantize_weights=args.quantize,
                    int8_compute=getattr(args, "int8_compute", False),
-                   lexicon_constrained=args.lexicon)
+                   lexicon_constrained=getattr(args, "lexicon", False))
     if args.run is not None:
         return Transcriber.from_checkpoint(
             configuration.directories.nets_base_directory / args.run, args.epoch,
@@ -379,8 +406,8 @@ def _serving_backend(args) -> Transcriber:
 
 def _transcribe(args, parser: argparse.ArgumentParser) -> None:
     """The ``transcribe`` command, with the JAX CLI's refusals before anything loads."""
+    from . import serving_host
     from .features.audio_io import load_audio
-    from .serving import words_from_frame_tokens
 
     if args.timestamps and args.long_form:
         parser.error("--timestamps is per-utterance; long-form segmentation does not "
@@ -395,8 +422,11 @@ def _transcribe(args, parser: argparse.ArgumentParser) -> None:
     if args.nbest > 1 and (args.timestamps or args.long_form):
         parser.error("--nbest is mutually exclusive with --timestamps and --long-form")
     _check_backend_args(args, parser)
+    if args.nbest > 1 and args.bundle is not None:
+        parser.error("--nbest needs a checkpoint backend (--checkpoint or --run/--epoch); "
+                     "AOT bundles export 1-best programs only")
     transcriber = _serving_backend(args)
-    if args.nbest > transcriber.beam_width:
+    if args.bundle is None and args.nbest > transcriber.beam_width:
         parser.error("--nbest must be <= the decoder's beam width ({})".format(
             transcriber.beam_width))
     audios = [load_audio(Path(name)) for name in args.files]
@@ -411,12 +441,14 @@ def _transcribe(args, parser: argparse.ArgumentParser) -> None:
     if args.long_form:
         decoded = [(transcriber.transcribe_long_audio(audio), None) for audio in audios]
     elif len(audios) > 1 and transcriber.has_batched_programs:
-        decoded = transcriber.transcribe_batch(audios, batch_size=args.dispatch_batch)
+        # A bundle's batched programs fix their batch size.
+        decoded = transcriber.transcribe_batch(
+            audios, **({"batch_size": args.dispatch_batch} if args.bundle is None else {}))
     else:
         decoded = [transcriber.transcribe_audio_with_confidence(audio) for audio in audios]
     if not args.timestamps:
         frames = [None] * len(audios)
-    elif len(audios) > 1:
+    elif len(audios) > 1 and args.bundle is None:
         frames = transcriber.frame_tokens_batch(audios, batch_size=args.dispatch_batch)
     else:
         frames = [transcriber.frame_tokens(audio) for audio in audios]
@@ -430,7 +462,7 @@ def _transcribe(args, parser: argparse.ArgumentParser) -> None:
         if args.timestamps:
             record["words"] = [
                 {"word": word, "start_s": round(start, 4), "end_s": round(end, 4)}
-                for word, start, end in words_from_frame_tokens(
+                for word, start, end in serving_host.words_from_frame_tokens(
                     tokens, transcriber.codec, transcriber.blank_index,
                     transcriber.seconds_per_frame)]
         print(json.dumps(record))
@@ -445,8 +477,70 @@ def _align(args, parser: argparse.ArgumentParser) -> None:
     _check_backend_args(args, parser)
     transcript = (args.text if args.text is not None
                   else Path(args.text_file).read_text(encoding="utf8").strip())
-    words = _serving_backend(args).align_audio(load_audio(Path(args.file)), transcript)
+    backend = _serving_backend(args)
+    if not backend.supports_posteriors:
+        raise SystemExit("this bundle has no frame-posterior programs; re-export with "
+                         "--streaming")
+    words = backend.align_audio(load_audio(Path(args.file)), transcript)
     print(json.dumps({"file": args.file, "text": transcript, "words": words}))
+
+
+def _add_export_args(parser: argparse.ArgumentParser) -> None:
+    """``export``'s options: the JAX CLI's, and the port's ``--checkpoint/--charset``."""
+    _add_config_args(parser)
+    parser.add_argument("--run", default=None, help="run name under nets/")
+    parser.add_argument("--epoch", type=int, default=None)
+    parser.add_argument("--checkpoint", default=None,
+                        help="weights file (weights-epoch{n}.npz) instead of --run/--epoch")
+    parser.add_argument("--charset", choices=sorted(CHARSETS), default=None,
+                        help="the characters of a --checkpoint model (default english)")
+    parser.add_argument("--out", required=True, help="bundle output directory")
+    parser.add_argument("--kenlm", nargs="?", const=True, default=None, metavar="DIR",
+                        help="export the word-LM-fused beam programs: alone, with the "
+                             "configuration's LM; with DIR, with the ARPA model in DIR")
+    parser.add_argument("--platforms", nargs="+", default=None, choices=("cuda", "cpu"),
+                        help="devices to export for (default: the --device's type)")
+    parser.add_argument("--batch-sizes", nargs="+", type=int, default=[1],
+                        help="also export batched programs for offline serving, e.g. 1 16")
+    parser.add_argument("--sample-buckets", nargs="+", type=int, default=None,
+                        help="export only these length buckets (samples; default: all "
+                             "of the Transcriber's)")
+    parser.add_argument("--quantize", action="store_true",
+                        help="int8 per-channel weights: a quarter of the weight bytes")
+    parser.add_argument("--streaming", action="store_true",
+                        help="also export the per-frame token and posterior programs "
+                             "(streaming sessions, beam partials and align on the bundle)")
+    parser.add_argument("--device-streaming", action="store_true",
+                        help="also export the device-resident session pool's feed program "
+                             "(its dimensions below are baked in)")
+    parser.add_argument("--stream-window-s", type=float, default=8.0,
+                        help="device-streaming: decode window seconds")
+    parser.add_argument("--stream-max-sessions", type=int, default=64,
+                        help="device-streaming: concurrent session capacity")
+    parser.add_argument("--stream-max-batch", type=int, default=16,
+                        help="device-streaming: feeds fused per dispatch")
+    parser.add_argument("--stream-posteriors", action="store_true",
+                        help="device-streaming: bake the per-frame posterior output into "
+                             "the feed program (beam partials on the bundle's pool)")
+    parser.set_defaults(bundle=None, lexicon=False)
+
+
+def _export(args, parser: argparse.ArgumentParser) -> None:
+    """The ``export`` command: a bundle of the model ``serve`` would load."""
+    from .serving_export import export_transcriber
+
+    _check_backend_args(args, parser)
+    export_transcriber(
+        _serving_backend(args), Path(args.out),
+        platforms=args.platforms, sample_buckets=args.sample_buckets,
+        batch_sizes=tuple(args.batch_sizes),
+        streaming=args.streaming,
+        device_streaming={"window_s": args.stream_window_s,
+                          "max_sessions": args.stream_max_sessions,
+                          "max_batch": args.stream_max_batch,
+                          "posteriors": args.stream_posteriors}
+        if args.device_streaming else None)
+    print("Wrote {}".format(args.out))
 
 
 def main(argv=None) -> None:
@@ -511,6 +605,9 @@ def main(argv=None) -> None:
                          help="the transcript to align (default: read from --text-file)")
     p_align.add_argument("--text-file", default=None, help="file holding the transcript")
     _model_args(p_align, kenlm=False)
+    p_export = sub.add_parser("export", help="write an export bundle (torch.export "
+                                             "programs + weights)")
+    _add_export_args(p_export)
     p_convert = sub.add_parser(
         "convert", help="convert a checkpoint between .npz and the reference's Keras .h5")
     p_convert.add_argument("source", help="weights file (.npz or .h5/.hdf5)")
@@ -529,6 +626,9 @@ def main(argv=None) -> None:
     if args.command == "align":
         _align(args, p_align)
         return
+    if args.command == "export":
+        _export(args, p_export)
+        return
     # Refused before any weights load or warm-up runs.
     _check_backend_args(args, p_serve)
     if args.beam_mode == "resident" and not args.device_streams:
@@ -542,7 +642,7 @@ def main(argv=None) -> None:
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     transcriber = _serving_backend(args)
-    if not args.no_warm_up:
+    if not args.no_warm_up and args.bundle is None:  # a bundle's programs are built
         transcriber.warm_up()
     server = TranscriptionServer(transcriber, host=args.host, port=args.port,
                                  max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,

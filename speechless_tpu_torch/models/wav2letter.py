@@ -381,40 +381,55 @@ def init_params_from_generator(config: Wav2LetterConfig,
     return params
 
 
-def params_from_jax(params: Sequence[Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``[{"w": (K, Cin, Cout), "b": (Cout,)}]`` list as a
-    `Wav2Letter` state dict (conv weights transposed to ``(Cout, Cin, K)``). An int8
-    layer ``{"w_q": (K, Cin, Cout) int8, "w_scale": (Cout,), "b"}`` gives the
-    `QuantizedConv1d` buffers ``w_q`` ``(Cout, Cin, K)`` int8 and ``w_scale`` fp32. A
-    trailing ASG pseudo-layer gives ``asg.transitions`` and ``asg.initials``."""
-    state = {}
+# A JAX conv kernel (K, Cin, Cout) is a torch one (Cout, Cin, K) with its axes reversed.
+_KERNEL_AXES = (2, 1, 0)
+
+
+def jax_layout_sources(params: Sequence[Dict[str, np.ndarray]]
+                       ) -> Dict[str, Tuple[int, str, Optional[Tuple[int, int, int]]]]:
+    """Where each `Wav2Letter` state-dict entry of `params_from_jax` comes from in the
+    JAX layout: ``{name: (layer index, key, axes permutation or None)}``, in the state
+    dict's order."""
+    sources = {}
     for i, layer in enumerate(params):
         prefix = "layers.{}.".format(i)
         if is_asg_layer(layer):
             if i != len(params) - 1:
                 raise ValueError("the ASG pseudo-layer must be the last layer, got it at "
                                  "{} of {}".format(i, len(params)))
-            state["asg.transitions"] = torch.from_numpy(
-                np.asarray(layer["asg_transitions"], np.float32).copy())
-            state["asg.initials"] = torch.from_numpy(
-                np.asarray(layer["asg_initials"], np.float32).copy())
+            sources["asg.transitions"] = (i, "asg_transitions", None)
+            sources["asg.initials"] = (i, "asg_initials", None)
             continue
         if "w_q" in layer:
-            w_q = np.asarray(layer["w_q"])
-            if w_q.dtype != np.int8:
-                raise ValueError("layer {}: w_q must be int8, got {}".format(i, w_q.dtype))
-            state[prefix + "w_q"] = torch.from_numpy(np.ascontiguousarray(
-                w_q.transpose(2, 1, 0)))
-            state[prefix + "w_scale"] = torch.from_numpy(
-                np.asarray(layer["w_scale"], np.float32).copy())
+            sources[prefix + "w_q"] = (i, "w_q", _KERNEL_AXES)
+            sources[prefix + "w_scale"] = (i, "w_scale", None)
         elif "w" in layer:
-            w = np.asarray(layer["w"], np.float32)
-            state[prefix + "weight"] = torch.from_numpy(
-                np.ascontiguousarray(w.transpose(2, 1, 0)))
+            sources[prefix + "weight"] = (i, "w", _KERNEL_AXES)
         else:
             raise ValueError("layer {} holds {}: neither float (w) nor int8 (w_q, "
                              "w_scale) conv weights".format(i, sorted(layer)))
-        state[prefix + "bias"] = torch.from_numpy(np.asarray(layer["b"], np.float32).copy())
+        sources[prefix + "bias"] = (i, "b", None)
+    return sources
+
+
+def params_from_jax(params: Sequence[Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``[{"w": (K, Cin, Cout), "b": (Cout,)}]`` list as a
+    `Wav2Letter` state dict (conv weights transposed to ``(Cout, Cin, K)``). An int8
+    layer ``{"w_q": (K, Cin, Cout) int8, "w_scale": (Cout,), "b"}`` gives the
+    `QuantizedConv1d` buffers ``w_q`` ``(Cout, Cin, K)`` int8 and ``w_scale`` fp32. A
+    trailing ASG pseudo-layer gives ``asg.transitions`` and ``asg.initials``
+    (`jax_layout_sources`)."""
+    state = {}
+    for name, (i, key, axes) in jax_layout_sources(params).items():
+        array = np.asarray(params[i][key])
+        if key == "w_q":
+            if array.dtype != np.int8:
+                raise ValueError("layer {}: w_q must be int8, got {}".format(
+                    i, array.dtype))
+        else:
+            array = array.astype(np.float32)
+        state[name] = torch.from_numpy(np.ascontiguousarray(
+            array.transpose(axes) if axes else array))
     return state
 
 

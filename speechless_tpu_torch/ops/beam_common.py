@@ -56,15 +56,31 @@ def backtrace_tokens(parents: torch.Tensor, emit_chars: torch.Tensor, best: torc
 def beam_backtrace(parents: torch.Tensor, emit_chars: torch.Tensor, best: torch.Tensor,
                    counts: torch.Tensor, max_decoded_length: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`backtrace_tokens` on the device: one launch of the backtrace kernel for CUDA
-    tensors, `backtrace_tokens` itself for CPU tensors. Same contract, ``best`` and
-    ``counts`` ``(B,)`` or ``(B, n)``; ``beam_backtrace.launches`` counts kernel
-    launches. A build or launch failure raises, as does a shape the kernel refuses
-    (a row whose staging does not fit in shared memory)."""
-    if parents.device.type == "cpu":
-        return backtrace_tokens(parents, emit_chars, best, counts, max_decoded_length)
-    if parents.device.type != "cuda":
+    """`backtrace_tokens` through the custom operator ``speechless::beam_backtrace``
+    (`library.py`): one launch of the backtrace kernel for CUDA tensors,
+    `backtrace_tokens` itself for CPU tensors. Same contract, ``best`` and ``counts``
+    ``(B,)`` or ``(B, n)``; ``beam_backtrace.launches`` counts kernel launches (kept by
+    `launch_backtrace`, so a replayed export program counts too). A build or launch
+    failure raises, as does a shape the kernel refuses (a row whose staging does not
+    fit in shared memory)."""
+    from . import library
+
+    if parents.device.type not in ("cpu", "cuda"):
         raise ValueError("beam_backtrace runs on CPU or CUDA tensors, got {}".format(
+            parents.device))
+    if best.shape != counts.shape or best.shape[:1] != parents.shape[:1] or best.dim() > 2:
+        raise ValueError("beam_backtrace: best and counts must be (B,) or (B, n)")
+    return (library.beam_backtrace(parents, emit_chars, best, counts, max_decoded_length),
+            counts.to(torch.int32))
+
+
+def launch_backtrace(parents: torch.Tensor, emit_chars: torch.Tensor, best: torch.Tensor,
+                     counts: torch.Tensor, max_decoded_length: int) -> torch.Tensor:
+    """One launch of the backtrace kernel on CUDA tensors (the CUDA body of
+    ``speechless::beam_backtrace``): `backtrace_tokens`' tokens. Counts the launch in
+    ``beam_backtrace.launches``."""
+    if parents.device.type != "cuda":
+        raise ValueError("the backtrace kernel runs on CUDA tensors, got {}".format(
             parents.device))
     batch, t_max, lanes = parents.shape
     if t_max < 1:
@@ -73,8 +89,6 @@ def beam_backtrace(parents: torch.Tensor, emit_chars: torch.Tensor, best: torch.
     emit_chars = emit_chars.to(torch.int32).contiguous()
     if emit_chars.shape != parents.shape or emit_chars.device != parents.device:
         raise ValueError("beam_backtrace: parents and chars must be (B, T, r) on one device")
-    if best.shape != counts.shape or best.shape[:1] != (batch,) or best.dim() > 2:
-        raise ValueError("beam_backtrace: best and counts must be (B,) or (B, n)")
     starts = best.shape[1] if best.dim() == 2 else 1
     best = best.to(device=parents.device, dtype=torch.int32).contiguous()
     counts = counts.to(device=parents.device, dtype=torch.int32).contiguous()
@@ -89,7 +103,7 @@ def beam_backtrace(parents: torch.Tensor, emit_chars: torch.Tensor, best: torch.
         raise RuntimeError("beam_backtrace kernel launch failed with CUDA error {} "
                            "(T={}, r={}, starts={})".format(status, t_max, lanes, starts))
     beam_backtrace.launches += 1
-    return tokens, counts
+    return tokens
 
 
 beam_backtrace.launches = 0

@@ -344,20 +344,37 @@ def lm_span_reference(frames, carry, counts, word_lm, *, k: int, blank: int,
 def lm_span(frames, carry, counts, word_lm, *, k: int, blank: int, beam_width: int,
             max_decoded_length: int, lm_weight: float, word_count_weight: float,
             valid_word_count_weight: float):
-    """Every frame of a span: one launch of the CUDA span kernel for CUDA tensors,
-    `lm_span_reference` for CPU tensors. Same contract as `lm_span_reference`; the
-    carry comes back as new tensors. ``lm_span.launches`` counts kernel launches and
-    ``lm_span.sorted_frames`` holds the last launch's ``(B,)`` count of frames that
-    took the step's sorted network. A build or launch failure raises, as does a shape
-    the kernel refuses."""
-    weights = dict(lm_weight=lm_weight, word_count_weight=word_count_weight,
-                   valid_word_count_weight=valid_word_count_weight)
-    static = dict(k=k, blank=blank, beam_width=beam_width,
-                  max_decoded_length=max_decoded_length)
-    if frames.device.type == "cpu":
-        return lm_span_reference(frames, carry, counts, word_lm, **static, **weights)
-    if frames.device.type != "cuda":
+    """Every frame of a span through the custom operator ``speechless::lm_beam_span``
+    (`library.py`): one launch of the CUDA span kernel for CUDA tensors,
+    `lm_span_reference` for CPU tensors. Same contract as `lm_span_reference`; the carry
+    comes back as new tensors. ``lm_span.launches`` counts kernel launches and
+    ``lm_span.sorted_frames`` holds the last launch's ``(B,)`` count of frames that took
+    the step's sorted network; both are kept by `launch_span`, so a replayed export
+    program counts too. A build or launch failure raises, as does a shape the kernel
+    refuses."""
+    from . import library
+
+    if frames.device.type not in ("cpu", "cuda"):
         raise ValueError("lm_span runs on CPU or CUDA tensors, got {}".format(
+            frames.device))
+    outputs = library.lm_beam_span(
+        frames, list(carry), counts, *library.word_lm_arguments(word_lm), k=k, blank=blank,
+        beam_width=beam_width, max_decoded_length=max_decoded_length, lm_weight=lm_weight,
+        word_count_weight=word_count_weight,
+        valid_word_count_weight=valid_word_count_weight)
+    new_carry, (parents, chars, tail_bonus, _) = list(outputs[:-4]), outputs[-4:]
+    return new_carry, parents, chars, tail_bonus
+
+
+def launch_span(frames, carry, counts, word_lm, *, k: int, blank: int, beam_width: int,
+                max_decoded_length: int, lm_weight: float, word_count_weight: float,
+                valid_word_count_weight: float):
+    """One launch of the span kernel on CUDA tensors (the CUDA body of
+    ``speechless::lm_beam_span``): `lm_span_reference`'s outputs and the ``(B,)``
+    sorted-network frame counts, ``(new carry, parents, chars, tail bonus,
+    sorted_frames)``. Counts the launch in ``lm_span.launches``."""
+    if frames.device.type != "cuda":
+        raise ValueError("the span kernel runs on CUDA tensors, got {}".format(
             frames.device))
     span, batch, width = frames.shape
     r = carry[0].shape[1]
@@ -420,7 +437,7 @@ def lm_span(frames, carry, counts, word_lm, *, k: int, blank: int, beam_width: i
                            "(F={}, B={}, r={})".format(status, span, batch, r))
     lm_span.launches += 1
     lm_span.sorted_frames = sorted_frames
-    return new_carry, parents, chars, tail_bonus
+    return new_carry, parents, chars, tail_bonus, sorted_frames
 
 
 lm_span.launches = 0
@@ -437,20 +454,20 @@ def span_function(step=None):
 def _beam_search(log_probs, lengths, blank, word_lm, beam_width, max_decoded_length,
                  lm_weight, word_count_weight, valid_word_count_weight, prune_classes,
                  step=None):
-    """The decode shared by both public entries: one span over the longest row's frames,
-    the final ranking, the backtrace. ``step`` None runs the span kernel and the
+    """The decode shared by both public entries: one span over every frame, the final
+    ranking, the backtrace. ``step`` None runs the span kernel and the
     backtrace kernel (their plain versions on the CPU); a one-frame function runs the
     plain loop over it and the plain backtrace (`span_function`)."""
-    batch, t_max, class_count = log_probs.shape
+    batch, _, class_count = log_probs.shape
     device = log_probs.device
     k = min(prune_classes, class_count)
     r = next_pow2(max(beam_width, 8))
     if word_lm is not None:
         word_lm = word_lm.to(device)
     counts = lengths.to(device=device, dtype=torch.int32)
-    # Frames past every row's length are exact no-ops: stop at the longest row.
-    t_run = max(1, min(t_max, int(counts.max())))
-    frames = pack_frames(log_probs, k)[:t_run]
+    # Every frame of the bucket: a row stops at its own count (its later backpointers
+    # are identities), so no host sync or data-dependent cut is needed to trace this.
+    frames = pack_frames(log_probs, k)
     carry, parents, chars, tail_bonus = span_function(step)(
         frames, fresh_carry(batch, r, word_lm, device), counts, word_lm, k=k, blank=blank,
         beam_width=beam_width, max_decoded_length=max_decoded_length, lm_weight=lm_weight,

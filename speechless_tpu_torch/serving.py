@@ -10,6 +10,9 @@ frame, so nothing is truncated. `transcribe_nbest` runs the plain batched beam's
 search (`ops/decode_beam.py`), `align_audio` the forced alignment of a known transcript
 (`ops/forced_align.py`). ``quantize_weights`` serves every route from int8 weights, and
 ``int8_compute`` runs the big convs as int8 products too (`models/wav2letter.py`).
+A request runs the tensor functions `_transcribe`, `_frame_log_probs` and
+`_frame_tokens`, which take the model's weights as an argument: an export bundle
+(`serving_export.py`) traces these same functions, so the two cannot drift.
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP.md item): meshes
 and sequence-parallel long-form decoding.
@@ -29,7 +32,8 @@ from .models import wav2letter as w2l
 from .ops.decode import greedy_decode
 from .ops.decode_beam import beam_search_nbest
 from .ops.device_beam import beam_search_decode_device
-from .text.charsets import english_frequent_characters, german_frequent_characters
+from .serving_host import (CHARSETS, align_audio, grouped_padded_batches,  # noqa: F401
+                           split_long_audio, words_from_frame_tokens)
 from .text.graphemes import CtcGraphemeCodec
 
 # Requests pad to the smallest bucket of samples (feature-frame buckets * 128) that
@@ -37,133 +41,6 @@ from .text.graphemes import CtcGraphemeCodec
 # Transcriber does.
 _FALLBACK_MULTIPLE = 65536
 _NOT_PORTED = "{} is not ported yet (ROADMAP.md, item 13: parallelism)"
-# Grapheme sets a model can be served with (the blank is appended after them).
-CHARSETS = {"english": english_frequent_characters, "german": german_frequent_characters}
-
-
-def words_from_frame_tokens(frames: np.ndarray, codec: CtcGraphemeCodec,
-                            blank_index: int, seconds_per_frame: float
-                            ) -> List[Tuple[str, float, float]]:
-    """Word timestamps ``[(word, start_s, end_s), ...]`` from uncollapsed per-frame
-    argmax tokens: each word spans its first to last non-blank emission."""
-    space = codec.allowed_characters.index(" ") \
-        if " " in codec.allowed_characters else -1
-    words: List[Tuple[str, float, float]] = []
-    chars: List[str] = []
-    start_frame = None
-    last_frame = 0
-    previous = -1
-    for f, token in enumerate(np.asarray(frames).tolist()):
-        if token != previous and token != blank_index:
-            if token == space:
-                if chars:
-                    words.append(("".join(chars), start_frame * seconds_per_frame,
-                                  (last_frame + 1) * seconds_per_frame))
-                chars, start_frame = [], None
-            else:
-                chars.append(codec.decode_graphemes([token], merge_repeated=False))
-                if start_frame is None:
-                    start_frame = f
-                last_frame = f
-        previous = token
-    if chars:
-        words.append(("".join(chars), start_frame * seconds_per_frame,
-                      (last_frame + 1) * seconds_per_frame))
-    return words
-
-
-def align_audio(backend, audio: np.ndarray, transcript: str) -> List[dict]:
-    """Forced alignment of a known ``transcript`` over any serving backend with
-    ``frame_log_probs``, ``codec``, ``blank_index``, ``seconds_per_frame`` and
-    ``device``: word timestamps ``[{"word", "start_s", "end_s"}, ...]`` from the
-    maximum-score path through the transcript's CTC lattice (`ops/forced_align.py`), run
-    on the backend's device. Characters outside the model's alphabet become spaces
-    and whitespace runs collapse; a transcript with nothing left raises ValueError
-    naming the alphabet, and an empty one gives ``[]``. Raises ValueError when the
-    transcript needs more output frames than the audio has."""
-    from .ops.forced_align import ctc_forced_align, word_spans_from_alignment
-
-    text = transcript.lower()
-    allowed = set(backend.codec.allowed_characters)
-    if any(c not in allowed for c in text):
-        text = "".join(c if c in allowed else " " for c in text)
-        if " " in allowed:
-            text = " ".join(text.split())
-        else:
-            text = text.replace(" ", "")
-    if not text:
-        if transcript.strip():
-            raise ValueError(
-                "transcript has no characters in the model alphabet ({!r}); "
-                "got {!r}".format(backend.codec.allowed_characters, transcript))
-        return []
-    tokens = backend.codec.encode(text)
-    if not tokens:
-        return []
-    device = backend.device
-    log_probs = backend.frame_log_probs(audio)
-    starts, ends, scores = ctc_forced_align(
-        torch.from_numpy(np.ascontiguousarray(log_probs[None], np.float32)).to(device),
-        torch.tensor([log_probs.shape[0]], device=device),
-        torch.tensor([tokens], dtype=torch.int32, device=device),
-        torch.tensor([len(tokens)], device=device), blank=backend.blank_index)
-    if float(scores[0]) <= -1e29:
-        raise ValueError(
-            "transcript cannot be aligned: {} labels need more than the "
-            "{} output frames available".format(len(tokens), log_probs.shape[0]))
-    return word_spans_from_alignment(backend.codec, tokens, starts[0].cpu().numpy(),
-                                     ends[0].cpu().numpy(), backend.seconds_per_frame)
-
-
-def grouped_padded_batches(audios: Sequence[np.ndarray], bucket_fn, batch_size: int,
-                           pad_rows: bool = False):
-    """Yield ``(indices, wavs, lengths)``: utterances grouped by sample bucket
-    (``bucket_fn(num_samples)``), at most ``batch_size`` per group, zero-padded to
-    ``(len(indices), bucket)`` float32 with int32 lengths; ``indices`` maps rows back.
-    Unlike the JAX package's, a short group is not padded with empty rows unless
-    ``pad_rows`` asks for it: there is no compiled program per batch shape to reuse, so
-    they would be wasted work. ``pad_rows`` pads every group to ``batch_size`` rows, as
-    JAX does, for a model whose results depend on the whole batch (``int8_compute``)."""
-    by_bucket: dict = {}
-    for index, audio in enumerate(audios):
-        by_bucket.setdefault(bucket_fn(len(audio)), []).append(index)
-    for bucket, indices in sorted(by_bucket.items()):
-        for group_start in range(0, len(indices), batch_size):
-            group = indices[group_start:group_start + batch_size]
-            rows = batch_size if pad_rows else len(group)
-            wavs = np.zeros((rows, bucket), dtype=np.float32)
-            lengths = np.zeros(rows, dtype=np.int32)
-            for row, index in enumerate(group):
-                audio = audios[index]
-                wavs[row, :len(audio)] = audio
-                lengths[row] = len(audio)
-            yield group, wavs, lengths
-
-
-def split_long_audio(audio: np.ndarray, max_segment_s: float = 30.0,
-                     min_silence_s: float = 0.25) -> List[np.ndarray]:
-    """Split long audio into <= ``max_segment_s`` segments, cutting at the quietest
-    window in the last third of each segment."""
-    sample_rate = 16000
-    max_samples = int(max_segment_s * sample_rate)
-    if len(audio) <= max_samples:
-        return [audio]
-    window = int(min_silence_s * sample_rate)
-    segments: List[np.ndarray] = []
-    start = 0
-    while start < len(audio):
-        end = min(start + max_samples, len(audio))
-        if end < len(audio):
-            search_from = start + (2 * (end - start)) // 3
-            tail = np.abs(audio[search_from:end])
-            if len(tail) > window:
-                energies = np.convolve(tail, np.ones(window), mode="valid")
-                cut = search_from + int(np.argmin(energies)) + window // 2
-                if cut > start + window:
-                    end = cut
-        segments.append(audio[start:end])
-        start = end
-    return segments
 
 
 class Transcriber:
@@ -212,10 +89,12 @@ class Transcriber:
         self.lexicon_constrained = lexicon_constrained
         self.config = config
         self.device = torch.device(device)
+        self.params = params  # the JAX layout, as served (what an export bundle writes)
         self.model = w2l.build_model(config, params, device=self.device)
         self.codec = CtcGraphemeCodec(allowed_characters)
         self.sample_buckets = tuple(sorted(sample_buckets))
         self.word_lm = None
+        self._host_word_lm = None
         if kenlm_directory is not None:
             from .lm.device_lm import build_device_word_lm
             from .lm.ngram import load_language_model
@@ -224,7 +103,9 @@ class Transcriber:
             if arpa is None:
                 raise FileNotFoundError(
                     "No ARPA language model in {}".format(kenlm_directory))
-            self.word_lm = build_device_word_lm(arpa, allowed_characters).to(self.device)
+            self._host_word_lm = build_device_word_lm(arpa, allowed_characters)
+            self.word_lm = self._host_word_lm.to(self.device)
+        self._word_lms = {self.device.type: self.word_lm}
         self._decoder = dict(beam_width=beam_width, lm_weight=lm_weight,
                              word_count_weight=word_count_weight,
                              valid_word_count_weight=valid_word_count_weight,
@@ -287,31 +168,68 @@ class Transcriber:
         wavs[0, :len(audio)] = audio
         return wavs, np.asarray([len(audio)], np.int32)
 
+    @property
+    def weights(self) -> dict:
+        """The model's tensors by name: the weights argument of the tensor functions
+        (`_frame_log_probs`), which an export takes as program inputs."""
+        return {**dict(self.model.named_parameters()), **dict(self.model.named_buffers())}
+
+    def word_lm_on(self, device: torch.device):
+        """The word LM's tables on ``device``'s type (None without an LM): the
+        transcriber's own on its device, a copy made once on another (an export for
+        another platform)."""
+        if device.type not in self._word_lms:
+            self._word_lms[device.type] = self._host_word_lm.to(device)
+        return self._word_lms[device.type]
+
+    def _frame_log_probs(self, weights: dict, wavs: torch.Tensor, lengths: torch.Tensor):
+        """Features -> model -> log-softmax on the inputs' device: ``(log_probs (B, T,
+        C), valid frames (B,))``. ``weights`` are the model's tensors by name
+        (`self.weights`, or an export's program inputs)."""
+        features, frame_counts = features_batch(wavs, lengths)
+        logits = torch.func.functional_call(self.model, weights, (features,))
+        return (torch.log_softmax(logits, dim=-1),
+                w2l.prediction_lengths(self.config, frame_counts))
+
+    def _frame_tokens(self, weights: dict, wavs: torch.Tensor, lengths: torch.Tensor):
+        """Per-frame argmax tokens ``(B, T) int32`` (uncollapsed) and valid frames."""
+        log_probs, counts = self._frame_log_probs(weights, wavs, lengths)
+        return log_probs.argmax(dim=-1).to(torch.int32), counts
+
+    def _decode(self, log_probs: torch.Tensor, counts: torch.Tensor):
+        """``(tokens (B, T) int32, counts (B,), confidence (B,))`` from log posteriors:
+        the word-LM beam (`ops/device_beam.py`) or greedy. The confidence is the mean
+        per-frame max posterior over the real frames."""
+        in_range = torch.arange(log_probs.shape[1], device=log_probs.device)[None, :] \
+            < counts[:, None]
+        frame_max = torch.exp(log_probs.max(dim=-1).values)
+        confidence = (torch.where(in_range, frame_max, 0.0).sum(dim=1)
+                      / torch.clamp(counts, min=1))
+        if self.word_lm is not None:
+            tokens, counts = beam_search_decode_device(
+                log_probs, counts, blank=self.blank_index,
+                word_lm=self.word_lm_on(log_probs.device),
+                lexicon_constrained=self.lexicon_constrained,
+                max_decoded_length=log_probs.shape[1], **self._decoder)
+        else:
+            tokens, counts = greedy_decode(log_probs, counts, self.blank_index)
+        return tokens, counts, confidence
+
+    def _transcribe(self, weights: dict, wavs: torch.Tensor, lengths: torch.Tensor):
+        """The whole request as one tensor function, ``(weights, wavs (B, S), lengths
+        (B,)) -> (tokens, counts, confidence)``: what an export bundle's programs hold
+        and `_transcribe_rows` runs."""
+        return self._decode(*self._frame_log_probs(weights, wavs, lengths))
+
     def _log_probs(self, wavs: np.ndarray, lengths: np.ndarray):
-        """Features -> model -> log-softmax on the device: ``(log_probs (B, T, C),
-        valid frames (B,))``."""
-        features, frame_counts = features_batch(torch.from_numpy(wavs).to(self.device),
-                                                torch.from_numpy(lengths).to(self.device))
-        log_probs = torch.log_softmax(self.model(features), dim=-1)
-        return log_probs, w2l.prediction_lengths(self.config, frame_counts)
+        """`_frame_log_probs` of a host batch with this transcriber's weights."""
+        return self._frame_log_probs(self.weights, torch.from_numpy(wavs).to(self.device),
+                                     torch.from_numpy(lengths).to(self.device))
 
     @torch.inference_mode()
     def _transcribe_rows(self, wavs: np.ndarray, lengths: np.ndarray
                          ) -> List[Tuple[str, float]]:
-        log_probs, logit_lengths = self._log_probs(wavs, lengths)
-        # Decode confidence: mean per-frame max posterior over the real frames.
-        in_range = torch.arange(log_probs.shape[1], device=self.device)[None, :] \
-            < logit_lengths[:, None]
-        frame_max = torch.exp(log_probs.max(dim=-1).values)
-        confidence = (torch.where(in_range, frame_max, 0.0).sum(dim=1)
-                      / torch.clamp(logit_lengths, min=1))
-        if self.word_lm is not None:
-            tokens, counts = beam_search_decode_device(
-                log_probs, logit_lengths, blank=self.blank_index, word_lm=self.word_lm,
-                lexicon_constrained=self.lexicon_constrained,
-                max_decoded_length=log_probs.shape[1], **self._decoder)
-        else:
-            tokens, counts = greedy_decode(log_probs, logit_lengths, self.blank_index)
+        tokens, counts, confidence = self._decode(*self._log_probs(wavs, lengths))
         tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
         return [(self.codec.decode_graphemes(tokens[row, :int(counts[row])].tolist(),
                                              merge_repeated=False), float(score))

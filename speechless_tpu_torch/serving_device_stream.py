@@ -25,11 +25,15 @@ more left context than the host path keeps after an emission drop, so the per-wi
 z-norm sees closer-to-offline statistics. Streams shorter than one window decode as on
 the host path.
 
-Unlike the JAX pool, a dispatch runs only the rows it feeds: PyTorch compiles nothing
-per shape, so padding every dispatch to ``max_batch`` rows would be wasted work. One
-batcher thread owns the pooled tensors. Not ported: the AOT-bundle backend
-(ROADMAP.md, item 13).
+Unlike the JAX pool, a dispatch over a live transcriber runs only the rows it feeds:
+PyTorch compiles nothing per shape, so padding every dispatch to ``max_batch`` rows would
+be wasted work. Over an export bundle (`serving_export.ExportedTranscriber` with a feed
+program, `export_feed_program`) the pool replays the bundle's feed, whose dimensions it
+adopts over its own arguments; its fed rows are a dynamic dimension of the program, so
+a dispatch runs them alone too (the JAX pool pads to ``max_batch``). Such a pool serves
+beam partials in the posterior mode only. One batcher thread owns the pooled tensors.
 """
+import functools
 import threading
 import time
 import uuid
@@ -44,6 +48,7 @@ from .serving_streaming import (BeamAdvanceBatcher, UnknownSessionError, WordAss
                                 _check_window, _DeferredAdvance, beam_decoder_for,
                                 collapse_new_frames, offline_final_pass)
 from .utils.microbatch import MicroBatcher, PendingItem
+from .utils.tools import log
 
 _POISONED_MESSAGE = ("stream lost: a device dispatch failed and the pool state was "
                      "reset; create a new session")
@@ -57,12 +62,14 @@ _NO_EMIT_LIMIT = -(2 ** 30)
 
 
 def _build_feed_fn(transcriber, window: int, chunk_cap: int, spf: int,
-                   post_rows: Optional[int] = None, beam_decoder=None):
-    """The fused append-and-decode over the pooled windows.
+                   post_rows: Optional[int] = None, beam_decoder=None, device=None):
+    """The fused append-and-decode over the pooled windows, on ``device`` (default the
+    transcriber's).
 
-    The window feed is ``(buffers (S+1, W), lengths (S+1,), rows (B,), chunks (B, cap),
-    chunk_lens (B,), resets (B,), post_starts=None) -> (tokens (B, F) int32, counts
-    (B,), new_lens (B,), log_probs)``, all device tensors; it writes the updated rows
+    The window feed is ``(weights, buffers (S+1, W), lengths (S+1,), rows (B,), chunks
+    (B, cap), chunk_lens (B,), resets (B,), post_starts=None) -> (tokens (B, F) int32,
+    counts (B,), new_lens (B,), log_probs)``, all device tensors (``weights``: the
+    model's tensors by name, `serving.Transcriber.weights`); it writes the updated rows
     of ``buffers`` and ``lengths`` in place. ``post_starts`` None computes no
     posteriors (a dispatch without beam sessions); else ``log_probs`` is the ``(B,
     post_rows, C)`` block of log posteriors starting at each row's ``post_starts``
@@ -74,8 +81,8 @@ def _build_feed_fn(transcriber, window: int, chunk_cap: int, spf: int,
     row's window start stays on the absolute frame grid: the sessions mirror the same
     integer arithmetic on the host (`mirror_append`).
 
-    With ``beam_decoder`` the resident feed is ``(buffers, lengths, beam_state, rows,
-    chunks, chunk_lens, resets, reset_rows, advance) -> (tokens, counts, new_lens,
+    With ``beam_decoder`` the resident feed is ``(weights, buffers, lengths, beam_state,
+    rows, chunks, chunk_lens, resets, reset_rows, advance) -> (tokens, counts, new_lens,
     best_rows, scalars)``: ``beam_state`` is the pooled stacked carries
     (`stacked_fresh_state(S+1)`'s layout, whatever the decoder's lanes); the carries of
     ``reset_rows`` restart fresh first; ``advance`` None skips the beam, else it is
@@ -85,13 +92,13 @@ def _build_feed_fn(transcriber, window: int, chunk_cap: int, spf: int,
     through ``beam_decoder.advance_in_program`` and are written back; ``best_rows``
     ``(m, max_len)`` and ``scalars`` ``(m, 3)`` follow ``slots``."""
     config, model = transcriber.config, transcriber.model
-    device = transcriber.device
+    device = transcriber.device if device is None else device
     positions = torch.arange(window, device=device)
     chunk_positions = torch.arange(chunk_cap, device=device)
     frames = _window_frames(config, window)
     block_rows = torch.arange(post_rows or frames, device=device)
 
-    def feed_core(buffers, lengths, rows, chunks, chunk_lens, resets):
+    def feed_core(weights, buffers, lengths, rows, chunks, chunk_lens, resets):
         length = torch.where(resets, 0, lengths[rows])
         ext = torch.cat([buffers[rows], torch.zeros_like(chunks)], dim=1)
         # The chunk arrives zero-masked beyond chunk_len, so the fixed-size write puts
@@ -109,7 +116,7 @@ def _build_feed_fn(transcriber, window: int, chunk_cap: int, spf: int,
         buffers[rows] = new_bufs
         lengths[rows] = new_lens
         feats, frame_counts = features_batch(new_bufs, torch.clamp(new_lens, min=1))
-        logits = model(feats)
+        logits = torch.func.functional_call(model, weights, (feats,))
         tokens = logits.argmax(dim=-1).to(torch.int32)
         return tokens, w2l.prediction_lengths(config, frame_counts), new_lens, logits
 
@@ -121,10 +128,10 @@ def _build_feed_fn(transcriber, window: int, chunk_cap: int, spf: int,
     if beam_decoder is not None:
         fresh = beam_decoder.stacked_fresh_state(1)
 
-        def feed_fn(buffers, lengths, beam_state, rows, chunks, chunk_lens, resets,
-                    reset_rows, advance):
-            tokens, counts, new_lens, logits = feed_core(buffers, lengths, rows, chunks,
-                                                         chunk_lens, resets)
+        def feed_fn(weights, buffers, lengths, beam_state, rows, chunks, chunk_lens,
+                    resets, reset_rows, advance):
+            tokens, counts, new_lens, logits = feed_core(weights, buffers, lengths, rows,
+                                                         chunks, chunk_lens, resets)
             if len(reset_rows):
                 # Before the advance: a reused row's carry must not reach it.
                 for leaf, fresh_leaf in zip(beam_state, fresh):
@@ -141,9 +148,10 @@ def _build_feed_fn(transcriber, window: int, chunk_cap: int, spf: int,
             return tokens, counts, new_lens, best_rows, scalars
         return feed_fn
 
-    def feed_fn(buffers, lengths, rows, chunks, chunk_lens, resets, post_starts=None):
-        tokens, counts, new_lens, logits = feed_core(buffers, lengths, rows, chunks,
-                                                     chunk_lens, resets)
+    def feed_fn(weights, buffers, lengths, rows, chunks, chunk_lens, resets,
+                post_starts=None):
+        tokens, counts, new_lens, logits = feed_core(weights, buffers, lengths, rows,
+                                                     chunks, chunk_lens, resets)
         if post_starts is None:
             return tokens, counts, new_lens, None
         start = torch.clamp(post_starts, 0, frames - len(block_rows))
@@ -158,6 +166,52 @@ def _window_frames(config, window: int) -> int:
     for spec in config.layers:
         frames = -(-frames // spec.stride)
     return frames
+
+
+def export_feed_program(transcriber, window_s: float = 8.0, chunk_cap_s: float = 1.0,
+                        max_sessions: int = 64, max_batch: int = 16,
+                        posteriors: bool = False,
+                        post_rows: Optional[int] = DEFAULT_POST_ROWS, device=None):
+    """The window feed as an export bundle traces it: ``(fn, example inputs, dynamic
+    shapes, spec)``. ``fn(weights, buffers, lengths, rows, chunks, chunk_lens, resets[,
+    post_starts])`` is `_build_feed_fn`'s feed over ``max_sessions + 1`` window rows,
+    which it updates in place, for 1 to ``max_batch`` fed rows a dispatch (the dynamic
+    dimension), so that the bundle's pool runs the rows it feeds, as the live pool does,
+    and gives the live pool's results bit for bit. ``posteriors`` adds the
+    ``post_starts`` input and the log-posterior output (beam partials on the bundle's
+    pool), a block of ``post_rows`` rows (None: the whole window). ``spec`` is the
+    manifest entry the pool adopts: the dimensions baked into the program."""
+    spf = transcriber.samples_per_frame
+    device = transcriber.device if device is None else torch.device(device)
+    window, chunk_cap = quantize_pool_dims(spf, window_s, chunk_cap_s)
+    frames = _window_frames(transcriber.config, window)
+    if not posteriors:
+        post_rows = None
+    if post_rows is not None:
+        post_rows = _check_post_rows(post_rows, frames)
+    feed = _build_feed_fn(transcriber, window, chunk_cap, spf, post_rows=post_rows,
+                          device=device)
+    if posteriors:
+        fn = feed
+    else:
+        def fn(weights, buffers, lengths, rows, chunks, chunk_lens, resets):
+            return feed(weights, buffers, lengths, rows, chunks, chunk_lens, resets)[:3]
+    args = (torch.zeros((max_sessions + 1, window), device=device),
+            torch.zeros((max_sessions + 1,), dtype=torch.int32, device=device),
+            torch.full((max_batch,), max_sessions, dtype=torch.int64, device=device),
+            torch.zeros((max_batch, chunk_cap), device=device),
+            torch.zeros((max_batch,), dtype=torch.int32, device=device),
+            torch.ones((max_batch,), dtype=torch.bool, device=device))
+    if posteriors:
+        args += (torch.zeros((max_batch,), dtype=torch.int64, device=device),)
+    # One batch dimension for every fed-row input (a single row is a static shape).
+    fed_rows = (torch.export.Dim("fed_rows", min=1, max=max_batch) if max_batch > 1
+                else None)
+    dynamic = (None, None) + tuple({0: fed_rows} if fed_rows else None for _ in args[2:])
+    spec = {"window": window, "chunk_cap": chunk_cap, "max_sessions": max_sessions,
+            "max_batch": max_batch, "samples_per_frame": spf, "posteriors": posteriors,
+            "post_rows": post_rows, "window_frames": frames}
+    return fn, args, dynamic, spec
 
 
 def _fetch(*tensors) -> List[np.ndarray]:
@@ -652,51 +706,88 @@ class DeviceStreamingPool:
         if beam_mode not in ("posterior", "resident"):
             raise ValueError("beam_mode must be 'posterior' or 'resident', "
                              "got {!r}".format(beam_mode))
-        if not hasattr(transcriber, "config"):
+        spec = getattr(transcriber, "device_feed_spec", None)
+        if not hasattr(transcriber, "config") and spec is None:
             raise ValueError(
-                "device-resident streaming needs a live serving.Transcriber (exported "
-                "bundles are not ported: ROADMAP.md, item 13)")
+                "device-resident streaming needs a live serving.Transcriber or a "
+                "bundle exported with device_streaming=... (this backend has neither a "
+                "model config nor an exported feed program)")
         self._transcriber = transcriber
         self.codec = transcriber.codec
         self.blank_index = transcriber.blank_index
         spf = transcriber.samples_per_frame
         self.spf = spf
         self.device = transcriber.device
-        self.beam_partials = True if beam_partials is None else beam_partials
-        self.window, self.chunk_cap = quantize_pool_dims(spf, window_s, chunk_cap_s)
-        self.max_sessions = max_sessions
-        self.window_frames = _window_frames(transcriber.config, self.window)
-        self._prediction_ratio = transcriber.config.input_to_prediction_length_ratio
         self.beam_mode = beam_mode
         self._resident_decoder = None
         self._beam_pool = None
-        if beam_mode == "resident":
-            if not self.beam_partials:
-                raise ValueError("beam_mode='resident' builds the beam into the feed "
-                                 "dispatch: it cannot be combined with "
-                                 "beam_partials=False")
-            # 40 rows = DEFAULT_POST_ROWS: the piece cap (`beam_piece_cap`) then cuts
-            # feeds as the posterior mode does. The rollover guard scales with this
-            # block, so posterior-mode equality at the rollover needs the same
-            # ``chunk_frames`` on both pools.
-            opts = dict(beam_opts or {})
-            self._beam_cf = max(12, min(int(opts.pop("chunk_frames", 40)),
-                                        self.window_frames))
-            if self._beam_cf > self.window_frames:
+        # An export bundle's feed takes its baked posterior input (and gives its output)
+        # on every dispatch, whether beam sessions feed or not.
+        self._bundle_feed = not hasattr(transcriber, "config")
+        if self._bundle_feed:
+            if beam_mode == "resident":
                 raise ValueError(
-                    "beam_mode='resident' advances blocks of at least 12 frames, but a "
-                    "{} s window has {} frames: use a longer window".format(
-                        window_s, self.window_frames))
-            self._resident_decoder = beam_decoder_for(
-                transcriber, chunk_frames=self._beam_cf, engine=beam_engine, **opts)
-            self.post_rows = None
-            self._feed = _build_feed_fn(transcriber, self.window, self.chunk_cap, spf,
-                                        beam_decoder=self._resident_decoder)
+                    "beam_mode='resident' needs a live serving.Transcriber (the beam "
+                    "carry advances inside the feed dispatch); exported bundles serve "
+                    "beam partials via beam_mode='posterior'")
+            requested = quantize_pool_dims(spf, window_s, chunk_cap_s)
+            if requested != (spec["window"], spec["chunk_cap"]) or (
+                    max_sessions, max_batch) != (spec["max_sessions"], spec["max_batch"]):
+                log("device-stream pool adopting the bundle's baked dimensions "
+                    "(window={} chunk_cap={} max_sessions={} max_batch={})".format(
+                        spec["window"], spec["chunk_cap"], spec["max_sessions"],
+                        spec["max_batch"]))
+            self.window, self.chunk_cap = spec["window"], spec["chunk_cap"]
+            self.max_sessions = spec["max_sessions"]
+            max_batch = spec["max_batch"]
+            self.post_rows = spec["post_rows"]
+            self.window_frames = spec["window_frames"]
+            self._feed = functools.partial(transcriber.device_feed_program,
+                                           transcriber.weights)
+            self._program_posteriors = bool(spec["posteriors"])
+            if beam_partials and not self._program_posteriors:
+                raise ValueError(
+                    "beam partials need per-frame posteriors, but this bundle's feed "
+                    "program was exported without them; re-export with "
+                    "device_streaming={'posteriors': True}")
+            self.beam_partials = (self._program_posteriors if beam_partials is None
+                                  else beam_partials)
         else:
-            self.post_rows = (_check_post_rows(post_rows, self.window_frames)
-                              if self.beam_partials and post_rows is not None else None)
-            self._feed = _build_feed_fn(transcriber, self.window, self.chunk_cap, spf,
-                                        post_rows=self.post_rows)
+            self.beam_partials = True if beam_partials is None else beam_partials
+            self.window, self.chunk_cap = quantize_pool_dims(spf, window_s, chunk_cap_s)
+            self.max_sessions = max_sessions
+            self.window_frames = _window_frames(transcriber.config, self.window)
+            self._prediction_ratio = transcriber.config.input_to_prediction_length_ratio
+            if beam_mode == "resident":
+                if not self.beam_partials:
+                    raise ValueError("beam_mode='resident' builds the beam into the feed "
+                                     "dispatch: it cannot be combined with "
+                                     "beam_partials=False")
+                # 40 rows = DEFAULT_POST_ROWS: the piece cap (`beam_piece_cap`) then cuts
+                # feeds as the posterior mode does. The rollover guard scales with this
+                # block, so posterior-mode equality at the rollover needs the same
+                # ``chunk_frames`` on both pools.
+                opts = dict(beam_opts or {})
+                self._beam_cf = max(12, min(int(opts.pop("chunk_frames", 40)),
+                                            self.window_frames))
+                if self._beam_cf > self.window_frames:
+                    raise ValueError(
+                        "beam_mode='resident' advances blocks of at least 12 frames, but a "
+                        "{} s window has {} frames: use a longer window".format(
+                            window_s, self.window_frames))
+                self._resident_decoder = beam_decoder_for(
+                    transcriber, chunk_frames=self._beam_cf, engine=beam_engine, **opts)
+                self.post_rows = None
+                self._feed = functools.partial(
+                    _build_feed_fn(transcriber, self.window, self.chunk_cap, spf,
+                                   beam_decoder=self._resident_decoder),
+                    transcriber.weights)
+            else:
+                self.post_rows = (_check_post_rows(post_rows, self.window_frames)
+                                  if self.beam_partials and post_rows is not None else None)
+                self._feed = functools.partial(
+                    _build_feed_fn(transcriber, self.window, self.chunk_cap, spf,
+                                   post_rows=self.post_rows), transcriber.weights)
         _check_window(self.window / 16000.0, margin_s)
         self.margin = int(margin_s * 16000) // spf * spf
         if self.window < self.margin + 4 * spf:
@@ -1003,20 +1094,20 @@ class DeviceStreamingPool:
                     reset_rows, advance, slots, host_counts = self._resident_advance(
                         payloads)
                     tokens, counts, new_lens, best_rows, scalars = self._feed(
-                        self._buffers, self._lengths, self._beam_pool, *args,
-                        reset_rows, advance)
+                        self._buffers, self._lengths, self._beam_pool, *args, reset_rows,
+                        advance)
                     fetched = _fetch(tokens, counts, new_lens, *(
                         (best_rows, scalars) if advance is not None else ()))
                 else:
-                    post_starts = None
-                    if any_beam:
-                        post_starts = torch.as_tensor(
-                            [payload[4] for payload in payloads], dtype=torch.int64,
-                            device=device)
-                    tokens, counts, new_lens, log_probs = self._feed(
-                        self._buffers, self._lengths, *args, post_starts=post_starts)
+                    post_starts = ()
+                    if any_beam or self._bundle_feed and self._program_posteriors:
+                        post_starts = (torch.as_tensor([payload[4] for payload in payloads],
+                                                       dtype=torch.int64, device=device),)
+                    outputs = self._feed(self._buffers, self._lengths, *args,
+                                         *post_starts)
+                    tokens, counts, new_lens = outputs[:3]
                     fetched = _fetch(tokens, counts, new_lens, *(
-                        (log_probs,) if log_probs is not None else ()))
+                        outputs[3:] if any_beam else ()))
         except Exception:
             # Some rows may have been written and others not: without recovery every
             # later feed of every session would read a half-updated pool.

@@ -24,11 +24,14 @@ Endpoints::
                                   "final_up_to_s"}
 
 ``?nbest=N`` answers 400 when N is not an integer, below 1 or above the beam width, or
-comes with ``timestamps``. Streaming sessions run on
+comes with ``timestamps``, and 501 on an export bundle (`serving_export.
+ExportedTranscriber`), which holds 1-best programs only. A bundle without batched
+programs serves a batch of requests one by one. Streaming sessions run on
 `serving_streaming.StreamingSessionPool` (or, with ``device_streams``,
 `serving_device_stream.DeviceStreamingPool`): 400 for a bad body or mode, 404 for an
 unknown session, 501 for a mode the backend cannot serve.
 """
+import inspect
 import json
 import logging
 import threading
@@ -40,7 +43,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from .features.audio_io import decode_wav_bytes, resample
-from .serving import words_from_frame_tokens
+from .serving_host import words_from_frame_tokens
 from .serving_streaming import StreamingSessionPool, UnknownSessionError
 from .utils.microbatch import BatcherSaturated, MicroBatcher, PendingItem
 
@@ -72,6 +75,11 @@ class DynamicBatcher(MicroBatcher):
         super().__init__(max_batch=max_batch, max_wait_ms=max_wait_ms,
                          name="transcribe-batcher", max_queue=max_queue)
         self.backend = backend
+        # A live transcriber groups by the batcher's width; an export bundle's batched
+        # programs fix theirs.
+        self._batch_kwargs = ({"batch_size": max_batch} if "batch_size" in
+                              inspect.signature(backend.transcribe_batch).parameters
+                              else {})
 
     def submit(self, audio: np.ndarray, want_timestamps: bool = False,
                nbest: Optional[int] = None) -> dict:
@@ -92,11 +100,12 @@ class DynamicBatcher(MicroBatcher):
         batch = [p for p in batch if p.payload[2] is None]
         if not batch:
             return
-        if len(batch) == 1:
-            decoded = [self.backend.transcribe_audio_with_confidence(batch[0].payload[0])]
+        if len(batch) == 1 or not getattr(self.backend, "has_batched_programs", True):
+            decoded = [self.backend.transcribe_audio_with_confidence(pending.payload[0])
+                       for pending in batch]
         else:
             decoded = self.backend.transcribe_batch(
-                [pending.payload[0] for pending in batch], batch_size=self.max_batch)
+                [pending.payload[0] for pending in batch], **self._batch_kwargs)
         for pending, (text, confidence) in zip(batch, decoded):
             audio, want_timestamps, _ = pending.payload
             result = {"text": text, "confidence": confidence}
@@ -271,6 +280,9 @@ class TranscriptionServer:
         if want_timestamps:
             raise RequestError(400, "timestamps and nbest are mutually exclusive "
                                     "(timestamps describe the single best path)")
+        if not hasattr(self.backend, "transcribe_nbest"):
+            raise RequestError(501, "this backend has no n-best decode: AOT bundles export "
+                                    "1-best programs only")
         if nbest > self.backend.beam_width:
             raise RequestError(400, "nbest must be <= the decoder's beam width ({})"
                                .format(self.backend.beam_width))

@@ -18,14 +18,17 @@ no step and no optimizer state, which the reference never saved.
 """
 import os
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..models import wav2letter as w2l
-from ..models.wav2letter import Params
 from ..utils.tools import log
+
+# The JAX layout of a model's parameters (`models/wav2letter.py::Params`). The models
+# are imported where a function needs them: loading weights (the export bundle loader)
+# imports no model code.
+Params = List[Dict[str, np.ndarray]]
 
 
 def model_file_name(epoch: int) -> str:
@@ -133,7 +136,7 @@ def load_params_npz(path: Path) -> Params:
 
 
 def load_params(directory: Path, epoch: int,
-                config: Optional[w2l.Wav2LetterConfig] = None) -> Params:
+                config: Optional["w2l.Wav2LetterConfig"] = None) -> Params:
     """Load ``directory/weights-epoch{epoch}.npz``, or the reference's
     ``weights-epoch{epoch}.h5`` when only that exists. ``config`` checks an ``.h5``
     file's layers and shapes against the model, so that a charset or geometry mismatch
@@ -147,7 +150,7 @@ def load_params(directory: Path, epoch: int,
 
 
 def average_checkpoint_params(directory: Path, epochs: List[int],
-                              config: Optional[w2l.Wav2LetterConfig] = None) -> Params:
+                              config: Optional["w2l.Wav2LetterConfig"] = None) -> Params:
     """The uniform average of the parameters of several epoch checkpoints of one run,
     accumulated in float64 and returned as float32 (weights only: optimizer state means
     nothing for an averaged model). All checkpoints must share one structure: the same
@@ -182,7 +185,7 @@ def average_checkpoint_params(directory: Path, epochs: List[int],
 
 def load_params_with_character_remap(
         directory: Path, epoch: int, source_characters: List[str],
-        target_characters: List[str], target_config: w2l.Wav2LetterConfig,
+        target_characters: List[str], target_config: "w2l.Wav2LetterConfig",
         loaded_first_layers_count: Optional[int] = None,
         init_generator: Optional[torch.Generator] = None) -> Params:
     """The transfer load: the donor checkpoint's first ``loaded_first_layers_count``
@@ -191,6 +194,8 @@ def load_params_with_character_remap(
     ``init_generator`` (a CPU generator; default seeded with 0) by
     `w2l.init_params_from_generator`. The JAX package draws its fresh layers from a JAX
     key, which torch does not reproduce."""
+    from ..models import wav2letter as w2l
+
     donor = load_params(directory, epoch)
     layer_count = len(target_config.layers)
     if loaded_first_layers_count is None:

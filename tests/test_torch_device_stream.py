@@ -567,3 +567,78 @@ def test_cli_serves_device_streams(setup, tmp_path):  # noqa: F811
     finally:
         direct.stop()
     assert status == 200 and final["text"] == want and want
+
+
+def _feed_bundle(transcriber, directory, **device_streaming):
+    """An export bundle of ``transcriber``'s bucket with the pool's feed program."""
+    from speechless_tpu_torch.serving_export import ExportedTranscriber, export_transcriber
+
+    export_transcriber(transcriber, directory, platforms=("cpu",),
+                       device_streaming={"window_s": 1.024, "chunk_cap_s": 0.5,
+                                         "max_sessions": 4, "max_batch": 4,
+                                         **device_streaming})
+    return ExportedTranscriber(directory, device="cpu")
+
+
+def test_exported_bundle_serves_device_streams(port_transcriber, pool, tmp_path):
+    """A bundle exported with ``device_streaming=...`` serves device-resident streams
+    with no model code, matching the live pool's transcript exactly; the pool adopts the
+    bundle's baked dimensions over mismatched constructor arguments and refuses the
+    resident mode."""
+    bundle = _feed_bundle(port_transcriber, tmp_path / "bundle")
+    assert bundle.device_feed_spec["window"] == pool.window
+    assert bundle.device_feed_spec["chunk_cap"] == pool.chunk_cap
+    audio = _audio(3.25, 9)
+    expected = transcribe(pool, audio, mode="greedy")[0]
+    bundle_pool = DeviceStreamingPool(bundle, window_s=8.0, margin_s=0.25, max_batch=16,
+                                      max_wait_ms=20.0, max_sessions=64)
+    assert (bundle_pool.window, bundle_pool.max_sessions,
+            bundle_pool.batcher.max_batch) == (pool.window, 4, 4)
+    assert bundle_pool.beam_partials is False
+    bundle_pool.start()
+    try:
+        assert transcribe(bundle_pool, audio, mode="greedy")[0] == expected
+        with pytest.raises(ValueError, match="beam_partials=False"):
+            bundle_pool.create_stream(partial_decode="beam")
+    finally:
+        bundle_pool.stop()
+    with pytest.raises(ValueError, match="resident"):
+        DeviceStreamingPool(bundle, beam_mode="resident")
+    with pytest.raises(ValueError, match="posteriors"):
+        DeviceStreamingPool(bundle, beam_partials=True)
+
+
+def test_posteriors_bundle_serves_greedy_pool(setup, tmp_path):  # noqa: F811
+    """A bundle whose feed bakes the posterior input and output serves a pool built
+    with ``beam_partials=False`` (the dispatch follows the program, not the flag), and
+    its beam sessions give the live pool's finals: a bundle's pool decodes beam
+    partials with the default stream beam (no LM, unpruned), as the JAX package's does,
+    so the live transcriber here has that decoder too."""
+    config, params, _ = setup
+    live = Transcriber(config, params, ALPHABET, device="cpu", sample_buckets=(16384,),
+                       prune_classes=None)
+    bundle = _feed_bundle(live, tmp_path / "bundle", posteriors=True, post_rows=12)
+    assert bundle.device_feed_spec["posteriors"]
+    audio = _audio(3.25, 9)
+    live_pool = make_pool(live, post_rows=12)
+    try:
+        expected = {mode: transcribe(live_pool, audio, mode=mode)[0]
+                    for mode in ("greedy", "beam")}
+    finally:
+        live_pool.stop()
+    greedy_pool = DeviceStreamingPool(bundle, margin_s=0.25, beam_partials=False)
+    greedy_pool.start()
+    try:
+        assert greedy_pool.beam_partials is False
+        assert transcribe(greedy_pool, audio, mode="greedy")[0] == expected["greedy"]
+        with pytest.raises(ValueError, match="beam_partials=False"):
+            greedy_pool.create_stream(partial_decode="beam")
+    finally:
+        greedy_pool.stop()
+    beam_pool = DeviceStreamingPool(bundle, margin_s=0.25, max_wait_ms=1.0)
+    beam_pool.start()
+    try:
+        assert beam_pool.beam_partials is True and beam_pool.post_rows == 12
+        assert transcribe(beam_pool, audio, mode="beam")[0] == expected["beam"]
+    finally:
+        beam_pool.stop()

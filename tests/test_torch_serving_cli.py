@@ -128,20 +128,29 @@ def test_kenlm_spellings_agree(data, capsys):
     (["align", "a.wav", "--run", "run", "--epoch", "1"],
      "align needs exactly one of --text or --text-file"),
     (["transcribe", "a.wav"], "transcribe needs exactly one of"),
-    (["serve", "--bundle", "b"], "export bundles are not ported yet (ROADMAP.md, item 13"),
+    (["serve", "--bundle", "b", "--run", "run", "--epoch", "1"],
+     "serve needs exactly one of --bundle or a checkpoint"),
     (["serve", "--checkpoint", "w.npz", "--run", "run", "--epoch", "1"],
      "serve needs exactly one of --checkpoint or --run/--epoch"),
     (["transcribe", "a.wav", "--run", "run", "--epoch", "1", "--charset", "german"],
      "--charset is for --checkpoint"),
+    (["transcribe", "a.wav", "--bundle", "b", "--lexicon"],
+     "--lexicon needs a live checkpoint (--run/--epoch): AOT bundles bake their decoder "
+     "at export time, so the flag would be silently ignored"),
+    (["transcribe", "a.wav", "--bundle", "b", "--nbest", "2", "--json"],
+     "AOT bundles export 1-best programs only"),
+    (["serve", "--bundle", "b", "--quantize"], "--quantize with --bundle"),
 ], ids=["run_without_epoch", "align_run_without_epoch", "lexicon_without_kenlm",
         "serve_lexicon_without_kenlm", "align_without_text", "no_backend", "bundle",
-        "two_backends", "charset_with_run"])
+        "two_backends", "charset_with_run", "bundle_lexicon", "bundle_nbest",
+        "bundle_quantize"])
 def test_refusals(argv, message, capsys, tmp_path):
     """Each refusal exits before anything loads; where the JAX CLI refuses the same
     arguments, its message is the port's."""
     code, said = _run(cli.main, argv + ["--data-dir", str(tmp_path)], capsys)
     assert code == 2 and message in said
-    if message.startswith(("--run requires", "--lexicon requires", "align needs")):
+    if message.startswith(("--run requires", "--lexicon requires", "align needs",
+                           "--lexicon needs a live")):
         jax_code, jax_said = _run(jax_cli.main, argv + ["--data-dir", str(tmp_path)],
                                   capsys)
         assert jax_code == message or message in jax_said
@@ -207,3 +216,40 @@ def test_serve_run_epoch_warm_beam(data):
     finally:
         pool.stop()
     assert status == 200 and final["text"] == want
+
+
+@pytest.fixture(scope="module")
+def bundles(data, tmp_path_factory):
+    """``export`` of the run's model for the CPU: one bundle with the streaming
+    programs (``align`` needs its posteriors), one without."""
+    root, _ = data
+    out = {}
+    for name, extra in (("streaming", ["--streaming"]), ("plain", [])):
+        out[name] = tmp_path_factory.mktemp("bundle-" + name)
+        cli.main(["export", *_backend(root), "--out", str(out[name]), "--sample-buckets",
+                  "16384", "--platforms", "cpu", "--device", "cpu", *extra])
+    return out
+
+
+def test_export_then_bundle_commands_match_the_checkpoint(data, bundles, capsys):
+    """``transcribe --bundle`` and ``align --bundle`` print what the checkpoint prints;
+    ``align`` on a bundle without posterior programs exits with the JAX CLI's text."""
+    root, _ = data
+    files = [str(root / "a.wav"), str(root / "b.flac")]
+    bundle = ["--bundle", str(bundles["streaming"]), "--device", "cpu"]
+    checkpoint = [*_backend(root), "--device", "cpu"]
+    by_bundle = [json.loads(line) for line in _run(
+        cli.main, ["transcribe", *files, "--json", *bundle], capsys)]
+    by_run = [json.loads(line) for line in _run(
+        cli.main, ["transcribe", *files, "--json", *checkpoint], capsys)]
+    assert [r["text"] for r in by_bundle] == [r["text"] for r in by_run]
+    assert by_run[0]["text"]
+    np.testing.assert_allclose([r["confidence"] for r in by_bundle],
+                               [r["confidence"] for r in by_run], atol=1e-4)
+    align = ["align", str(root / "b.flac"), "--text", "The cat, sat!"]
+    assert _run(cli.main, align + bundle, capsys) == _run(cli.main, align + checkpoint,
+                                                         capsys)
+    code, said = _run(cli.main, align + ["--bundle", str(bundles["plain"]), "--device",
+                                         "cpu"], capsys)
+    assert code == ("this bundle has no frame-posterior programs; re-export with "
+                    "--streaming")
