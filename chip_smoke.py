@@ -2,10 +2,10 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: LM-fused serving, streaming
 sessions, offline decoding on every beam route, training, the training and evaluation
 facade, the Transcriber's other routes (int8 serving, alignment, FLAC, the beam
-warm-up), the model variants (ASG, the raw-wave model, the activations) and export
-bundles.
+warm-up), the model variants (ASG, the raw-wave model, the activations), export
+bundles and parallelism (a data-parallel world of one, two processes sharing the card).
 
-    python3 chip_smoke.py [--profile | --facade-only | --bundle-only]
+    python3 chip_smoke.py [--profile | --facade-only | --bundle-only | --parallel-only]
 
 Builds every kernel of ``speechless_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
 source, all started together) and prints ptxas's registers and spills, then:
@@ -190,8 +190,25 @@ source, all started together) and prints ptxas's registers and spills, then:
   posteriors; ms per 16 x 8 s dispatch, bundle and live in turns; a greedy session on a
   `DeviceStreamingPool` over the bundle gives the live pool's final, resident mode is
   refused; a ``cpu``-only bundle is refused on the card.
+* phase K (after phase G, in phase F's data directory): parallelism. K1, a world of one
+  process on NCCL through `distributed_init` and `make_mesh`: `make_multi_wav_step` on
+  the mesh at `bench.py`'s batch in bf16 (k=10; K1 and the fused backward launch every
+  step, one gradient all-reduce a step) timed in turns with the plain step; one fp32
+  step on the mesh bitwise the plain step's (deterministic cuDNN; a reduce over one
+  rank is the identity); `Wav2Letter(mesh=)` trains one facade epoch on phase F's
+  corpus and checkpoints, and a single-process `Wav2Letter` loads it exactly. K2, two
+  processes on the one card over gloo (NCCL refuses two ranks on one GPU; each is this
+  script with ``--k2-worker``): the TP=2 forward and backward at full width on the
+  bench batch in fp32 against the unsplit model (logits within 1e-4, gradients within
+  1e-2 relative L2 per tensor), one DP and one TP step in bf16 with equal losses on
+  both ranks, the sequence-parallel n=2 forward of a 60 s recording within 1e-5 of the
+  unsplit forward and its LM-beam text equal to the unsplit decode's (one span and one
+  backtrace launch on each rank), and `Transcriber(mesh=)` on phase B's 16 x 8 s batch
+  giving the plain Transcriber's texts.
 * with ``--facade-only``: the kernel builds and phases F, I and G alone, and no result;
-  with ``--bundle-only``: the kernel builds and phases B and J alone, and no result.
+  with ``--bundle-only``: the kernel builds and phases B and J alone, and no result;
+  with ``--parallel-only``: the kernel builds, phase B, phase F's corpus staging and
+  phase K alone, and no result.
 * with ``--profile`` only: the split of one 16 x 8 s `transcribe_batch` into features,
   model and beam, single-request latencies, and the device's busy share and kernel
   counts from one `torch.profiler` trace (``chiprun_out/profile.json``); and the split of
@@ -4364,6 +4381,390 @@ def phase_j(device, card: str, transcriber, batch, lm_directory: Path) -> dict:
     return numbers
 
 
+# ---- phase K: parallelism (a world of one on NCCL, two processes sharing the card) --------
+K_TP_LOGITS_TOL = 1e-4   # TP=2 logits vs the unsplit model, absolute (fp32)
+K_SP_LOGITS_TOL = 1e-5   # sequence-parallel n=2 logits vs the unsplit forward, absolute
+K_RECORDING_S = 60.0     # the sequence-parallel recording
+K_WORKER_TIMEOUT_S = 400
+
+
+def k_recording(seconds: float) -> np.ndarray:
+    """A seeded recording of tones under a slow envelope, with noise (phase B's kind)."""
+    rng = np.random.default_rng(SEED + 9)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    tones = sum(0.2 * np.sin(2 * np.pi * f * t + p) for f, p in
+                zip(rng.uniform(100, 3000, 4), rng.uniform(0, 6, 4)))
+    return (tones * (0.5 + 0.5 * np.sin(2 * np.pi * 0.7 * t))
+            + 0.05 * rng.normal(size=t.size)).astype(np.float32)
+
+
+def bench_features(rng, config, device):
+    """`bench.py`'s batch as features: (64, 1025, 128) fp32, its labels and lengths."""
+    import torch
+
+    from speechless_tpu_torch.features.spectrogram import features_batch
+    from speechless_tpu_torch.train import trainer
+
+    wavs = torch.tensor(rng.normal(size=(BENCH_BATCH, BENCH_SAMPLES)) * 0.1,
+                        dtype=torch.float32, device=device)
+    lengths = torch.full((BENCH_BATCH,), BENCH_SAMPLES, dtype=torch.int32, device=device)
+    features, frames = features_batch(wavs, lengths)
+    labels = torch.tensor(rng.integers(0, config.grapheme_set_size - 1,
+                                       (BENCH_BATCH, BENCH_LABELS)),
+                          dtype=torch.int32, device=device)
+    return trainer.Batch(features, frames, labels,
+                         torch.full((BENCH_BATCH,), BENCH_LABELS, dtype=torch.int32,
+                                    device=device))
+
+
+def phase_k1(device, card: str, train: Optional[dict], data: Path, backend: str) -> dict:
+    """A world of one process (``backend``: NCCL on the card) through the real entry
+    points: `distributed_init`, `make_mesh`, the data-parallel step at `bench.py`'s
+    batch in bf16 (k=10 a call; the gradient all-reduce over one rank) timed in turns
+    with the plain step, one fp32 step bitwise the plain step's, and `Wav2Letter(mesh=)`
+    training one facade epoch on phase F's corpus, whose checkpoint a single-process
+    `Wav2Letter` loads exactly."""
+    import torch
+    import torch.distributed as dist
+
+    from speechless_tpu_torch.configuration import Configuration, DataDirectories
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.ops import ctc_kernels
+    from speechless_tpu_torch.parallel import distributed_init, make_mesh
+    from speechless_tpu_torch.parallel.distributed import free_port
+    from speechless_tpu_torch.parallel.mesh import collectives
+    from speechless_tpu_torch.system import Wav2Letter
+    from speechless_tpu_torch.text.charsets import english_frequent_characters
+    from speechless_tpu_torch.train import trainer
+
+    distributed_init(backend, "tcp://localhost:{}".format(free_port()), 1, 0,
+                     device_type=device.type)
+    check(dist.get_world_size() == 1, "phase K1 wants a world of one")
+    mesh = make_mesh(1, device_type=device.type)
+    numbers = {}
+    try:
+        rng = np.random.default_rng(SEED + 3)
+        config = w2l.Wav2LetterConfig(128, 29, compute_dtype=torch.bfloat16)
+        optimizer = trainer.make_optimizer(1e-4)
+        params = w2l.init_params(config, SEED)
+        batch = bench_wav_batch(rng, config, BENCH_STEPS, device)
+        states = {name: trainer.init_train_state(config, optimizer, params=params,
+                                                 device=device,
+                                                 mesh=mesh if name == "mesh" else None)
+                  for name in ("plain", "mesh")}
+        multi_step = trainer.make_multi_wav_step(config, optimizer, device=device)
+        for name in states:  # warm-up calls
+            states[name], _ = multi_step(states[name], batch)
+        ms = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta_grad.launches = 0
+            collectives.clear()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            states[name], metrics = multi_step(states[name], batch)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - start) / BENCH_STEPS * 1e3)
+            if name == "mesh":
+                numbers["launches"] = {"ctc_alpha": ctc_kernels.ctc_alpha.launches,
+                                       "ctc_beta_grad": ctc_kernels.ctc_beta_grad.launches}
+                numbers["all_reduces"] = collectives.count("all_reduce", "data")
+                check(bool(torch.isfinite(metrics["step_losses"]).all()),
+                      "phase K1: a non-finite loss on the mesh")
+        check(numbers["launches"] == {"ctc_alpha": BENCH_STEPS, "ctc_beta_grad": BENCH_STEPS},
+              "phase K1: {} mesh steps launched the CTC kernels {}".format(
+                  BENCH_STEPS, numbers["launches"]))
+        check(numbers["all_reduces"] == BENCH_STEPS, "phase K1: {} data all-reduces in {} "
+              "steps".format(numbers["all_reduces"], BENCH_STEPS))
+        numbers["ms"] = ms
+        print("phase K1 ({}; {} world of 1): make_multi_wav_step at B={} x {} samples, "
+              "bf16, k={}, ms per step in turns plain {:.2f}, mesh {:.2f}, mesh {:.2f}, "
+              "plain {:.2f} (phase C: {}); ctc_alpha/ctc_beta_grad launches {}/{} and {} "
+              "gradient all-reduces in one mesh call".format(
+                  card, backend, BENCH_BATCH, BENCH_SAMPLES, BENCH_STEPS, ms["plain"][0],
+                  ms["mesh"][0], ms["mesh"][1], ms["plain"][1],
+                  "{:.2f}".format(train["ms_per_step"]) if train else "not run",
+                  numbers["launches"]["ctc_alpha"], numbers["launches"]["ctc_beta_grad"],
+                  numbers["all_reduces"]))
+
+        # One fp32 step with deterministic cuDNN algorithms: the all-reduce over one
+        # rank (a sum of one, divided by one) must leave the step bitwise the plain one.
+        config32 = w2l.Wav2LetterConfig(128, 29)
+        one = bench_wav_batch(np.random.default_rng(SEED + 4), config32, 1, device)
+        stepped = {}
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            for name in ("plain", "mesh"):
+                state = trainer.init_train_state(config32, optimizer, params=params,
+                                                 device=device,
+                                                 mesh=mesh if name == "mesh" else None)
+                state, metrics = trainer.make_multi_wav_step(config32, optimizer,
+                                                             device=device)(state, one)
+                stepped[name] = (float(metrics["loss"]), state.params)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        equal = [np.array_equal(a[key], b[key]) for a, b in zip(stepped["plain"][1],
+                                                                  stepped["mesh"][1])
+                 for key in a]
+        check(stepped["plain"][0] == stepped["mesh"][0] and all(equal),
+              "phase K1: the fp32 mesh step differs from the plain step (loss {} vs {}, "
+              "{} of {} tensors equal)".format(stepped["mesh"][0], stepped["plain"][0],
+                                               sum(equal), len(equal)))
+        print("phase K1 ({}): one fp32 step at the bench batch on the mesh: loss {} and all "
+              "{} parameter tensors bitwise the plain step's".format(
+                  card, stepped["mesh"][0], len(equal)))
+
+        configuration = Configuration.english(DataDirectories(data))
+        configuration.batch_size = FACADE_BATCH
+        configuration.training_batches_per_epoch = FACADE_BATCHES
+        facade = Wav2Letter(128, english_frequent_characters, mesh=mesh, device=device)
+        ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta_grad.launches = 0
+        start = time.perf_counter()
+        configuration.train(facade, "parallel-world-1", epoch_limit=1)
+        torch.cuda.synchronize()
+        numbers["facade_s"] = time.perf_counter() - start
+        numbers["facade_launches"] = {"ctc_alpha": ctc_kernels.ctc_alpha.launches,
+                                      "ctc_beta_grad": ctc_kernels.ctc_beta_grad.launches}
+        check(numbers["facade_launches"]["ctc_beta_grad"] == FACADE_BATCHES,
+              "phase K1: the mesh facade's epoch launched the backward {} times".format(
+                  numbers["facade_launches"]["ctc_beta_grad"]))
+        loaded = Wav2Letter(128, english_frequent_characters, device=device,
+                            load_model_from_directory=configuration.directories
+                            .nets_base_directory / "parallel-world-1", load_epoch=1)
+        check(loaded.mesh is None and loaded.state.step == facade.state.step == FACADE_BATCHES,
+              "phase K1: the single-process load (mesh {}, step {})".format(
+                  loaded.mesh, loaded.state.step))
+        same = all(np.array_equal(a[key], b[key]) for a, b in zip(loaded.params,
+                                                                  facade.params) for key in a)
+        leaves = all(np.array_equal(a, b) for a, b in zip(loaded.state.opt_state.leaves(),
+                                                          facade.state.opt_state.leaves()))
+        check(same and leaves, "phase K1: the checkpoint does not load back exactly")
+        print("phase K1 ({}): Wav2Letter(mesh=) trained 1 epoch of {} batches of {} on phase "
+              "F's corpus in {:.2f} s (ctc_alpha/ctc_beta_grad launches {}), checkpointed; "
+              "a single-process Wav2Letter loads it with its parameters, optimizer leaves "
+              "and step exactly".format(card, FACADE_BATCHES, FACADE_BATCH,
+                                        numbers["facade_s"],
+                                        tuple(numbers["facade_launches"].values())))
+    finally:
+        dist.destroy_process_group()
+    return numbers
+
+
+def phase_k2(device, card: str, batch) -> dict:
+    """Two processes on the one card over gloo (NCCL refuses two ranks on one GPU):
+    each runs `phase_k2_worker` and writes its numbers; both must pass their checks."""
+    from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
+    from speechless_tpu_torch.parallel.distributed import free_port
+    from speechless_tpu_torch.serving import CHARSETS
+
+    with tempfile.TemporaryDirectory() as directory:
+        directory = Path(directory)
+        build_kenlm_directory(readme_sentences(), directory / "lm",
+                              allowed_characters=CHARSETS["english"])
+        np.save(directory / "batch.npy", np.stack(batch))
+        port = free_port()
+        start = time.perf_counter()
+        workers = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--k2-worker", str(rank),
+             str(port), str(directory), device.type], cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        outputs = []
+        try:
+            for worker in workers:
+                outputs.append(worker.communicate(timeout=K_WORKER_TIMEOUT_S)[0])
+        finally:
+            for worker in workers:
+                if worker.poll() is None:
+                    worker.kill()
+                    worker.communicate()
+        wall = time.perf_counter() - start
+        for rank, out in enumerate(outputs):
+            for line in out.splitlines():
+                print("phase K2 rank {}: {}".format(rank, line))
+        check(all(worker.returncode == 0 for worker in workers),
+              "phase K2: a worker failed (exit codes {})".format(
+                  [worker.returncode for worker in workers]))
+        results = [json.loads((directory / "k2-rank{}.json".format(rank)).read_text())
+                   for rank in range(2)]
+    check(results[0]["step_losses"] == results[1]["step_losses"],
+          "phase K2: the step losses differ across ranks: {}".format(
+              [r["step_losses"] for r in results]))
+    launches = {name: sum(r["launches"][name] for r in results)
+                for name in results[0]["launches"]}
+    print("phase K2 ({}): 2 processes on one card over gloo in {:.1f} s; TP=2 logits max "
+          "|diff| {:.3g} (limit {}), gradients rel L2 <= {:.3g} (limit {}); DP x TP step "
+          "losses {} equal on both ranks; sequence-parallel n=2 logits of {:.0f} s max "
+          "|diff| {:.3g} (limit {}), LM text equal; Transcriber(mesh=) texts equal; "
+          "launches over both ranks {}".format(
+              card, wall, max(r["tp_logits_err"] for r in results), K_TP_LOGITS_TOL,
+              max(r["tp_grad_rel_l2"] for r in results), FP32_GRAD_RTOL,
+              results[0]["step_losses"], K_RECORDING_S,
+              max(r["sp_logits_err"] for r in results), K_SP_LOGITS_TOL, launches))
+    return {"wall_s": wall, "launches": launches, "results": results}
+
+
+def phase_k2_worker(rank: int, port: int, directory: Path, device_type: str) -> None:
+    """One rank of phase K2 (a process of its own): the TP=2 forward and backward at
+    full width on the bench batch against the unsplit model, one DP step and one TP
+    step, the sequence-parallel n=2 forward and LM decode of a 60 s recording against
+    the unsplit ones, and `Transcriber(mesh=)` on phase B's batch against the plain
+    Transcriber."""
+    import torch
+    import torch.distributed as dist
+
+    from speechless_tpu_torch.features.spectrogram import features_batch
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.ops import beam_common, ctc_kernels, decode_lm
+    from speechless_tpu_torch.parallel import distributed_init, make_mesh
+    from speechless_tpu_torch.parallel import mesh as pmesh
+    from speechless_tpu_torch.parallel.sequence import sequence_parallel_logits
+    from speechless_tpu_torch.serving import CHARSETS, Transcriber
+    from speechless_tpu_torch.train import trainer
+
+    device = distributed_init("gloo", "tcp://localhost:{}".format(port), 2, rank,
+                              device_type=device_type)
+    out = {"launches": {"ctc_alpha": 0, "ctc_beta_grad": 0, "lm_beam_span": 0,
+                        "beam_backtrace": 0}}
+
+    def count(name, launches):
+        out["launches"][name] += launches
+
+    def rel(got, want):
+        return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+    # The TP=2 forward and backward in fp32 against the unsplit model.
+    tp_mesh = make_mesh(2, device_type=device_type)
+    split = pmesh.model_split(tp_mesh)
+    config = w2l.Wav2LetterConfig(128, 29)
+    params = w2l.init_params(config, SEED)
+    batch = bench_features(np.random.default_rng(SEED + 7), config, device)
+    unsplit = w2l.build_model(config, params, device=device).train()
+    tp = w2l.build_model(config, pmesh.shard_params(params, pmesh.param_specs(
+        config.layer_names), split.rank, split.size), device=device,
+        tensor_parallel=split).train()
+    ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta_grad.launches = 0
+    for model in (unsplit, tp):
+        loss, _ = trainer.loss_fn(config, model, batch)
+        loss.backward()
+    count("ctc_alpha", ctc_kernels.ctc_alpha.launches)
+    count("ctc_beta_grad", ctc_kernels.ctc_beta_grad.launches)
+    with torch.no_grad():
+        out["tp_logits_err"] = float((tp(batch.inputs) - unsplit(batch.inputs)).abs().max())
+    out["tp_grad_rel_l2"] = max(
+        rel(tp.full_tensor(p, p.grad), q.grad)
+        for conv, reference in zip(tp.layers, unsplit.layers)
+        for p, q in ((conv.weight, reference.weight), (conv.bias, reference.bias)))
+    check(out["tp_logits_err"] <= K_TP_LOGITS_TOL, "rank {}: TP logits differ by {}".format(
+        rank, out["tp_logits_err"]))
+    check(out["tp_grad_rel_l2"] <= FP32_GRAD_RTOL, "rank {}: TP gradients differ by {} rel "
+          "L2".format(rank, out["tp_grad_rel_l2"]))
+    print("TP=2 at the bench batch (fp32): logits max |diff| {:.3g}, gradients rel L2 <= "
+          "{:.3g} against the unsplit model".format(out["tp_logits_err"],
+                                                    out["tp_grad_rel_l2"]))
+    del unsplit, tp, batch
+
+    # One bf16 step on each mesh: DP (each rank on half the rows) and TP.
+    config16 = w2l.Wav2LetterConfig(128, 29, compute_dtype=torch.bfloat16)
+    out["step_losses"] = {}
+    wav_batch = bench_wav_batch(np.random.default_rng(SEED + 8), config16, 1, device)
+    for name, parallelism in (("dp", 1), ("tp", 2)):
+        mesh = make_mesh(parallelism, device_type=device_type)
+        rows = pmesh.batch_rows(mesh, BENCH_BATCH)
+        local = trainer.WavBatch(*(field[:, rows] for field in wav_batch))
+        optimizer = trainer.make_optimizer(1e-4)
+        state = trainer.init_train_state(config16, optimizer, params=params, device=device,
+                                         mesh=mesh)
+        ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta_grad.launches = 0
+        state, metrics = trainer.make_multi_wav_step(config16, optimizer, device=device)(
+            state, local)
+        count("ctc_alpha", ctc_kernels.ctc_alpha.launches)
+        count("ctc_beta_grad", ctc_kernels.ctc_beta_grad.launches)
+        out["step_losses"][name] = float(metrics["loss"])
+        check(np.isfinite(out["step_losses"][name]), "rank {}: a non-finite {} step "
+              "loss".format(rank, name))
+    print("one bf16 step at the bench batch: DP (2 x 1) loss {}, TP (1 x 2) loss {}".format(
+        out["step_losses"]["dp"], out["step_losses"]["tp"]))
+
+    # Sequence parallelism over the data axis (n=2) of a 60 s recording, with the LM.
+    alphabet = CHARSETS["english"]
+    serve_config = w2l.Wav2LetterConfig(128, len(alphabet) + 1)
+    serve_params = serving_params(serve_config)
+    transcriber = Transcriber(serve_config, serve_params, alphabet, device=device,
+                              kenlm_directory=directory / "lm")
+    data_mesh = make_mesh(1, device_type=device_type)
+    recording = k_recording(K_RECORDING_S)
+    bucket = -(-len(recording) // transcriber._SP_BUCKET_SAMPLES) \
+        * transcriber._SP_BUCKET_SAMPLES
+    wav = np.zeros((1, bucket), np.float32)
+    wav[0, :len(recording)] = recording
+    with torch.inference_mode():
+        features, frames = features_batch(torch.from_numpy(wav).to(device), torch.tensor(
+            [len(recording)], dtype=torch.int32, device=device))
+        split_logits = sequence_parallel_logits(transcriber.model, features, data_mesh)
+        # The split forward zero-pads the frames to 2 chunks of a multiple of the
+        # stride ratio, as JAX's does: the unsplit reference runs on the same frames.
+        padded = torch.nn.functional.pad(features, (0, 0, 0, split_logits.shape[1] * 2
+                                                    - features.shape[1]))
+        whole = transcriber.model(padded)
+        out["sp_logits_err"] = float((split_logits - whole).abs().max())
+        # What the padding moves: the recording's last frames against the forward on
+        # the unpadded frames (JAX's padding does the same; ROADMAP.md section 3).
+        counts = w2l.prediction_lengths(serve_config, frames)
+        unpadded = transcriber.model(features)[:, :int(counts[0])]
+        out["sp_padding_shift"] = float(
+            (split_logits[:, :int(counts[0])] - unpadded).abs().max())
+        tokens, counts, _ = transcriber._decode(torch.log_softmax(whole, dim=-1), counts)
+        want = transcriber.codec.decode_graphemes(tokens[0, :int(counts[0])].tolist(),
+                                                  merge_repeated=False)
+    decode_lm.lm_span.launches = beam_common.beam_backtrace.launches = 0
+    got = transcriber.transcribe_long_audio(recording, sequence_parallel=True, mesh=data_mesh)
+    sp_launches = (decode_lm.lm_span.launches, beam_common.beam_backtrace.launches)
+    count("lm_beam_span", sp_launches[0])
+    count("beam_backtrace", sp_launches[1])
+    check(out["sp_logits_err"] <= K_SP_LOGITS_TOL, "rank {}: sequence-parallel logits "
+          "differ by {}".format(rank, out["sp_logits_err"]))
+    check(got == want and len(got) > 0, "rank {}: the sequence-parallel text differs from "
+          "the unsplit one ({} vs {} characters)".format(rank, len(got), len(want)))
+    check(device_type != "cuda" or sp_launches == (1, 1), "rank {}: the sequence-parallel "
+          "decode launched the span and backtrace kernels {} times".format(rank, sp_launches))
+    print("sequence-parallel n=2, {:.0f} s in a {}-sample bucket: logits {} max |diff| "
+          "{:.3g} against the unsplit forward on the same padded frames ({:.3g} on the "
+          "recording's frames against the forward on the unpadded frames); LM text ({} "
+          "characters) equal to the unsplit decode's; span/backtrace launches {}".format(
+              K_RECORDING_S, bucket, tuple(whole.shape), out["sp_logits_err"],
+              out["sp_padding_shift"], len(got), sp_launches))
+
+    # Transcriber(mesh=) on phase B's 16 x 8 s batch against the plain Transcriber.
+    audios = list(np.load(directory / "batch.npy"))
+    want_texts = [text for text, _ in transcriber.transcribe_batch(audios)]
+    served = Transcriber(serve_config, serve_params, alphabet, device=device,
+                         kenlm_directory=directory / "lm", mesh=data_mesh)
+    decode_lm.lm_span.launches = beam_common.beam_backtrace.launches = 0
+    texts = [text for text, _ in served.transcribe_batch(audios)]
+    mesh_launches = (decode_lm.lm_span.launches, beam_common.beam_backtrace.launches)
+    count("lm_beam_span", mesh_launches[0])
+    count("beam_backtrace", mesh_launches[1])
+    check(texts == want_texts, "rank {}: Transcriber(mesh=) texts differ in {} of {} "
+          "rows".format(rank, sum(a != b for a, b in zip(texts, want_texts)), len(texts)))
+    check(device_type != "cuda" or mesh_launches == (1, 1), "rank {}: the mesh batch "
+          "launched the span and backtrace kernels {} times".format(rank, mesh_launches))
+    print("Transcriber(mesh=) on 16 x 8 s: this rank decoded 8 rows, all 16 texts equal "
+          "the plain Transcriber's; span/backtrace launches {}".format(mesh_launches))
+    (directory / "k2-rank{}.json".format(rank)).write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def phase_k(device, card: str, train: Optional[dict], data: Path, batch) -> dict:
+    """Phase K: K1 (a world of one on NCCL) and K2 (two processes on the card)."""
+    start = time.perf_counter()
+    k1 = phase_k1(device, card, train, data, "nccl")
+    k2 = phase_k2(device, card, batch)
+    wall = time.perf_counter() - start
+    print("phase K ({}): {:.1f} s".format(card, wall))
+    return {"k1": k1, "k2": k2, "wall_s": wall}
+
+
 def main() -> None:
     import argparse
 
@@ -4381,10 +4782,19 @@ def main() -> None:
     parser.add_argument("--bundle-only", action="store_true",
                         help="build the kernels and run phases B and J alone; prints no "
                              "result line")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="build the kernels and run phase B, phase F's corpus staging "
+                             "and phase K alone; prints no result line")
+    parser.add_argument("--k2-worker", nargs=4, metavar=("RANK", "PORT", "DIR", "DEVICE"),
+                        help=argparse.SUPPRESS)  # one rank of phase K2, started by it
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, str(ROOT))
+    if args.k2_worker:
+        rank, port, directory, device_type = args.k2_worker
+        phase_k2_worker(int(rank), int(port), Path(directory), device_type)
+        return
     from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
     from speechless_tpu_torch.lm.device_lm import build_device_word_lm
     from speechless_tpu_torch.lm.ngram import load_language_model
@@ -4436,6 +4846,13 @@ def main() -> None:
             phase_j(device, card, transcriber, batch, Path(lm_directory))
             print("chip_smoke --bundle-only: phases B and J passed; no result line")
             return
+        if args.parallel_only:
+            _, _, batch, _, _, _ = phase_b(device, Path(lm_directory))
+            with tempfile.TemporaryDirectory() as directory:
+                stage_facade_corpora(Path(directory))
+                phase_k(device, card, None, Path(directory), batch)
+            print("chip_smoke --parallel-only: phases B and K passed; no result line")
+            return
         step = phase_a(device, len(alphabet), alphabet.index(" "), word_lm)
         launches, transcriber, batch, short_audio, make_audio, batch_s = phase_b(
             device, Path(lm_directory))
@@ -4456,6 +4873,7 @@ def main() -> None:
         model_variants = phase_i(device, card, train["train"], Path(directory))
         transfer = phase_g(device, card, facade, Path(directory))
         phase_h_cli(device, Path(directory), facade["run"])
+        parallel = phase_k(device, card, train["train"], Path(directory), batch)
     check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "speechless_tpu")],
           "the port imported jax or the JAX package")
 
@@ -4472,6 +4890,11 @@ def main() -> None:
           "{}".format(bundles["launches"]))
     replayed = {name: sum(run[name] for run in bundles["launches"].values())
                 for name in ("lm_beam_span", "beam_backtrace")}
+    print("phase K launches on its paths: K1 (the world-1 mesh step, k={}) {}, its facade "
+          "epoch {}; K2 (both ranks) {}".format(
+              BENCH_STEPS, parallel["k1"]["launches"], parallel["k1"]["facade_launches"],
+              parallel["k2"]["launches"]))
+    k2_launches = parallel["k2"]["launches"]
     print(card)  # again beside the summary: the long output's head may be cut
     print("summary: span kernel {:.4f} ms per 16 x 513 launch ({:.2f} us per frame; "
           "no LM {:.4f} ms); step entry {:.5f} ms per frame on the sorted network, {:.5f} "
@@ -4483,14 +4906,16 @@ def main() -> None:
         "name": "lm_beam_span", "route": "cuda",
         "source": "speechless_tpu_torch/csrc/lm_beam_span.cu",
         "replaces": "speechless_tpu/ops/decode_pallas_lm.py:124",
-        "launches": launches["lm_beam_span"] + replayed["lm_beam_span"],
+        "launches": launches["lm_beam_span"] + replayed["lm_beam_span"]
+        + k2_launches["lm_beam_span"],
         "max_abs_err": step["max_abs_err"],
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": None}, {
         "name": "beam_backtrace", "route": "cuda",
         "source": "speechless_tpu_torch/csrc/beam_backtrace.cu",
         "replaces": "speechless_tpu/ops/decode_jax.py:34",
-        "launches": launches["beam_backtrace"] + replayed["beam_backtrace"],
+        "launches": launches["beam_backtrace"] + replayed["beam_backtrace"]
+        + k2_launches["beam_backtrace"],
         "max_abs_err": backtrace["max_abs_err"],
         "ms": backtrace["ms"], "plain_ms": backtrace["plain_ms"],
         "bound_ms": backtrace["bound_ms"], "bound_by": backtrace["bound_by"],
@@ -4498,7 +4923,7 @@ def main() -> None:
         "name": "ctc_alpha", "route": "cuda",
         "source": "speechless_tpu_torch/csrc/ctc_alpha.cu",
         "replaces": "speechless_tpu/ops/ctc_pallas.py:45",
-        "launches": train["launches"]["ctc_alpha"],
+        "launches": train["launches"]["ctc_alpha"] + parallel["k1"]["launches"]["ctc_alpha"],
         "max_abs_err": max(ctc["alpha_abs_err"], train["ctc_long"]["alpha_abs_err"],
                            raw_ctc["alpha_abs_err"]),
         "ms": ctc["alpha_ms"], "plain_ms": ctc["alpha_plain_ms"],
@@ -4507,7 +4932,8 @@ def main() -> None:
         "name": "ctc_beta_grad", "route": "cuda",
         "source": "speechless_tpu_torch/csrc/ctc_beta_grad.cu",
         "replaces": "speechless_tpu/ops/ctc_pallas.py:70",
-        "launches": train["launches"]["ctc_beta_grad"],
+        "launches": train["launches"]["ctc_beta_grad"]
+        + parallel["k1"]["launches"]["ctc_beta_grad"],
         "max_abs_err": max(ctc["beta_abs_err"], ctc["beta_grad_abs_err"],
                            train["ctc_long"]["beta_abs_err"],
                            train["ctc_long"]["beta_grad_abs_err"], raw_ctc["beta_abs_err"],

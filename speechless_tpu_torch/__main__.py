@@ -19,6 +19,7 @@
         --epochs 1691
     python -m speechless_tpu_torch average --config german --data-dir D --run R --last 2
     python -m speechless_tpu_torch convert nets/run/weights-epoch9.h5 weights-epoch9.npz
+    python -m speechless_tpu_torch record --config english --data-dir D --run R --epoch 9
 
 ``train``, ``transfer``, ``test``, ``validate``, ``average``, ``summarize`` and
 ``fill-cache`` are the JAX CLI's workflows over a named `Configuration` (``english``,
@@ -28,7 +29,10 @@ English baseline run remapped to the configuration's characters and continues it
 numbering, so ``--epochs`` counts from the donor's epoch (1689). ``average`` writes the
 mean of several epoch checkpoints of a run as a new epoch.
 ``convert`` turns a checkpoint's weights from ``.npz`` into the reference's Keras ``.h5``
-or back (`train/keras_import.py`; it needs h5py).
+or back (`train/keras_import.py`; it needs h5py). ``record`` records from the microphone
+until 3 s of silence (`io/recording.py`; it needs sounddevice or pyaudio), saves the wav
+and its spectrogram under ``<data-dir>/recordings`` and prints the transcript of a run's
+epoch (the latest with ``--run`` alone, the English baseline without ``--run``).
 ``serve`` runs the port's HTTP transcription API (`serving_http.py`: ``/v1/transcribe``
 and the ``/v1/stream`` session routes); ``transcribe`` decodes wav or FLAC files
 offline and prints ``file<TAB>text`` lines or one JSON object per file; ``align``
@@ -259,6 +263,39 @@ def _run_workflow(args, parsers: dict) -> None:
         configuration.summarize_and_save_corpus()
     else:
         configuration.fill_cache(repair_incorrect=args.repair)
+
+
+def _record(args) -> None:
+    """``record``: a microphone recording (its wav and spectrogram saved under the data
+    directory's ``recordings``), transcribed by a run's epoch (the latest with ``--run``
+    alone) or, without ``--run``, by the English baseline run."""
+    from .io import record_plot_and_save
+
+    configuration = _configuration(args.config, args.data_dir, args.batch_size,
+                                   args.batches_per_epoch)
+    example = record_plot_and_save(
+        recording_directory=configuration.directories.recording_directory)
+    if args.run is not None:
+        epoch = args.epoch
+        if epoch is None:
+            from .experiments import available_epochs
+            epochs = available_epochs(
+                configuration.directories.nets_base_directory / args.run)
+            if not epochs:
+                raise SystemExit("No checkpoints found for run '{}'.".format(args.run))
+            epoch = epochs[-1]
+        wav2letter = configuration.load_model(load_name=args.run, load_epoch=epoch,
+                                              allowed_characters_for_loaded_model=None,
+                                              device=args.device)
+    else:
+        try:
+            wav2letter = configuration.load_best_english_model(device=args.device)
+        except FileNotFoundError:
+            raise SystemExit(
+                "No pinned best-English checkpoint under {} — pass --run <name> (and "
+                "optionally --epoch) to select one of your trained runs.".format(
+                    configuration.directories.nets_base_directory))
+    print(wav2letter.predict(example))
 
 
 def _convert_checkpoint(source: Path, destination: Path) -> None:
@@ -612,9 +649,16 @@ def main(argv=None) -> None:
         "convert", help="convert a checkpoint between .npz and the reference's Keras .h5")
     p_convert.add_argument("source", help="weights file (.npz or .h5/.hdf5)")
     p_convert.add_argument("destination", help="output file with the other extension")
+    p_record = sub.add_parser("record", help="record from the microphone and transcribe")
+    _add_config_args(p_record)
+    p_record.add_argument("--run", default=None, help="run name to load (default: best)")
+    p_record.add_argument("--epoch", type=int, default=None)
     args = parser.parse_args(argv)
     if args.command == "convert":
         _convert_checkpoint(Path(args.source), Path(args.destination))
+        return
+    if args.command == "record":
+        _record(args)
         return
     if args.command in ("train", "transfer", "test", "validate", "average", "summarize",
                         "fill-cache"):

@@ -8,9 +8,9 @@ configurations, ``train_transfer_from_best_english_model``,
 ``test_model_grouped_by_loaded_corpus_name``, the ``~/speechless-data`` directory layout,
 and the ``LoggedRun`` per-run file logging. ``wav2letter_kwargs`` choose the model
 variant (``use_asg``, ``train_asg_transitions``, ``use_raw_wave_input``, which also
-sets the input size to 1, and ``activation``) on the fresh and on the resume path. Not
-ported yet: multi-process training (ROADMAP.md, item 13), which refuses with its item
-named.
+sets the input size to 1, and ``activation``) on the fresh and on the resume path. In
+a world of more than one process the batch generator is the sharded one
+(`data.batching.ShardedBatchGenerator`), and the facade trains on a mesh.
 """
 import logging
 from collections import OrderedDict
@@ -27,9 +27,6 @@ from .features.example import LabeledExampleFromFile
 from .system import Wav2Letter
 from .text.metrics import ExpectationsVsPredictionsInGroupedBatches
 from .utils.tools import home_directory, log, logger, mkdir, timestamp, write_text
-
-_NOT_PORTED = "{} is not ported yet (ROADMAP.md, item {})"
-
 
 class DataDirectories:
     """`~/speechless-data` layout (`configuration.py:22-31`)."""
@@ -78,13 +75,27 @@ class Configuration:
     def batch_generator(self) -> LabeledSpectrogramBatchGenerator:
         return self.batch_generator_for_corpus(self.corpus)
 
-    def batch_generator_for_corpus(self, corpus: Corpus) -> LabeledSpectrogramBatchGenerator:
-        import torch.distributed
+    def batch_generator_for_corpus(self, corpus: Corpus, mesh=None
+                                   ) -> LabeledSpectrogramBatchGenerator:
+        """In a world of more than one process, the sharded generator: every rank draws
+        the same global batch and keeps its data rank's slice, with the global batch's
+        bucket hints. ``mesh`` is the model's (`Wav2Letter.mesh`): its data axis gives
+        the slice, so the ranks of one model group take the same rows (JAX slices per
+        process, and a process feeds all of its devices). Without one the world is the
+        data axis, as on the facade's default mesh."""
+        import torch.distributed as dist
 
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "multi-process training (the sharded batch generator)", 13))
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            from .data.batching import ShardedBatchGenerator
+            if mesh is None:
+                host_id, host_count = dist.get_rank(), dist.get_world_size()
+            else:
+                from .parallel.mesh import DATA_AXIS, axis_rank, axis_size
+                host_id, host_count = axis_rank(mesh, DATA_AXIS), axis_size(mesh, DATA_AXIS)
+            return ShardedBatchGenerator(
+                corpus=corpus, spectrogram_cache_directory=self.spectrogram_cache_directory,
+                batch_size=self.batch_size, host_id=host_id, host_count=host_count,
+                bucket_training_batches=self.bucket_training_batches)
         return LabeledSpectrogramBatchGenerator(
             corpus=corpus, spectrogram_cache_directory=self.spectrogram_cache_directory,
             batch_size=self.batch_size,
@@ -133,7 +144,10 @@ class Configuration:
         """``device_resident=True`` packs the training corpus into device memory once and
         samples batches there (`data.device_dataset`) instead of streaming them through
         the host pipeline; ``multi_step`` and bucketing have no effect then, and are
-        dropped with a warning."""
+        dropped with a warning. A facade on a mesh takes its batches from a generator
+        sliced over the mesh's data axis."""
+        generator = self.batch_generator if wav2letter.mesh is None else \
+            self.batch_generator_for_corpus(self.corpus, mesh=wav2letter.mesh)
         if train_kwargs.pop("device_resident", False):
             dropped = [key for key in ("multi_step",) if key in train_kwargs]
             if dropped:
@@ -146,11 +160,11 @@ class Configuration:
                     "device_resident=True (the corpus is packed to one HBM-resident "
                     "shape).")
             train_kwargs.setdefault("device_resident_examples",
-                                    self.batch_generator.labeled_training_spectrograms)
+                                    generator.labeled_training_spectrograms)
             train_kwargs.setdefault("batch_size", self.batch_size)
         wav2letter.train(
-            self.batch_generator.training_batches(),
-            preview_labeled_spectrogram_batch=self.batch_generator.preview_batch(),
+            generator.training_batches(),
+            preview_labeled_spectrogram_batch=generator.preview_batch(),
             tensor_board_log_directory=self.directories.tensorboard_log_base_directory / run_name,
             net_directory=self.directories.nets_base_directory / run_name,
             batches_per_epoch=self.training_batches_per_epoch, **train_kwargs)

@@ -9,10 +9,13 @@ random batching, static-shape bucketing and a background prefetch thread.
 * `Prefetcher` overlaps the host's feature loading and padding (and, in the facade, the
   host-to-device copies) with device compute.
 
+* `ShardedBatchGenerator` feeds one rank of a multi-process run: every rank draws the
+  same global batch and keeps its data rank's slice, with the global batch's bucket
+  hints (`HintedBatch`), so that all ranks pad to the same shapes.
+
 The module imports no torch when it is imported: the cache-fill workers, which are
 spawned and import this module for their task, load only the numpy feature path.
-`Batch` comes from `train/trainer.py` inside the functions that build one. The
-multi-host `ShardedBatchGenerator` is not ported yet (ROADMAP.md, item 13, parallelism).
+`Batch` comes from `train/trainer.py` inside the functions that build one.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import random
 import threading
 from pathlib import Path
 from queue import Empty, Full, Queue
-from typing import TYPE_CHECKING, Iterable, Iterator, List, Sequence, Tuple
+from typing import TYPE_CHECKING, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -126,6 +129,90 @@ class LabeledSpectrogramBatchGenerator:
             failures = sum(1 for r in results if not r.successful())
         if failures:
             log("Cache fill: {} examples failed.".format(failures))
+
+
+class HintedBatch(list):
+    """A batch slice carrying the global batch's bucket hints ``(min_frames,
+    min_label_length)``, which `batch_from_spectrograms` consumes so that every rank
+    pads to the same shapes."""
+
+    def __init__(self, items, bucket_hints):
+        super().__init__(items)
+        self.bucket_hints = bucket_hints
+
+
+class ShardedBatchGenerator(LabeledSpectrogramBatchGenerator):
+    """Per-rank input sharding for multi-process training.
+
+    Every rank draws the same global batch per step (a `random.Random` seeded by the
+    seed and the step) and keeps its data rank's disjoint slice, so the slices
+    concatenate to the global batch whatever the rank count. ``training_batches``
+    yields `HintedBatch`es whose bucket hints come from the global batch.
+    ``host_id``/``host_count`` (JAX's names) are the data rank and the data
+    parallelism: given, or else the rank and size of the initialized world, the data
+    axis of the facade's default mesh. Under a mesh with a model axis they must be its
+    data rank and size, so that the ranks of one model group take the same slice:
+    `Configuration.train` passes the model's mesh.
+    """
+
+    def __init__(self, corpus, spectrogram_cache_directory: Path, batch_size: int = 64,
+                 host_id: Optional[int] = None, host_count: Optional[int] = None,
+                 seed: int = 42, bucket_training_batches: bool = False):
+        super().__init__(corpus, spectrogram_cache_directory, batch_size,
+                         bucket_training_batches=bucket_training_batches)
+        if host_id is None or host_count is None:
+            host_id, host_count = _world_rank_and_size()
+        if batch_size % host_count != 0:
+            raise ValueError("batch_size {} must divide evenly across {} hosts".format(
+                batch_size, host_count))
+        self.host_id = host_id
+        self.host_count = host_count
+        self.seed = seed
+
+    def training_batches(self, hop_length: int = 128,
+                         sample_rate: int = 16000) -> Iterator[HintedBatch]:
+        """This rank's slice as a `HintedBatch` whose ``(min_frames,
+        min_label_length)`` hints come from the global batch: frames from the duration
+        probes (an upper bound, so only padding can differ), label lengths from the raw
+        labels."""
+        per_host = self.batch_size // self.host_count
+
+        def frame_hint(s: CachedLabeledSpectrogram) -> int:
+            duration = s.original.duration_in_s
+            if duration <= 0.0:
+                # A failed header probe reads 0.0 s; the exact feature length keeps the
+                # ranks' buckets equal.
+                return s.z_normalized_transposed_spectrogram().shape[0]
+            return 1 + (int(duration * sample_rate) + hop_length) // hop_length
+
+        # The bucket choice and the sample both come from the step's seeded generator,
+        # and the buckets from the (identical) corpus, so the ranks stay consistent.
+        buckets = self._duration_buckets() if self.bucket_training_batches else None
+        weights = [len(bucket) for bucket in buckets] if buckets else None
+        step = 0
+        while True:
+            rand = random.Random("{}:{}".format(self.seed, step))
+            if buckets is not None:
+                global_batch = rand.sample(rand.choices(buckets, weights=weights)[0],
+                                           self.batch_size)
+            else:
+                global_batch = rand.sample(self.labeled_training_spectrograms,
+                                           self.batch_size)
+            min_frames = max(frame_hint(s) for s in global_batch)
+            min_label_length = max(len(s.label) for s in global_batch)
+            yield HintedBatch(
+                global_batch[self.host_id * per_host:(self.host_id + 1) * per_host],
+                (min_frames, min_label_length))
+            step += 1
+
+
+def _world_rank_and_size() -> Tuple[int, int]:
+    """The rank and size of the initialized world (one process: 0 and 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def bucket_length(length: int, buckets: Sequence[int] = DEFAULT_TIME_BUCKETS,

@@ -15,9 +15,18 @@ an epoch copies no feature or label byte from the host.
 * `trainer.make_device_epoch_step` samples each step's rows on the device without
   replacement within the batch and gathers them with `index_select`.
 
-The JAX package's mesh branch (corpus rows sharded over the data axis) waits for the
-port's parallelism (ROADMAP.md, item 13). Nothing here imports torch at module level:
-the cache-fill workers import this package and must stay free of CUDA state.
+Under a mesh (`parallel/mesh.py`) the corpus rows are split over the data ranks by
+default, so D data ranks hold D times one card's corpus: rank d keeps rows
+``[d * N / D, (d + 1) * N / D)``, N padded to a multiple of D by repeating leading rows
+(a slight oversampling of those, as in JAX). Sampling stays global: every rank draws
+the same indices, gathers the rows it owns (zeros elsewhere), and one all-reduce over
+the data group per field gives every rank the whole global batch, equal to the
+replicated layout's; the trainer then keeps its data rank's slice
+(`ShardedDeviceDataset`, `trainer.make_device_epoch_step`). The all-reduce moves the
+global batch, a few rows a step, against a D-fold residency.
+
+Nothing here imports torch at module level: the cache-fill workers import this package
+and must stay free of CUDA state.
 """
 from typing import List, NamedTuple, Sequence, Tuple
 
@@ -48,6 +57,48 @@ class DeviceDataset(NamedTuple):
     def nbytes(self) -> int:
         return sum(field.nbytes if isinstance(field, np.ndarray)
                    else field.numel() * field.element_size() for field in self)
+
+    def gather(self, rows) -> tuple:
+        """The fields' ``rows`` (int64 indices on the fields' device)."""
+        return tuple(field.index_select(0, rows) for field in self)
+
+
+class ShardedDeviceDataset:
+    """A corpus whose rows are split over the data ranks of a mesh: ``local`` (a
+    `DeviceDataset` on this rank's device) holds rows ``[offset, offset +
+    local.example_count)`` of ``example_count``. `gather` is a collective over the data
+    group: every rank of it calls it with the same indices."""
+
+    def __init__(self, local: DeviceDataset, offset: int, example_count: int, group):
+        self.local = local
+        self.offset = offset
+        self.example_count = example_count
+        self.group = group
+
+    @property
+    def inputs(self):
+        return self.local.inputs
+
+    def nbytes(self) -> int:
+        return self.local.nbytes()
+
+    def gather(self, rows) -> tuple:
+        """The fields' global ``rows`` on every rank: each rank's own rows, zeros
+        elsewhere, summed over the data group."""
+        import torch
+
+        from ..parallel.mesh import DATA_AXIS, all_reduce
+
+        owned = (rows >= self.offset) & (rows < self.offset + self.local.example_count)
+        local_rows = torch.where(owned, rows - self.offset, 0)
+        fields = []
+        for field in self.local:
+            picked = field.index_select(0, local_rows)
+            mask = owned.view(-1, *([1] * (picked.dim() - 1)))
+            picked = torch.where(mask, picked, torch.zeros((), dtype=picked.dtype,
+                                                           device=picked.device))
+            fields.append(all_reduce(picked, self.group, DATA_AXIS, "resident rows"))
+        return tuple(fields)
 
 
 def pack_dataset(spectrograms: Sequence[np.ndarray], labels: Sequence[str],
@@ -95,13 +146,16 @@ def check_fits(nbytes: int, device) -> None:
 def build_device_dataset(labeled_spectrograms: List[LabeledSpectrogram],
                          codec: GraphemeCodec, device, compute_dtype=None,
                          time_buckets: Sequence[int] = DEFAULT_TIME_BUCKETS,
-                         raw_wave: bool = False) -> Tuple[DeviceDataset, float]:
+                         raw_wave: bool = False, mesh=None) -> Tuple[DeviceDataset, float]:
     """Load every cached feature, pack it and place it on ``device``. Returns the
-    dataset and its resident megabytes. Features travel as fp16 when ``compute_dtype``
+    dataset and its resident megabytes (the global footprint; a rank holds that over
+    the data parallelism when split). Features travel as fp16 when ``compute_dtype``
     is bf16 (numpy has no bf16; the model casts them). ``raw_wave=True`` packs
     ``(samples, 1)`` waveforms on `batching.RAW_WAVE_SAMPLE_BUCKETS` (unless other
-    ``time_buckets`` are given). Raises `MemoryError` before any copy when the corpus
-    does not fit (`check_fits`)."""
+    ``time_buckets`` are given). Under a ``mesh`` the rows are split over its data
+    ranks (a `ShardedDeviceDataset`; see the module docstring); without one every
+    rank holds them all. Raises `MemoryError` before any copy when this rank's rows do
+    not fit (`check_fits`)."""
     import torch
 
     if raw_wave:
@@ -115,6 +169,23 @@ def build_device_dataset(labeled_spectrograms: List[LabeledSpectrogram],
     labels = [s.label for s in labeled_spectrograms]
     dtype = np.float16 if compute_dtype == torch.bfloat16 else np.float32
     host = pack_dataset(spectrograms, labels, codec, time_buckets=time_buckets, dtype=dtype)
-    megabytes = host.nbytes() / 1e6
-    check_fits(host.nbytes(), device)
-    return DeviceDataset(*(torch.from_numpy(field).to(device) for field in host)), megabytes
+    if mesh is None:
+        megabytes = host.nbytes() / 1e6
+        check_fits(host.nbytes(), device)
+        return DeviceDataset(*(torch.from_numpy(field).to(device) for field in host)), \
+            megabytes
+    from ..parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size
+
+    data_size = axis_size(mesh, DATA_AXIS)
+    remainder = host.example_count % data_size
+    if remainder:
+        pad = data_size - remainder
+        host = DeviceDataset(*(np.concatenate([f, f[:pad]], axis=0) for f in host))
+    rows = host.example_count // data_size
+    offset = axis_rank(mesh, DATA_AXIS) * rows
+    local = DeviceDataset(*(field[offset:offset + rows] for field in host))
+    check_fits(local.nbytes(), device)
+    local = DeviceDataset(*(torch.from_numpy(np.ascontiguousarray(field)).to(device)
+                            for field in local))
+    return (ShardedDeviceDataset(local, offset, host.example_count,
+                                 axis_group(mesh, DATA_AXIS)), host.nbytes() / 1e6)

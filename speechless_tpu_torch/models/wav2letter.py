@@ -40,9 +40,16 @@ in fp32, then cast to the compute type. With ``config.int8_compute`` the big con
 as int8 x int8 products accumulated in int32 (`int8_conv`), with the activations
 quantized per tensor; the trunk stays weight-only, as in JAX.
 
+Tensor parallelism (`parallel/mesh.py`): built with a `ModelSplit`, the module holds
+this model rank's shards of the wide tail, ``big_conv_1``'s output channels and
+``big_conv_2``'s input channels, so the ``(B, 2000/tp, T')`` activation between them
+stays split with no collective; Megatron's f on ``big_conv_1``'s input and g after
+``big_conv_2``'s product carry the collectives, and ``big_conv_2``'s bias is added
+once, after g's sum. JAX's ``tp_activation_constraint`` pins that layout under GSPMD;
+here it holds by construction, and the flag only asks that the model be built split.
+
 The transfer helpers (`character_remap_indices`, `remap_output_layer`) remap the output
-layer's per-character filters between character sets. The JAX model's tensor-parallel
-activation constraint waits for the port's parallelism (ROADMAP.md, item 13).
+layer's per-character filters between character sets.
 """
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -53,6 +60,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import (ModelSplit, all_gather, copy_to_model_group, param_specs,
+                             reduce_from_model_group, split_axis)
 from ..precision import ieee_fp32
 
 MAIN_FILTER_COUNT = 250
@@ -79,7 +88,8 @@ class Wav2LetterConfig:
     ``compute_dtype`` is float32 or bfloat16; ``dropout`` is the rate before the non-big
     convs, None for none; ``remat`` recomputes activations in the backward;
     ``int8_compute``, for inference on int8 weights, runs the big convs as int8
-    products: see `int8_conv`)."""
+    products: see `int8_conv`; ``tp_activation_constraint`` asks that the model be
+    built tensor-parallel, JAX's flag: see the module docstring)."""
     input_size_per_time_step: int
     grapheme_set_size: int
     layers: Tuple[ConvSpec, ...] = field(default=None)
@@ -89,6 +99,7 @@ class Wav2LetterConfig:
     int8_compute: bool = False
     use_raw_wave_input: bool = False
     activation: str = "relu"
+    tp_activation_constraint: bool = False
 
     def __post_init__(self):
         if self.layers is None:
@@ -260,25 +271,76 @@ class Wav2Letter(nn.Module):
     """``(batch, time, features) -> (batch, time / stride_ratio, graphemes)`` logits.
     ``quantized`` marks the layers served from int8 weights (`QuantizedConv1d`), for
     inference only; ``asg_tables`` adds a trainable-ASG run's `AsgTables` as
-    ``self.asg`` (None otherwise), which the forward does not use."""
+    ``self.asg`` (None otherwise), which the forward does not use;
+    ``tensor_parallel`` (a `ModelSplit`) holds this model rank's shards of the wide
+    tail (`parallel.mesh.param_specs`), and every rank of its group must run each
+    forward and backward together."""
 
     def __init__(self, config: Wav2LetterConfig, *, device,
-                 quantized: Optional[Sequence[bool]] = None, asg_tables: bool = False):
+                 quantized: Optional[Sequence[bool]] = None, asg_tables: bool = False,
+                 tensor_parallel: Optional[ModelSplit] = None):
         super().__init__()
         self.config = config
         quantized = quantized or [False] * len(config.layers)
+        if config.tp_activation_constraint and tensor_parallel is None:
+            raise ValueError("tp_activation_constraint needs a tensor-parallel model "
+                             "(a mesh with a model axis)")
+        if tensor_parallel is not None and any(quantized):
+            raise ValueError("int8 layers are served replicated, not tensor-parallel")
+        self.tensor_parallel = tensor_parallel
+        parts = tensor_parallel.size if tensor_parallel is not None else 1
+        specs = param_specs(config.layer_names)
         convs = []
         in_channels = config.input_size_per_time_step
-        for spec, int8 in zip(config.layers, quantized):
+        for spec, int8, split in zip(config.layers, quantized, specs):
+            # The weight's split axis in the JAX layout (K, Cin, Cout).
+            axis = split_axis(split["w"])
+            if axis is not None and (in_channels, spec.filters)[axis - 1] % parts:
+                raise ValueError("{}: {} channels do not split over {} model ranks".format(
+                    spec.name, (in_channels, spec.filters)[axis - 1], parts))
+            cin = in_channels // parts if axis == 1 else in_channels
+            cout = spec.filters // parts if axis == 2 else spec.filters
             if int8:
-                convs.append(QuantizedConv1d(in_channels, spec.filters, spec.kernel_size,
-                                             device=device))
+                convs.append(QuantizedConv1d(cin, cout, spec.kernel_size, device=device))
             else:
-                convs.append(nn.Conv1d(in_channels, spec.filters, spec.kernel_size,
-                                       stride=spec.stride, device=device))
+                convs.append(nn.Conv1d(cin, cout, spec.kernel_size, stride=spec.stride,
+                                       device=device))
             in_channels = spec.filters
         self.layers = nn.ModuleList(convs)
         self.asg = AsgTables(config.grapheme_set_size, device=device) if asg_tables else None
+
+    def split_axes(self) -> Dict[nn.Parameter, int]:
+        """The tensor-parallel parameters and the axis of each that is split (torch's
+        ``(Cout, Cin, K)`` layout); empty when the model is not split."""
+        if self.tensor_parallel is None:
+            return {}
+        axes = {}
+        for conv, split in zip(self.layers, param_specs(self.config.layer_names)):
+            weight_axis, bias_axis = split_axis(split["w"]), split_axis(split["b"])
+            if weight_axis is not None:
+                axes[conv.weight] = _KERNEL_AXES[weight_axis]
+            if bias_axis is not None:
+                axes[conv.bias] = bias_axis
+        return axes
+
+    def full_tensor(self, param: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        """``value`` (shaped like ``param``: the parameter itself, a gradient or an
+        optimizer moment) gathered whole over the model group when ``param`` is split,
+        else ``value``. A collective: every rank of the group calls it."""
+        axis = self.split_axes().get(param)
+        if axis is None:
+            return value
+        return all_gather(value.detach(), self.tensor_parallel.group, "model",
+                          "gather a split tensor", dim=axis)
+
+    def local_part(self, param: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+        """This model rank's part of ``full`` (torch layout, the whole tensor of
+        ``param``): `full_tensor`'s inverse."""
+        axis = self.split_axes().get(param)
+        if axis is None:
+            return full
+        part = full.shape[axis] // self.tensor_parallel.size
+        return full.narrow(axis, self.tensor_parallel.rank * part, part).contiguous()
 
     def parameter_layers(self) -> List[List[Tuple[torch.Tensor, bool]]]:
         """The parameters of each layer of the JAX layout, the ASG pseudo-layer last,
@@ -319,9 +381,12 @@ class Wav2Letter(nn.Module):
         classes)``."""
         config = self.config
         dtype = config.compute_dtype
+        split = self.tensor_parallel
         with ieee_fp32():
             for index in range(start, end):
                 spec, conv = config.layers[index], self.layers[index]
+                if split is not None and spec.name == "big_conv_1":
+                    x = copy_to_model_group(x, split)
                 if masks[index] is not None:
                     x = torch.where(masks[index].transpose(1, 2), x / (1.0 - config.dropout),
                                     0.0).to(dtype)
@@ -335,7 +400,13 @@ class Wav2Letter(nn.Module):
                     x = _activate(x, spec.activation)
                     continue
                 x = F.pad(x, same_padding(x.shape[2], spec.kernel_size, spec.stride))
-                if dtype == torch.float32:
+                if split is not None and spec.name == "big_conv_2":
+                    # Row-parallel: the partial products summed over the model group,
+                    # then the (replicated) bias once.
+                    x = reduce_from_model_group(
+                        F.conv1d(x, conv.weight.to(dtype), None, spec.stride), split)
+                    x = x + conv.bias.to(dtype)[:, None]
+                elif dtype == torch.float32:
                     x = conv(x)
                 else:
                     x = (F.conv1d(x, conv.weight.to(dtype), None, spec.stride)
@@ -435,22 +506,28 @@ def params_from_jax(params: Sequence[Dict[str, np.ndarray]]) -> Dict[str, torch.
 
 def params_to_jax(model: Wav2Letter) -> Params:
     """Inverse of `params_from_jax`: the module's weights in the JAX layout (numpy), with
-    the ASG pseudo-layer last when the model has one."""
-    params = [{"w": conv.weight.detach().cpu().numpy().transpose(2, 1, 0).copy(),
-               "b": conv.bias.detach().cpu().numpy().copy()} for conv in model.layers]
+    the ASG pseudo-layer last when the model has one. A tensor-parallel model's split
+    tensors are gathered whole (a collective over its model group)."""
+    def host(param):
+        return model.full_tensor(param, param).detach().cpu().numpy()
+
+    params = [{"w": host(conv.weight).transpose(2, 1, 0).copy(),
+               "b": host(conv.bias).copy()} for conv in model.layers]
     if model.asg is not None:
         params.append({"asg_transitions": model.asg.transitions.detach().cpu().numpy().copy(),
                        "asg_initials": model.asg.initials.detach().cpu().numpy().copy()})
     return params
 
 
-def build_model(config: Wav2LetterConfig, params: Params, *, device) -> Wav2Letter:
+def build_model(config: Wav2LetterConfig, params: Params, *, device,
+                tensor_parallel: Optional[ModelSplit] = None) -> Wav2Letter:
     """A `Wav2Letter` on ``device`` holding ``params`` (JAX layout, float or int8 layers,
-    optionally ending in the ASG pseudo-layer), in eval mode."""
+    optionally ending in the ASG pseudo-layer), in eval mode. With ``tensor_parallel``,
+    ``params`` are this model rank's shards (`parallel.mesh.shard_params`)."""
     asg_tables = bool(params) and is_asg_layer(params[-1])
     convs = params[:-1] if asg_tables else params
     model = Wav2Letter(config, device=device, quantized=["w_q" in layer for layer in convs],
-                       asg_tables=asg_tables)
+                       asg_tables=asg_tables, tensor_parallel=tensor_parallel)
     model.load_state_dict(params_from_jax(params))
     return model.eval()
 

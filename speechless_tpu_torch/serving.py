@@ -14,8 +14,14 @@ A request runs the tensor functions `_transcribe`, `_frame_log_probs` and
 `_frame_tokens`, which take the model's weights as an argument: an export bundle
 (`serving_export.py`) traces these same functions, so the two cannot drift.
 
-Not ported yet (each raises `NotImplementedError` naming its ROADMAP.md item): meshes
-and sequence-parallel long-form decoding.
+Parallel serving (`parallel/`): with a ``mesh`` every rank holds the whole model and is
+given the same requests, as every process of a JAX multi-controller program is; a
+batched route (`transcribe_batch`, `frame_log_probs_batch`, `frame_tokens_batch`)
+pads each group to ``batch_size`` rows, and each rank runs features, the model and the
+decode on its data rank's rows, then the results are all-gathered in row order. The
+single-utterance routes run whole on every rank. `transcribe_long_audio(
+sequence_parallel=True)` splits one recording's time axis over the mesh's data ranks
+(`parallel/sequence.py`) and decodes the gathered posteriors on every rank.
 """
 import dataclasses
 import time
@@ -40,7 +46,6 @@ from .text.graphemes import CtcGraphemeCodec
 # holds them, and past the last bucket to a multiple of 65536 samples, as the JAX
 # Transcriber does.
 _FALLBACK_MULTIPLE = 65536
-_NOT_PORTED = "{} is not ported yet (ROADMAP.md, item 13: parallelism)"
 
 
 class Transcriber:
@@ -71,9 +76,11 @@ class Transcriber:
         ``quantize_weights``). Since that scale spans the whole batch, the batched
         routes then pad a short group with empty rows to ``batch_size``, as the JAX
         package does, so that a group gives JAX's results. Params already in the int8
-        layout are served as they are."""
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED.format("mesh-sharded serving"))
+        layout are served as they are.
+
+        ``mesh``: data-parallel batched serving over a `parallel.mesh.make_mesh` mesh
+        (see the module docstring): every rank calls the same routes with the same
+        audio, and ``batch_size`` must divide over the mesh's data axis."""
         if lexicon_constrained and kenlm_directory is None:
             raise ValueError("lexicon_constrained requires kenlm_directory (the "
                              "vocabulary trie rides in the word LM)")
@@ -106,6 +113,7 @@ class Transcriber:
             self._host_word_lm = build_device_word_lm(arpa, allowed_characters)
             self.word_lm = self._host_word_lm.to(self.device)
         self._word_lms = {self.device.type: self.word_lm}
+        self.mesh = mesh
         self._decoder = dict(beam_width=beam_width, lm_weight=lm_weight,
                              word_count_weight=word_count_weight,
                              valid_word_count_weight=valid_word_count_weight,
@@ -155,7 +163,34 @@ class Transcriber:
 
     def _groups(self, audios: Sequence[np.ndarray], batch_size: int):
         return grouped_padded_batches(audios, self._bucket, batch_size,
-                                      pad_rows=self.int8_compute)
+                                      pad_rows=self.int8_compute or self.mesh is not None)
+
+    def _data_rows(self, rows: int) -> slice:
+        """This data rank's rows of a batched dispatch of ``rows`` (all of them without
+        a mesh)."""
+        if self.mesh is None:
+            return slice(None)
+        from .parallel.mesh import DATA_AXIS, axis_size, batch_rows
+
+        if rows % axis_size(self.mesh, DATA_AXIS):
+            raise ValueError(
+                "batch size {} does not divide the mesh's data parallelism {}; pick a "
+                "divisible batch_size for DP-sharded serving".format(
+                    rows, axis_size(self.mesh, DATA_AXIS)))
+        return batch_rows(self.mesh, rows)
+
+    def _gather_rows(self, local: list) -> list:
+        """Every data rank's per-row results, concatenated in row order."""
+        if self.mesh is None:
+            return local
+        import torch.distributed as dist
+
+        from .parallel.mesh import DATA_AXIS, axis_group, axis_size, collectives
+
+        parts = [None] * axis_size(self.mesh, DATA_AXIS)
+        collectives.events.append(("all_gather_object", DATA_AXIS, "served rows"))
+        dist.all_gather_object(parts, local, group=axis_group(self.mesh, DATA_AXIS))
+        return [row for part in parts for row in part]
 
     def _bucket(self, num_samples: int) -> int:
         for bucket in self.sample_buckets:
@@ -227,13 +262,18 @@ class Transcriber:
                                      torch.from_numpy(lengths).to(self.device))
 
     @torch.inference_mode()
-    def _transcribe_rows(self, wavs: np.ndarray, lengths: np.ndarray
-                         ) -> List[Tuple[str, float]]:
-        tokens, counts, confidence = self._decode(*self._log_probs(wavs, lengths))
+    def _transcribe_rows(self, wavs: np.ndarray, lengths: np.ndarray,
+                         batched: bool = False) -> List[Tuple[str, float]]:
+        """``(text, confidence)`` per row; a ``batched`` dispatch under a mesh runs this
+        data rank's rows and gathers the others'."""
+        rows = self._data_rows(len(wavs)) if batched else slice(None)
+        tokens, counts, confidence = self._decode(*self._log_probs(wavs[rows],
+                                                                   lengths[rows]))
         tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
-        return [(self.codec.decode_graphemes(tokens[row, :int(counts[row])].tolist(),
-                                             merge_repeated=False), float(score))
-                for row, score in enumerate(confidence.cpu().numpy())]
+        results = [(self.codec.decode_graphemes(tokens[row, :int(counts[row])].tolist(),
+                                                merge_repeated=False), float(score))
+                   for row, score in enumerate(confidence.cpu().numpy())]
+        return self._gather_rows(results) if batched else results
 
     def transcribe_audio(self, audio: np.ndarray) -> str:
         """Transcribe a mono 16 kHz float32 waveform."""
@@ -261,7 +301,8 @@ class Transcriber:
         bucket. Returns ``(text, confidence)`` per input, in input order."""
         results: List[Optional[Tuple[str, float]]] = [None] * len(audios)
         for group, wavs, lengths in self._groups(audios, batch_size):
-            for index, result in zip(group, self._transcribe_rows(wavs, lengths)):
+            for index, result in zip(group, self._transcribe_rows(wavs, lengths,
+                                                                  batched=True)):
                 results[index] = result
         return results
 
@@ -284,10 +325,13 @@ class Transcriber:
         input order."""
         results: List[Optional[np.ndarray]] = [None] * len(audios)
         for group, wavs, lengths in self._groups(audios, batch_size):
-            log_probs, counts = self._log_probs(wavs, lengths)
+            rows = self._data_rows(len(wavs))
+            log_probs, counts = self._log_probs(wavs[rows], lengths[rows])
             log_probs, counts = log_probs.cpu().numpy(), counts.cpu().numpy()
+            trimmed = self._gather_rows([log_probs[row, :int(counts[row])]
+                                         for row in range(len(counts))])
             for row, index in enumerate(group):
-                results[index] = log_probs[row, :int(counts[row])]
+                results[index] = trimmed[row]
         return results
 
     def frame_tokens_batch(self, audios: Sequence[np.ndarray],
@@ -314,12 +358,55 @@ class Transcriber:
     def transcribe_long_audio(self, audio: np.ndarray, max_segment_s: float = 30.0,
                               min_silence_s: float = 0.25,
                               sequence_parallel: bool = False, mesh=None) -> str:
-        """Transcribe arbitrarily long audio, segmented at its quietest windows."""
+        """Transcribe arbitrarily long audio: by default segmented at its quietest
+        windows, each segment transcribed alone and the texts joined.
+
+        ``sequence_parallel=True`` (or an explicit ``mesh``): the whole recording at
+        once, its time axis split over the mesh's data ranks (`parallel/sequence.py`),
+        no segmentation. The recording is padded to a multiple of
+        ``_SP_BUCKET_SAMPLES`` (30 s), then features, the split forward, the gathered
+        log-probs, and the decode on every rank: the word-LM beam with the frame count
+        as its length cap, or greedy without an LM. ``mesh`` defaults to a
+        data-parallel mesh over the world (one process: the plain forward). Every rank
+        calls it with the same audio."""
         if sequence_parallel or mesh is not None:
-            raise NotImplementedError(_NOT_PORTED.format("sequence-parallel long-form"))
+            return self._transcribe_long_sequence_parallel(audio, mesh)
         texts = [self.transcribe_audio(segment) for segment in
                  split_long_audio(audio, max_segment_s, min_silence_s)]
         return " ".join(text for text in texts if text)
+
+    _SP_BUCKET_SAMPLES = 30 * 16000  # long-form recordings pad to 30 s multiples
+
+    @torch.inference_mode()
+    def _transcribe_long_sequence_parallel(self, audio: np.ndarray, mesh=None) -> str:
+        from .parallel.mesh import world_mesh
+        from .parallel.sequence import sequence_parallel_log_probs
+
+        if mesh is None:
+            mesh = world_mesh(self.device.type)
+        length = len(audio)
+        bucket = max(self._SP_BUCKET_SAMPLES,
+                     -(-length // self._SP_BUCKET_SAMPLES) * self._SP_BUCKET_SAMPLES)
+        wav = torch.zeros((1, bucket), dtype=torch.float32)
+        wav[0, :length] = torch.from_numpy(np.asarray(audio, np.float32))
+        features, frame_counts = features_batch(
+            wav.to(self.device), torch.tensor([length], dtype=torch.int32,
+                                              device=self.device))
+        if mesh is None:
+            log_probs = torch.log_softmax(self.model(features), dim=-1)
+        else:
+            log_probs = sequence_parallel_log_probs(self.model, features, mesh)
+        counts = w2l.prediction_lengths(self.config, frame_counts)
+        if self.word_lm is not None:
+            tokens, counts = beam_search_decode_device(
+                log_probs, counts, blank=self.blank_index,
+                word_lm=self.word_lm_on(log_probs.device),
+                lexicon_constrained=self.lexicon_constrained,
+                max_decoded_length=log_probs.shape[1], **self._decoder)
+        else:
+            tokens, counts = greedy_decode(log_probs, counts, self.blank_index)
+        tokens = tokens[0, :int(counts[0])].cpu().numpy()
+        return self.codec.decode_graphemes(tokens.tolist(), merge_repeated=False)
 
     @torch.inference_mode()
     def transcribe_nbest(self, audio: np.ndarray, nbest: int = 5

@@ -28,10 +28,17 @@ public model API on the port's stack.
   (`train/checkpoint.py`);
 * the KenLM vocabulary-consistency check of the reference.
 
+* a ``(data, model)`` mesh (``mesh=``, `parallel/mesh.py`; built over the world when a
+  run of several processes gives none): each rank keeps its tensor-parallel shards of
+  the wide tail and trains on its own batches (the `ShardedBatchGenerator`'s slices),
+  the gradients averaged over the data group (`train/trainer.py`); a resident corpus
+  is split over the data ranks; eval batches run whole on every rank; checkpoints are
+  gathered whole, written by rank 0 as a single-process run writes them, and restore
+  on any topology, the optimizer state re-split.
+
 Compute is bf16 on CUDA (features copied as fp16, parameters, logits and the loss in
 fp32) and fp32 on the CPU, as the JAX facade picks by backend. Runs on ``cuda:0``
-unless the caller passes ``device``. The mesh is not ported yet, and is refused with
-its ROADMAP.md item named.
+unless the caller passes ``device``.
 """
 import csv
 import math
@@ -42,6 +49,7 @@ from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
 from .data.batching import (Prefetcher, batch_from_spectrograms, chunked, pad_to_bucket,
                             stack_batches)
@@ -65,8 +73,6 @@ VALID_WORD_COUNT_WEIGHT = 2.3
 # Production pruning of the host beam: classes below 1e-5 a frame cannot move a trained
 # model's beam (the JAX facade's floor, `speechless_tpu/system.py:401`).
 PRUNE_LOG_PROB_FLOOR = math.log(1e-5)
-
-_NOT_PORTED = "{} is not ported yet (ROADMAP.md, item {})"
 
 
 class Wav2Letter:
@@ -121,8 +127,6 @@ class Wav2Letter:
             # would zero the entire signal.
             raise ValueError("spec_augment is a mel-feature augmentation and does not "
                              "apply to the raw-wave model family.")
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED.format("the mesh (mesh)", 13))
         # True selects the default policy; training only, eval never sees masked features.
         self.spec_augment = SpecAugment() if spec_augment is True else spec_augment or None
 
@@ -210,8 +214,14 @@ class Wav2Letter:
             # A fixed-table or CTC run loading a trainable-ASG checkpoint: drop the
             # criterion pseudo-layer, as the JAX facade does.
             params = list(params)[:-1]
+        if mesh is None:
+            # Several processes run one program: a data-parallel mesh over the world,
+            # as the JAX facade defaults to a global mesh under multi-host training.
+            from .parallel.mesh import world_mesh
+            mesh = world_mesh(self.device.type)
+        self.mesh = mesh
         self.state = init_train_state(self.config, self.optimizer, seed=seed, params=params,
-                                      device=self.device)
+                                      device=self.device, mesh=mesh)
         if load_model_from_directory is not None \
                 and allowed_characters_for_loaded_model is None:
             # Resume: the optimizer state and the step continue where the run stopped
@@ -519,12 +529,13 @@ class Wav2Letter:
         dataset, megabytes = build_device_dataset(
             examples, self.grapheme_encoding, self.device,
             compute_dtype=self.config.compute_dtype,
-            raw_wave=self.config.use_raw_wave_input)
+            raw_wave=self.config.use_raw_wave_input, mesh=self.mesh)
         log("Device-resident corpus: {} examples, {:.0f} MB in HBM (packed + transferred "
             "in {:.1f}s).".format(len(examples), megabytes, time.time() - load_start))
         epoch_fn = make_device_epoch_step(self.config, self.optimizer, batch_size=batch_size,
                                           steps=batches_per_epoch, criterion=self._criterion,
-                                          spec_augment=self.spec_augment, **self._asg_tables)
+                                          spec_augment=self.spec_augment, mesh=self.mesh,
+                                          **self._asg_tables)
 
         def run_epoch(epoch):
             seed = int(np.random.SeedSequence([42, epoch]).generate_state(1)[0])
@@ -539,7 +550,13 @@ class Wav2Letter:
                          batches_per_epoch, epoch_limit, save_step, callback_step)
 
     def save(self, net_directory: Path, epoch: int) -> Path:
-        """Checkpoint weights, optimizer state and step as ``weights-epoch{epoch}.npz``."""
-        return ckpt.save_checkpoint(net_directory, epoch, self.state.params,
-                                    self.state.opt_state, step=self.state.step)
+        """Checkpoint weights, optimizer state and step as ``weights-epoch{epoch}.npz``.
+        Under a mesh every rank gathers the split tensors (a collective) and rank 0
+        writes the file a single-process run writes."""
+        params = self.state.params
+        leaves = self.state.opt_state.leaves()
+        if self.mesh is not None and torch.distributed.get_rank() != 0:
+            return Path(net_directory) / ckpt.model_file_name(epoch)
+        return ckpt.save_checkpoint(net_directory, epoch, params, leaves,
+                                    step=self.state.step)
 

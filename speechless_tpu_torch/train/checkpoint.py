@@ -61,16 +61,18 @@ def _write_npz_atomically(path: Path, arrays: dict) -> None:
     os.replace(str(temp_path), str(path))
 
 
-def save_checkpoint(directory: Path, epoch: int, params: Params, opt_state=None,
+def save_checkpoint(directory: Path, epoch: int, params: Params, opt_leaves=None,
                     step: Optional[int] = None) -> Path:
     """Write ``params`` (JAX layout, e.g. `TrainState.params`), the optimizer state's
-    optax leaves and the step to ``directory/weights-epoch{epoch}.npz``, atomically
-    (a temporary file, then a rename)."""
+    optax leaves (``opt_state.leaves()``: under a mesh every rank gathers them before one
+    rank writes) and the step to
+    ``directory/weights-epoch{epoch}.npz``, atomically (a temporary file, then a
+    rename)."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     arrays = _flatten_params(params)
-    if opt_state is not None:
-        for i, leaf in enumerate(opt_state.leaves()):
+    if opt_leaves is not None:
+        for i, leaf in enumerate(opt_leaves):
             arrays["opt.{}".format(i)] = leaf
     if step is not None:
         arrays["step"] = np.asarray(int(step))
@@ -110,7 +112,7 @@ def load_opt_state(directory: Path, epoch: int, opt_state, strict: bool = True):
         leaves = [np.asarray(data[k]) for k in keys]
     if not leaves:
         return None
-    expected = len(opt_state.leaves())
+    expected = opt_state.leaf_count()
     if not strict and len(leaves) != expected:
         log("Checkpoint optimizer state has {} leaves, expected {}; ignoring it.".format(
             len(leaves), expected))

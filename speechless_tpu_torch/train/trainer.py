@@ -25,6 +25,15 @@
   the model's dropout and remat (`models/wav2letter.py`); their draws come from the
   state's `torch.Generator`, on the state's device, where the JAX step splits a key.
 
+Under a mesh (`init_train_state(mesh=...)`, `parallel/mesh.py`) each rank runs the same
+step on its data rank's rows: the model holds its tensor-parallel shards, and after the
+backward one bucketed all-reduce over the data group averages the gradients and the
+loss (`OptimizerState.all_reduce`), so the update is JAX's gradient of the mean over the
+global batch and the reported loss the global mean. Global-norm clipping sums the split
+tensors' squares over the model group and counts the replicated ones once. The CTC
+kernels run on each rank's rows, as JAX's ``ctc_pallas_sharded`` ran them per data
+shard.
+
 PyTorch runs eagerly, so a "step" is a Python function over a mutable `TrainState`: it
 updates the model and optimizer in place and returns the same state, where the JAX step
 returns a new one. Every step runs with TF32 off (`precision.ieee_fp32`): fp32 training
@@ -127,8 +136,8 @@ class Optimizer:
     gradient_clip_norm: Optional[float] = None
     accumulate_steps: int = 1
 
-    def init(self, model: w2l.Wav2Letter) -> "OptimizerState":
-        return OptimizerState(self, model)
+    def init(self, model: w2l.Wav2Letter, data_group=None) -> "OptimizerState":
+        return OptimizerState(self, model, data_group)
 
 
 def make_optimizer(learning_rate: LearningRate = 1e-4,
@@ -157,11 +166,14 @@ class OptimizerState:
     layers get ``requires_grad=False``, so the backward computes no gradient for them).
     `leaves` and `load_leaves` give the state as the leaves of the JAX package's optax
     state, in ``jax.tree_util.tree_leaves`` order, so either package resumes the
-    other's run.
+    other's run; a tensor-parallel model's leaves are gathered whole and loaded split.
+    With a ``data_group``, `all_reduce` averages the gradients over it.
     """
 
-    def __init__(self, spec: Optimizer, model: w2l.Wav2Letter):
+    def __init__(self, spec: Optimizer, model: w2l.Wav2Letter, data_group=None):
         self.spec = spec
+        self.model = model
+        self.data_group = data_group
         self.layers = model.parameter_layers()
         self.trainable = list(spec.trainable or [True] * len(model.layers))
         if len(self.trainable) != len(model.layers):
@@ -185,6 +197,48 @@ class OptimizerState:
         rate = self.spec.learning_rate
         return float(rate(count)) if callable(rate) else float(rate)
 
+    def all_reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        """Average the trainable parameters' gradients and ``loss`` over the data group
+        in one all-reduce of one flat buffer, and return the averaged loss; without a
+        data group, ``loss`` as it is."""
+        if self.data_group is None:
+            return loss
+        from ..parallel.mesh import DATA_AXIS, all_reduce
+
+        for param in self.params:
+            if param.grad is None:
+                param.grad = torch.zeros_like(param)
+        grads = [param.grad for param in self.params]
+        flat = torch.cat([grad.reshape(-1) for grad in grads]
+                         + [loss.reshape(1).to(grads[0].dtype)])
+        all_reduce(flat, self.data_group, DATA_AXIS, "gradients and loss")
+        flat /= torch.distributed.get_world_size(self.data_group)
+        offset = 0
+        for grad in grads:
+            grad.copy_(flat[offset:offset + grad.numel()].view_as(grad))
+            offset += grad.numel()
+        return flat[-1].to(loss.dtype)
+
+    def _global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global L2 norm of ``grads`` (one per trainable parameter). A split
+        tensor's squares are summed over the model group, a replicated one's counted
+        once."""
+        split = self.model.split_axes()
+        total = torch.zeros((), device=grads[0].device)
+        for param, grad in zip(self.params, grads):
+            if param not in split:
+                total = total + torch.sum(grad * grad)
+        if split:
+            from ..parallel.mesh import MODEL_AXIS, all_reduce
+
+            part = torch.zeros(1, device=grads[0].device)
+            for param, grad in zip(self.params, grads):
+                if param in split:
+                    part = part + torch.sum(grad * grad)
+            all_reduce(part, self.model.tensor_parallel.group, MODEL_AXIS, "gradient norm")
+            total = total + part[0]
+        return torch.sqrt(total)
+
     def step(self) -> None:
         """Accumulate the current gradients, and on every k-th call apply one update."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
@@ -199,7 +253,7 @@ class OptimizerState:
             grads = self.accumulated
         clip = self.spec.gradient_clip_norm
         if clip is not None:  # optax.clip_by_global_norm, without a host sync
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            norm = self._global_norm(grads)
             grads = [torch.where(norm < clip, g, g / norm * clip) for g in grads]
         for param, grad in zip(self.params, grads):
             param.grad = grad
@@ -223,28 +277,39 @@ class OptimizerState:
         return [pair for layer, flag in zip(self.layers, self.trainable)
                 if flag or not trainable_only for pair in layer]
 
-    @staticmethod
-    def _to_jax(tensor: torch.Tensor, is_weight: bool) -> np.ndarray:
-        array = tensor.detach().to("cpu", torch.float32).numpy()
+    def _to_jax(self, param: torch.Tensor, value: torch.Tensor,
+                is_weight: bool) -> np.ndarray:
+        """``value`` (shaped like ``param``) in the JAX layout, whole."""
+        array = self.model.full_tensor(param, value).detach().to("cpu", torch.float32)
+        array = array.numpy()
         return np.ascontiguousarray(array.transpose(2, 1, 0)) if is_weight else array.copy()
 
-    @staticmethod
-    def _from_jax(array: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    def _from_jax(self, array: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+        """A whole JAX-layout leaf as ``like``'s part of it, on ``like``'s device."""
         array = np.asarray(array, np.float32)
         if like.dim() == 3:
             array = array.transpose(2, 1, 0)
-        if array.shape != tuple(like.shape):
+        value = self.model.local_part(like, torch.from_numpy(np.ascontiguousarray(array)))
+        if tuple(value.shape) != tuple(like.shape):
             raise ValueError("optimizer leaf of shape {} for a parameter of shape {}".format(
                 array.shape, tuple(like.shape)))
-        return torch.from_numpy(np.ascontiguousarray(array)).to(like.device)
+        return value.to(like.device)
 
     def _moments(self, key: str) -> List[np.ndarray]:
         leaves = []
         for param, is_weight in self._leaf_params(trainable_only=True):
             state = self.adam.state.get(param)
             value = state[key] if state else torch.zeros_like(param)
-            leaves.append(self._to_jax(value, is_weight))
+            leaves.append(self._to_jax(param, value, is_weight))
         return leaves
+
+    def leaf_count(self) -> int:
+        """``len(self.leaves())``, without gathering anything."""
+        moments = len(self._leaf_params(trainable_only=True))
+        count = 1 + 2 * moments + (1 if callable(self.spec.learning_rate) else 0)
+        if self.accumulated is None:
+            return count
+        return 2 + count + len(self._leaf_params(trainable_only=False))
 
     def leaves(self) -> List[np.ndarray]:
         """The JAX package's optax state leaves for `make_optimizer` with the same
@@ -258,14 +323,15 @@ class OptimizerState:
         if self.accumulated is None:
             return inner
         accumulated = dict(zip(self.params, self.accumulated))
-        acc = [self._to_jax(accumulated.get(param, torch.zeros_like(param)), is_weight)
+        acc = [self._to_jax(param, accumulated.get(param, torch.zeros_like(param)),
+                            is_weight)
                for param, is_weight in self._leaf_params(trainable_only=False)]
         return [np.asarray(self.mini_step, np.int32), count] + inner + acc
 
     def load_leaves(self, leaves: Sequence[np.ndarray]) -> None:
         """Inverse of `leaves`. Raises if the count of leaves does not fit the options."""
         leaves = list(leaves)
-        expected = len(self.leaves())
+        expected = self.leaf_count()
         if len(leaves) != expected:
             raise ValueError("checkpoint optimizer state has {} leaves; these optimizer "
                              "options expect {}".format(len(leaves), expected))
@@ -306,20 +372,34 @@ class TrainState:
 
     @property
     def params(self) -> w2l.Params:
-        """The parameters in the JAX package's layout (numpy)."""
+        """The parameters in the JAX package's layout (numpy), whole (a collective
+        over the model group when the model is tensor-parallel)."""
         return w2l.params_to_jax(self.model)
 
 
 def init_train_state(config: w2l.Wav2LetterConfig, optimizer: Optimizer, seed: int = 0,
                      params: Optional[w2l.Params] = None,
-                     device=DEFAULT_DEVICE) -> TrainState:
+                     device=DEFAULT_DEVICE, mesh=None) -> TrainState:
     """A fresh state on ``device``: ``params`` (JAX layout) or `w2l.init_params(seed)`,
-    and a generator on ``device`` seeded with ``seed``."""
+    and a generator on ``device`` seeded with ``seed``. Under a ``mesh`` (a
+    `parallel.mesh.make_mesh` `DeviceMesh`), ``params`` are the full host parameters,
+    the same on every rank: the model keeps this rank's tensor-parallel shards, and the
+    optimizer averages gradients over the data group. Every rank draws the same
+    SpecAugment and dropout masks (the model ranks of one data rank must)."""
     if params is None:
         params = w2l.init_params(config, seed)
-    model = w2l.build_model(config, params, device=device).train()
+    split, data_group = None, None
+    if mesh is not None:
+        from ..parallel import mesh as pmesh
+
+        split = pmesh.model_split(mesh)
+        if split is not None:
+            params = pmesh.shard_params(params, pmesh.param_specs(config.layer_names),
+                                        split.rank, split.size)
+        data_group = pmesh.axis_group(mesh, pmesh.DATA_AXIS)
+    model = w2l.build_model(config, params, device=device, tensor_parallel=split).train()
     generator = torch.Generator(device=torch.device(device)).manual_seed(seed)
-    return TrainState(step=0, model=model, opt_state=optimizer.init(model),
+    return TrainState(step=0, model=model, opt_state=optimizer.init(model, data_group),
                       generator=generator)
 
 
@@ -403,6 +483,7 @@ def _update(config, criterion, state: TrainState, batch: Batch,
         loss, per_example = loss_fn(config, state.model, batch, criterion,
                                     generator=state.generator, asg_tables=asg_tables)
         loss.backward()
+        loss = state.opt_state.all_reduce(loss.detach())
         state.opt_state.step()
     state.step += 1
     return loss.detach(), per_example.detach()
@@ -510,18 +591,26 @@ def sample_indices(example_count: int, batch_size: int, steps: int,
 def make_device_epoch_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
                            batch_size: int, steps: int, criterion: str = "ctc",
                            spec_augment: Optional[SpecAugment] = None,
-                           asg_transitions=None, asg_initials=None):
+                           asg_transitions=None, asg_initials=None, mesh=None):
     """``(state, dataset, generator=None, indices=None) -> (state, {"loss": mean,
     "step_losses": (steps,)})``: ``steps`` updates over a device-resident corpus
     (`data.device_dataset.DeviceDataset`, on the state's device). Each step's
     ``batch_size`` rows come from ``indices`` (``(steps, batch_size)``, e.g. JAX's
     `jax.random.choice` draws) or are drawn on the device from ``generator``
     (`sample_indices`), and are gathered with `index_select`: no feature or label byte
-    crosses from the host. The losses stay on the device."""
+    crosses from the host. The losses stay on the device. Under a ``mesh`` the indices
+    (the same on every rank) pick the global batch, from a replicated or a split corpus
+    (`data.device_dataset.ShardedDeviceDataset`), and each rank trains on its data
+    rank's slice of it."""
     del optimizer
     if batch_size < 1 or steps < 1:
         raise ValueError("batch_size ({}) and steps ({}) must be >= 1".format(batch_size,
                                                                                steps))
+    local_rows = slice(None)
+    if mesh is not None:
+        from ..parallel.mesh import batch_rows
+
+        local_rows = batch_rows(mesh, batch_size)
     tables = _fixed_asg_tables(config, criterion, asg_transitions, asg_initials)
 
     def epoch_step(state: TrainState, dataset, generator: Optional[torch.Generator] = None,
@@ -542,7 +631,7 @@ def make_device_epoch_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
         step_tables = _tables_to(tables, device)
         losses = torch.stack([
             _update(config, criterion, state,
-                    Batch(*(field.index_select(0, rows) for field in dataset)),
+                    Batch(*(field[local_rows] for field in dataset.gather(rows))),
                     spec_augment, step_tables)[0]
             for rows in indices])
         return state, {"loss": losses.mean(), "step_losses": losses}

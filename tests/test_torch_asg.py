@@ -312,8 +312,8 @@ def test_checkpoints_resume_across_packages_and_average(tmp_path, jax_steps):
 
     state = trainer.init_train_state(config, optimizer, params=params, device="cpu")
     state, _ = step(state, trainer.Batch(*batches[0]))
-    checkpoint.save_checkpoint(tmp_path / "port", 1, state.params, state.opt_state,
-                               step=state.step)
+    checkpoint.save_checkpoint(tmp_path / "port", 1, state.params,
+                               state.opt_state.leaves(), step=state.step)
     jax_state = jax_trainer.init_train_state(jax_config, jax_optimizer, jax.random.PRNGKey(0),
                                              params=_jax_params(params))
     jax_state, _ = jax_steps["train"](jax_state, jax_trainer.Batch(*map(jnp.asarray,

@@ -32,6 +32,7 @@ from speechless_tpu_torch.serving_streaming import UnknownSessionError
 from test_torch_serving import ALPHABET, _audio, _jax_transcriber, _request
 from test_torch_serving import setup  # noqa: F401 (the module fixture)
 from test_torch_streaming import MODES, _drive
+from torch_tmp import delete_tmp_path  # noqa: F401 (full-width files)
 
 # window_s=1.024 makes the pooled window the transcriber's 16384-sample bucket.
 POOL = dict(window_s=1.024, margin_s=0.25, max_batch=4, chunk_cap_s=0.5, max_sessions=8)

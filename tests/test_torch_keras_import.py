@@ -209,6 +209,12 @@ def test_convert_both_ways_like_jax(tmp_path, raw_wave):
         shutil.rmtree(tmp_path, ignore_errors=True)
 
 
+def _unlink(directory, *names):
+    """Deletes full-width files once compared: the test's peak stays at ~3 of them."""
+    for name in names:
+        (directory / name).unlink()
+
+
 def _convert_both_ways(tmp_path, raw_wave):
     config = w2l.Wav2LetterConfig(1 if raw_wave else 8, 5, use_raw_wave_input=raw_wave)
     params = w2l.init_params(config, seed=9)
@@ -219,6 +225,7 @@ def _convert_both_ways(tmp_path, raw_wave):
     _assert_equal(checkpoint.load_params_npz(tmp_path / "port.npz"), params)
     _assert_equal(checkpoint.load_params_npz(tmp_path / "port.npz"),
                   jax_checkpoint.load_params_npz(tmp_path / "jax.npz"))
+    _unlink(tmp_path, "weights-epoch1.h5", "port.npz", "jax.npz")
 
     with_tables = params + [{"asg_transitions": np.zeros((5, 5), np.float32),
                              "asg_initials": np.zeros(5, np.float32)}]
@@ -230,6 +237,7 @@ def _convert_both_ways(tmp_path, raw_wave):
                   jax_keras.load_keras_params(tmp_path / "jax.h5"))
     with h5py.File(str(tmp_path / "port.h5"), "r") as f:
         assert [n.decode() for n in f.attrs["layer_names"]] == config.layer_names
+    _unlink(tmp_path, "asg.npz", "port.h5", "jax.h5")
 
     quantized = [dict(layer) for layer in params]
     quantized[0] = {"w_q": np.zeros(params[0]["w"].shape, np.int8),

@@ -27,6 +27,7 @@ from speechless_tpu_torch.serving import Transcriber, words_from_frame_tokens
 from speechless_tpu_torch.serving_http import (DynamicBatcher, RequestError,
                                                TranscriptionServer, _parse_audio)
 from speechless_tpu_torch.utils.microbatch import PendingItem
+from torch_tmp import delete_tmp_path  # noqa: F401 (full-width files)
 
 torch.backends.cudnn.allow_tf32 = False
 
@@ -300,13 +301,13 @@ def test_long_transcripts_are_not_truncated(setup, kenlm):
 
 
 def test_unported_options_raise(setup, port_lm):
-    """Meshes and sequence-parallel decoding still raise, naming their ROADMAP item.
-    Quantized serving and forced alignment, which raised here before they were ported,
-    now serve (their parity with JAX: `test_torch_quantize.py`,
-    `test_torch_forced_align.py`)."""
+    """The options that raised here before they were ported now serve: quantized
+    serving, forced alignment (their parity with JAX: `test_torch_quantize.py`,
+    `test_torch_forced_align.py`) and sequence-parallel long-form decoding, which in one
+    process runs the whole recording through the plain forward and, at a matched
+    bucket, transcribes as the offline route does (meshes:
+    `test_torch_sequence_parallel.py`). Bad options still raise."""
     config, params, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 13"):
-        Transcriber(config, params, ALPHABET, device="cpu", mesh=object())
     quantized = Transcriber(config, params, ALPHABET, device="cpu", quantize_weights=True,
                             sample_buckets=BUCKETS)
     assert quantized.quantized and not quantized.int8_compute
@@ -316,8 +317,11 @@ def test_unported_options_raise(setup, port_lm):
         Transcriber(config, params, ALPHABET, device="cpu", lexicon_constrained=True)
     with pytest.raises(ValueError, match="nbest must be in"):
         port_lm.transcribe_nbest(AUDIOS[0], 9)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 13"):
-        port_lm.transcribe_long_audio(AUDIOS[0], sequence_parallel=True)
+    plain = Transcriber(config, params, ALPHABET, device="cpu", sample_buckets=BUCKETS)
+    for transcriber in (plain, port_lm):
+        transcriber._SP_BUCKET_SAMPLES = BUCKETS[0]
+        assert transcriber.transcribe_long_audio(AUDIOS[0], sequence_parallel=True) \
+            == transcriber.transcribe_audio(AUDIOS[0])
     words = port_lm.align_audio(AUDIOS[0], "a cat")
     assert [w["word"] for w in words] == ["a", "cat"]
 

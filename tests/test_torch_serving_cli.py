@@ -10,6 +10,7 @@ CLI raises SystemExit with a message; the messages are held equal.
 """
 import json
 import queue
+import shutil
 import signal
 import subprocess
 import sys
@@ -55,7 +56,8 @@ def data(tmp_path_factory):
     wavfile.write(root / "a.wav", 16000, pcm)
     encode_flac(str(root / "b.flac"), [pcm.astype(np.int64).tolist()])
     (root / "text.txt").write_text("The cat, sat!\n")
-    return root, params
+    yield root, params
+    shutil.rmtree(root)  # a full-width checkpoint
 
 
 def _run(main, argv, capsys):
@@ -228,7 +230,9 @@ def bundles(data, tmp_path_factory):
         out[name] = tmp_path_factory.mktemp("bundle-" + name)
         cli.main(["export", *_backend(root), "--out", str(out[name]), "--sample-buckets",
                   "16384", "--platforms", "cpu", "--device", "cpu", *extra])
-    return out
+    yield out
+    for directory in out.values():
+        shutil.rmtree(directory)  # full-width weights
 
 
 def test_export_then_bundle_commands_match_the_checkpoint(data, bundles, capsys):

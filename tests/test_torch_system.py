@@ -38,6 +38,7 @@ from speechless_tpu_torch.data import LibriSpeechCorpus, TrainingTestSplit
 from speechless_tpu_torch.experiments import (ExperimentRegistry, TrainedRun,
                                               available_epochs, validate_to_csv)
 from speechless_tpu_torch.lm.arpa_builder import build_kenlm_directory
+from speechless_tpu_torch.models import wav2letter as w2l
 from speechless_tpu_torch.system import Wav2Letter
 from speechless_tpu_torch.text.charsets import english_frequent_characters
 from speechless_tpu_torch.train import checkpoint
@@ -254,17 +255,20 @@ def test_validate_to_csv(runs, tmp_path):
 
 
 def test_facade_refusals(tmp_path):
-    """What the facade still refuses, with the ROADMAP.md item named (the mesh only);
-    SpecAugment, remat, dropout, the transfer load, the German configurations, ASG, the
-    raw-wave model and the other activations now construct."""
+    """What the facade refuses; SpecAugment, remat, dropout, the transfer load, the
+    German configurations, ASG, the raw-wave model and the other activations construct,
+    and in one process the facade runs without a mesh, as JAX's does (the mesh routes:
+    `tests/test_torch_parallel.py`)."""
     from speechless_tpu_torch.ops.specaugment import SpecAugment
     from speechless_tpu_torch.text.charsets import german_frequent_characters
 
     chars = english_frequent_characters
     with pytest.raises(ValueError, match="frozen"):
         Wav2Letter(128, chars, frozen_layer_count=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Wav2Letter(128, chars, device="cpu", mesh=object())
+    assert Wav2Letter(128, chars, device="cpu").mesh is None
+    with pytest.raises(ValueError, match="tp_activation_constraint needs"):
+        w2l.Wav2Letter(w2l.Wav2LetterConfig(128, len(chars) + 1,
+                                            tp_activation_constraint=True), device="cpu")
     with pytest.raises(ValueError, match="raw-wave"):
         Wav2Letter(1, chars, use_raw_wave_input=True, spec_augment=True, device="cpu")
     with pytest.raises(ValueError, match="requires use_asg"):

@@ -328,7 +328,7 @@ def test_checkpoints_resume_across_packages(tmp_path, options):
 
     # The port's checkpoint, resumed by JAX.
     checkpoint.save_checkpoint(tmp_path / "port", 2, port_state.params,
-                               port_state.opt_state, step=port_state.step)
+                               port_state.opt_state.leaves(), step=port_state.step)
     resumed = jax_trainer.TrainState(
         step=jnp.asarray(jax_checkpoint.load_step(tmp_path / "port", 2), jnp.int32),
         params=jax_checkpoint.load_params(tmp_path / "port", 2),

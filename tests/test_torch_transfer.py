@@ -15,6 +15,7 @@ The fresh layers of a ``--reinitialize`` load come from a JAX key on one side an
 the donor, never to each other.
 """
 import os
+import shutil
 import sys
 from pathlib import Path
 
@@ -47,6 +48,7 @@ from test_corpus import make_librispeech_tree
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "examples"))
 from rehearsal_common import (serve_directory, stage_clarin_archive,  # noqa: E402
                               stage_voxforge_archive)
+from torch_tmp import delete_tmp_path  # noqa: E402, F401 (full-width files)
 
 ENGLISH_BASELINE, BASELINE_EPOCH = JaxConfiguration.english_baseline
 
@@ -300,6 +302,7 @@ def donor(tmp_path_factory):
     Wav2Letter(128, english_frequent_characters, seed=3, device="cpu").save(nets,
                                                                               BASELINE_EPOCH)
     yield data, checkpoint.load_params(nets, BASELINE_EPOCH)
+    shutil.rmtree(data)  # full-width checkpoints: 280 MB each
 
 
 def test_transfer_load_matches_jax_and_freezes(donor):
@@ -370,7 +373,8 @@ def mixed(tmp_path_factory):
     source.save(data / "corpus" / "German" / "corpus.csv")
     Wav2Letter(128, german_frequent_characters, seed=5, device="cpu").save(
         DataDirectories(data).nets_base_directory / "german", 1)
-    return data
+    yield data
+    shutil.rmtree(data)  # full-width checkpoints
 
 
 @pytest.fixture
