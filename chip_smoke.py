@@ -798,10 +798,12 @@ def phase_profile(transcriber, batch, short_audio, out_path: Path) -> None:
         transcriber.transcribe_batch(batch)
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies, memsets): host rows that launched them
-    # would count them a second time.
+    # would count them a second time, and the device-side copies of the program's own
+    # spans (user annotations, `utils/trace.py`) are ranges, not work.
     per_name = {}
     for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
+        if event.device_type == DeviceType.CUDA and not getattr(
+                event, "is_user_annotation", False):
             count_us = per_name.setdefault(event.name, [0, 0.0])
             count_us[0] += 1
             count_us[1] += event.time_range.elapsed_us()
@@ -4104,7 +4106,8 @@ def fresh_bundle_transcribe(directory: Path, files, device) -> dict:
 
 def dispatch_profile(serve, batch) -> dict:
     """One ``serve(batch)`` under `torch.profiler`: the device's busy ms and operations
-    (device-side events only), the host's aten operations and the wall in ms."""
+    (device-side events only, less the program spans' annotations), the host's aten
+    operations and the wall in ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4117,7 +4120,8 @@ def dispatch_profile(serve, batch) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - start) * 1e3
     events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     return {"device_ms": sum(e.time_range.elapsed_us() for e in device) / 1e3,
             "device_ops": len(device),
             "host_aten_ops": sum(1 for e in events if e.device_type == DeviceType.CPU
@@ -4458,16 +4462,17 @@ def phase_k1(device, card: str, train: Optional[dict], data: Path, backend: str)
         ms = {"plain": [], "mesh": []}
         for name in ("plain", "mesh", "mesh", "plain"):
             ctc_kernels.ctc_alpha.launches = ctc_kernels.ctc_beta_grad.launches = 0
-            collectives.clear()
             torch.cuda.synchronize()
             start = time.perf_counter()
-            states[name], metrics = multi_step(states[name], batch)
+            with collectives.recording() as events:
+                states[name], metrics = multi_step(states[name], batch)
             torch.cuda.synchronize()
             ms[name].append((time.perf_counter() - start) / BENCH_STEPS * 1e3)
             if name == "mesh":
                 numbers["launches"] = {"ctc_alpha": ctc_kernels.ctc_alpha.launches,
                                        "ctc_beta_grad": ctc_kernels.ctc_beta_grad.launches}
-                numbers["all_reduces"] = collectives.count("all_reduce", "data")
+                numbers["all_reduces"] = sum(1 for op, axis, _ in events
+                                             if (op, axis) == ("all_reduce", "data"))
                 check(bool(torch.isfinite(metrics["step_losses"]).all()),
                       "phase K1: a non-finite loss on the mesh")
         check(numbers["launches"] == {"ctc_alpha": BENCH_STEPS, "ctc_beta_grad": BENCH_STEPS},

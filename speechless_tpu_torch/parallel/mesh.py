@@ -21,15 +21,17 @@ JAX's ``replicate`` has no counterpart: every rank builds the same replicated te
 from the same host values.
 
 Every collective of the port's parallel code goes through `all_reduce` or
-`all_gather`, which log it (`collectives`), so that a test can count them, as
-`examples/tp_collective_audit.py` counts the collectives of JAX's partitioned program.
+`all_gather`, which log it inside a `collectives.recording()` scope, so that a test can
+count them, as `examples/tp_collective_audit.py` counts the collectives of JAX's
+partitioned program; outside any scope nothing is kept.
 Megatron's f and g carry the split's gradients, each a `torch.autograd.Function`:
 `copy_to_model_group` (identity forward, all-reduce backward) on ``big_conv_1``'s input
 and `reduce_from_model_group` (all-reduce forward, identity backward) after
 ``big_conv_2``.
 """
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -159,18 +161,29 @@ def model_split(mesh) -> Optional[ModelSplit]:
 
 # ---- collectives ----------------------------------------------------------------------
 
+Event = Tuple[str, str, str]  # (operation, axis, where)
+
+
 class CollectiveLog:
-    """The collectives the parallel code issued, in order: ``(operation, axis,
-    where)`` events. Cleared by the caller."""
+    """The collectives the parallel code issues inside a `recording` scope, in order.
+    Outside every scope none is kept, so a long run holds no growing list."""
 
     def __init__(self):
-        self.events: List[Tuple[str, str, str]] = []
+        self._events: Optional[List[Event]] = None
 
-    def clear(self) -> None:
-        self.events.clear()
+    @contextlib.contextmanager
+    def recording(self) -> Iterator[List[Event]]:
+        """Yield the list that collects the scope's events (an inner scope takes the
+        events issued inside it)."""
+        outer, self._events = self._events, []
+        try:
+            yield self._events
+        finally:
+            self._events = outer
 
-    def count(self, operation: str, axis: str) -> int:
-        return sum(1 for op, name, _ in self.events if op == operation and name == axis)
+    def log(self, operation: str, axis: str, where: str) -> None:
+        if self._events is not None:
+            self._events.append((operation, axis, where))
 
 
 collectives = CollectiveLog()
@@ -178,7 +191,7 @@ collectives = CollectiveLog()
 
 def all_reduce(tensor: torch.Tensor, group, axis: str, where: str) -> torch.Tensor:
     """Sum ``tensor`` in place over ``group`` (the ranks of mesh axis ``axis``)."""
-    collectives.events.append(("all_reduce", axis, where))
+    collectives.log("all_reduce", axis, where)
     dist.all_reduce(tensor, group=group)
     return tensor
 
@@ -187,7 +200,7 @@ def all_gather(tensor: torch.Tensor, group, axis: str, where: str,
                dim: int = 0) -> torch.Tensor:
     """Every rank's ``tensor`` (equal shapes) concatenated along ``dim`` in rank
     order."""
-    collectives.events.append(("all_gather", axis, where))
+    collectives.log("all_gather", axis, where)
     parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, tensor.contiguous(), group=group)
     return torch.cat(parts, dim=dim)

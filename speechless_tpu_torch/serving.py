@@ -14,6 +14,11 @@ A request runs the tensor functions `_transcribe`, `_frame_log_probs` and
 `_frame_tokens`, which take the model's weights as an argument: an export bundle
 (`serving_export.py`) traces these same functions, so the two cannot drift.
 
+While a profiler records (`utils/trace.py`), `transcribe_batch` keeps spans of each
+group's padding and of each dispatch's stages (copy, model, decode, fetch), all outside
+those tensor functions, and counts the samples each dispatch computes against its rows'
+own.
+
 Parallel serving (`parallel/`): with a ``mesh`` every rank holds the whole model and is
 given the same requests, as every process of a JAX multi-controller program is; a
 batched route (`transcribe_batch`, `frame_log_probs_batch`, `frame_tokens_batch`)
@@ -41,6 +46,7 @@ from .ops.device_beam import beam_search_decode_device
 from .serving_host import (CHARSETS, align_audio, grouped_padded_batches,  # noqa: F401
                            split_long_audio, words_from_frame_tokens)
 from .text.graphemes import CtcGraphemeCodec
+from .utils import trace
 
 # Requests pad to the smallest bucket of samples (feature-frame buckets * 128) that
 # holds them, and past the last bucket to a multiple of 65536 samples, as the JAX
@@ -188,7 +194,7 @@ class Transcriber:
         from .parallel.mesh import DATA_AXIS, axis_group, axis_size, collectives
 
         parts = [None] * axis_size(self.mesh, DATA_AXIS)
-        collectives.events.append(("all_gather_object", DATA_AXIS, "served rows"))
+        collectives.log("all_gather_object", DATA_AXIS, "served rows")
         dist.all_gather_object(parts, local, group=axis_group(self.mesh, DATA_AXIS))
         return [row for part in parts for row in part]
 
@@ -258,8 +264,11 @@ class Transcriber:
 
     def _log_probs(self, wavs: np.ndarray, lengths: np.ndarray):
         """`_frame_log_probs` of a host batch with this transcriber's weights."""
-        return self._frame_log_probs(self.weights, torch.from_numpy(wavs).to(self.device),
-                                     torch.from_numpy(lengths).to(self.device))
+        with trace.span("transcribe.copy"):
+            wavs = torch.from_numpy(wavs).to(self.device)
+            lengths = torch.from_numpy(lengths).to(self.device)
+        with trace.span("transcribe.model"):
+            return self._frame_log_probs(self.weights, wavs, lengths)
 
     @torch.inference_mode()
     def _transcribe_rows(self, wavs: np.ndarray, lengths: np.ndarray,
@@ -267,13 +276,21 @@ class Transcriber:
         """``(text, confidence)`` per row; a ``batched`` dispatch under a mesh runs this
         data rank's rows and gathers the others'."""
         rows = self._data_rows(len(wavs)) if batched else slice(None)
-        tokens, counts, confidence = self._decode(*self._log_probs(wavs[rows],
-                                                                   lengths[rows]))
-        tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
-        results = [(self.codec.decode_graphemes(tokens[row, :int(counts[row])].tolist(),
-                                                merge_repeated=False), float(score))
-                   for row, score in enumerate(confidence.cpu().numpy())]
-        return self._gather_rows(results) if batched else results
+        wavs, lengths = wavs[rows], lengths[rows]
+        with trace.span("transcribe.dispatch"):
+            if trace.recording():
+                trace.count("transcribe.samples", wavs.size)
+                trace.count("transcribe.samples_own", int(lengths.sum()))
+            log_probs, counts = self._log_probs(wavs, lengths)
+            with trace.span("transcribe.decode"):
+                tokens, counts, confidence = self._decode(log_probs, counts)
+            with trace.span("transcribe.fetch"):
+                tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
+                confidence = confidence.cpu().numpy()
+            results = [(self.codec.decode_graphemes(tokens[row, :int(counts[row])].tolist(),
+                                                    merge_repeated=False), float(score))
+                       for row, score in enumerate(confidence)]
+            return self._gather_rows(results) if batched else results
 
     def transcribe_audio(self, audio: np.ndarray) -> str:
         """Transcribe a mono 16 kHz float32 waveform."""
@@ -300,10 +317,12 @@ class Transcriber:
         """Transcribe many waveforms, ``batch_size`` per dispatch within each length
         bucket. Returns ``(text, confidence)`` per input, in input order."""
         results: List[Optional[Tuple[str, float]]] = [None] * len(audios)
-        for group, wavs, lengths in self._groups(audios, batch_size):
-            for index, result in zip(group, self._transcribe_rows(wavs, lengths,
-                                                                  batched=True)):
-                results[index] = result
+        with trace.span("transcribe.batch"):
+            for group, wavs, lengths in trace.spans_over("transcribe.group",
+                                                         self._groups(audios, batch_size)):
+                for index, result in zip(group, self._transcribe_rows(wavs, lengths,
+                                                                      batched=True)):
+                    results[index] = result
         return results
 
     @torch.inference_mode()

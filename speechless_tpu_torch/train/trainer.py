@@ -52,6 +52,7 @@ from ..ops.asg import asg_loss, log_tables_on
 from ..ops.ctc_kernels import ctc_loss_from_logits
 from ..ops.specaugment import SpecAugment, apply_spec_augment
 from ..precision import ieee_fp32
+from ..utils import trace
 
 DEFAULT_DEVICE = "cuda:0"
 CRITERIA = ("ctc", "asg", "asg_trainable")
@@ -630,13 +631,23 @@ def make_device_epoch_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
                     tuple(indices.shape), (steps, batch_size)))
         step_tables = _tables_to(tables, device)
         losses = torch.stack([
-            _update(config, criterion, state,
-                    Batch(*(field[local_rows] for field in dataset.gather(rows))),
+            _update(config, criterion, state, _gathered(dataset, rows, local_rows),
                     spec_augment, step_tables)[0]
             for rows in indices])
         return state, {"loss": losses.mean(), "step_losses": losses}
 
     return epoch_step
+
+
+def _gathered(dataset, rows: torch.Tensor, local_rows: slice) -> Batch:
+    """This rank's rows of one step's batch from a resident corpus. While a profiler
+    records (`utils/trace.py`) it counts the frames the step computes, ``train.frames``
+    (rows x the corpus's padded frames), and the rows' own, ``train.frames_own``."""
+    batch = Batch(*(field[local_rows] for field in dataset.gather(rows)))
+    if trace.recording():
+        trace.count("train.frames", batch.inputs.shape[0] * batch.inputs.shape[1])
+        trace.count("train.frames_own", batch.input_lengths.sum())
+    return batch
 
 
 def make_eval_step(config: w2l.Wav2LetterConfig, criterion: str = "ctc",

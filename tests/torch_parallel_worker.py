@@ -126,12 +126,10 @@ def tp_forward(directory, rank):
         model = w2l.build_model(config, pmesh.shard_params(
             given["params"], pmesh.param_specs(config.layer_names), split.rank, split.size),
             device="cpu", tensor_parallel=split)
-        pmesh.collectives.clear()
-        logits = model(torch.from_numpy(given["inputs"]))
-        forward_events = list(pmesh.collectives.events)
-        pmesh.collectives.clear()
-        (logits * torch.from_numpy(given["weights"])).sum().backward()
-        backward_events = list(pmesh.collectives.events)
+        with pmesh.collectives.recording() as forward_events:
+            logits = model(torch.from_numpy(given["inputs"]))
+        with pmesh.collectives.recording() as backward_events:
+            (logits * torch.from_numpy(given["weights"])).sum().backward()
         grads = [{"w": model.full_tensor(conv.weight, conv.weight.grad).numpy(),
                   "b": model.full_tensor(conv.bias, conv.bias.grad).numpy()}
                  for conv in model.layers]
@@ -158,9 +156,8 @@ def dpxtp_step(directory, rank):
         state = trainer.init_train_state(config, optimizer, params=given["params"],
                                          device="cpu", mesh=mesh)
         step = trainer.make_train_step(config, optimizer, device="cpu")
-        pmesh.collectives.clear()
-        state, metrics = step(state, local)
-        events = list(pmesh.collectives.events)
+        with pmesh.collectives.recording() as events:
+            state, metrics = step(state, local)
         out[name] = {"loss": float(metrics["loss"]), "params": state.params,
                      "events": events, "leaves": state.opt_state.leaves()}
     save_ranked(directory, "dpxtp_step", rank, out)
@@ -335,10 +332,9 @@ def sequence(directory, rank):
         for name, (layers, inputs, params) in given.items():
             config = _config(inputs.shape[2], layers[-1][1], layers=layers)
             model = w2l.build_model(config, params, device="cpu")
-            pmesh.collectives.clear()
-            with torch.no_grad():
+            with torch.no_grad(), pmesh.collectives.recording() as events:
                 logits = sequence_parallel_logits(model, torch.from_numpy(inputs), mesh)
-            out[(n, name)] = (logits.numpy(), list(pmesh.collectives.events))
+            out[(n, name)] = (logits.numpy(), events)
     save(directory, "sequence.{}".format(rank), out)
 
 
