@@ -5,7 +5,8 @@ facade, the Transcriber's other routes (int8 serving, alignment, FLAC, the beam
 warm-up), the model variants (ASG, the raw-wave model, the activations), export
 bundles and parallelism (a data-parallel world of one, two processes sharing the card).
 
-    python3 chip_smoke.py [--profile | --facade-only | --bundle-only | --parallel-only]
+    python3 chip_smoke.py [--profile | --facade-only | --bundle-only | --parallel-only |
+                           --dgrad-only]
 
 Builds every kernel of ``speechless_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
 source, all started together) and prints ptxas's registers and spills, then:
@@ -205,7 +206,18 @@ source, all started together) and prints ptxas's registers and spills, then:
   unsplit forward and its LM-beam text equal to the unsplit decode's (one span and one
   backtrace launch on each rank), and `Transcriber(mesh=)` on phase B's 16 x 8 s batch
   giving the plain Transcriber's texts.
-* with ``--facade-only``: the kernel builds and phases F, I and G alone, and no result;
+* phase L (after phase C): the conv data-gradient kernel (`ops/conv_dgrad.py`,
+  ``csrc/conv_dgrad.cu``) against its plain version `dgrad_reference` on the same CUDA
+  tensors, bf16 dX within one bf16 ulp plus 1e-4 of the largest |dX| (DGRAD_RTOL,
+  DGRAD_ATOL), at the edges (one frame, fewer frames than taps, odd frames and channels,
+  a frame past the 128-frame tile) and at big_conv_1's shapes (B=64 at T' = 1,536, 513
+  and 410, and a tensor-parallel rank's 1,000 channels) and the inner convs'; cuDNN's
+  data gradient beside it; the kernel's ms, bound, plain ms and cuDNN's ms at each; the
+  kernel's launches and the `conv.dgrad_*` trace counters in `make_device_epoch_step`
+  at the training cell's batch (eight launches a step, big_conv_1 and the inner convs;
+  none with 8 layers frozen).
+* with ``--dgrad-only``: the kernel builds and phase L alone, and no result line;
+  with ``--facade-only``: the kernel builds and phases F, I and G alone, and no result;
   with ``--bundle-only``: the kernel builds and phases B and J alone, and no result;
   with ``--parallel-only``: the kernel builds, phase B, phase F's corpus staging and
   phase K alone, and no result.
@@ -4770,6 +4782,222 @@ def phase_k(device, card: str, train: Optional[dict], data: Path, batch) -> dict
     return {"k1": k1, "k2": k2, "wall_s": wall}
 
 
+# ---- phase L: the conv data-gradient kernel -----------------------------------------
+BF16_OPS_PER_S = 989e12
+# (name, batch, frames, out channels, in channels, taps): big_conv_1 at the training
+# cell's frames, bench.py's, the raw-wave model's, and a tensor-parallel rank's width;
+# then an inner conv, whose two times set the width rule (`conv_dgrad.KERNEL_MIN_TAPS`).
+DGRAD_SHAPES = (("big_conv_1 cell", 64, 1536, 2000, 250, 32),
+                ("big_conv_1 bench", 64, 513, 2000, 250, 32),
+                ("big_conv_1 raw wave", 64, 410, 2000, 250, 32),
+                ("big_conv_1 TP rank", 64, 1536, 1000, 250, 32),
+                ("inner_conv cell", 64, 1536, 250, 250, 7))
+# Edges: one frame, fewer frames than taps, odd frames and channels, a frame past the
+# 128-frame tile, input channels far below 256.
+DGRAD_EDGES = ((3, 1, 37, 250, 32), (2, 5, 2000, 250, 32), (3, 37, 37, 250, 7),
+               (2, 129, 100, 17, 9), (1, 300, 64, 250, 32))
+# Kernel vs the plain version, both in the working type: each sums in fp32 in its own
+# order and rounds once to bf16, so a sum near a rounding boundary may round to the
+# neighbouring bf16 value: one ulp, at most 2^-7 of the value; plus the two fp32 sums'
+# difference. The tensor cores add each group of products after aligning them to the
+# largest, truncating, so over big_conv_1's 64,000 terms the kernel's sum drifts from the
+# plain version's by up to ~4e-5 of the largest |dX| (a fifth of a bf16 ulp of it; on an
+# H100, 3 % of the values round to the neighbour); cuDNN's legacy engine drifts further
+# (72 %). A dropped tap, frame or channel block moves values by a tenth of the
+# largest or more.
+DGRAD_RTOL, DGRAD_ATOL = 2.0 ** -7, 1e-4
+DGRAD_STEPS = 4  # steps a call of `resident_step_launches`
+
+
+def dgrad_case(rng, batch, frames, cout, cin, taps, device):
+    """Seeded bf16 output gradient ``(B, Cout, T)`` and weight ``(Cout, Cin, K)``
+    (Glorot-scaled, as the model's)."""
+    import torch
+
+    grad = torch.tensor(rng.normal(size=(batch, cout, frames)), dtype=torch.bfloat16,
+                        device=device)
+    limit = math.sqrt(6.0 / (taps * (cin + cout)))
+    weight = torch.tensor(rng.uniform(-limit, limit, (cout, cin, taps)),
+                          dtype=torch.bfloat16, device=device)
+    return grad, weight
+
+
+def dgrad_gaps(got, want) -> dict:
+    """How far the kernel's bf16 ``got`` lies from the plain version's ``want``: the worst
+    excess over the limit (<= 0 passes), the share of values that differ, and the largest
+    difference over the largest |dX|."""
+    import torch
+
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = float(want.abs().max())
+    limit = DGRAD_RTOL * torch.maximum(got.abs(), want.abs()) + DGRAD_ATOL * scale
+    return {"excess": float((diff - limit).max()), "differ": float((diff > 0).float().mean()),
+            "max_abs": float(diff.max()), "max_rel": float(diff.max()) / max(scale, 1e-30)}
+
+
+def phase_l(device, card: str) -> dict:
+    """Phase L: the conv data-gradient kernel (`ops/conv_dgrad.py`, ``csrc/conv_dgrad.cu``)
+    against its plain version `dgrad_reference` on the same CUDA tensors (bf16 dX within
+    DGRAD_RTOL of each value and DGRAD_ATOL of the largest) at the edges and at the main
+    path's shapes; cuDNN's bf16 data gradient beside it as a second reading. Then at
+    each of DGRAD_SHAPES: the kernel's ms (the wrapper's whole call: weight layout, frame
+    padding and the launch), its bound (FLOPs over 989 TFLOP/s bf16, or bytes of dY, W
+    and dX over 3.35 TB/s), the plain version's ms (fp32 einsums, TF32 off) and cuDNN's
+    (`library_ms`: ``aten.convolution_backward`` for the data gradient alone on the
+    padded input, the call the port no longer makes for a routed conv). Last, the
+    launches and trace counters of `make_device_epoch_step` at the training cell's
+    batch (64 rows of 3,072 frames) in bf16, the full step and freeze 8, and the
+    full step's ms."""
+    import torch
+
+    from speechless_tpu_torch.ops import conv_dgrad
+    from speechless_tpu_torch.precision import ieee_fp32
+
+    start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)
+
+    def plain(grad, weight, pad_low):
+        with ieee_fp32():
+            return conv_dgrad.dgrad_reference(grad, weight, pad_low)
+
+    def cudnn(grad, padded, weight):
+        return torch.ops.aten.convolution_backward(
+            grad, padded, weight, None, [1], [0], [1], False, [0], 1,
+            [True, False, False])[0]
+
+    cases = [("edge", *edge) for edge in DGRAD_EDGES] + list(DGRAD_SHAPES)
+    results = {}
+    for name, batch, frames, cout, cin, taps in cases:
+        grad, weight = dgrad_case(rng, batch, frames, cout, cin, taps, device)
+        pad_low = (taps - 1) // 2
+        got = conv_dgrad.conv_dgrad(grad, weight, pad_low)
+        torch.cuda.synchronize()
+        want = plain(grad, weight, pad_low)
+        padded = torch.nn.functional.pad(
+            torch.zeros((batch, cin, frames), dtype=torch.bfloat16, device=device),
+            (pad_low, taps - 1 - pad_low))
+        library = cudnn(grad, padded, weight)[:, :, pad_low:pad_low + frames]
+        gaps = dgrad_gaps(got, want)
+        gaps["cudnn"] = dgrad_gaps(library, want)
+        key = "{} {}x{}x{}->{} k{}".format(name, batch, frames, cout, cin, taps)
+        results[key] = gaps
+        print("phase L {}: kernel vs plain excess {:.3g} (<= 0 passes), {:.4f} of values "
+              "differ, max {:.3g} of max|dX|; cuDNN vs plain excess {:.3g}, differ {:.4f}, "
+              "max {:.3g}".format(key, gaps["excess"], gaps["differ"], gaps["max_rel"],
+                                  gaps["cudnn"]["excess"], gaps["cudnn"]["differ"],
+                                  gaps["cudnn"]["max_rel"]), flush=True)
+        del got, want, library, padded
+    for key, gaps in results.items():
+        check(gaps["excess"] <= 0, "conv_dgrad {} differs from dgrad_reference beyond one "
+              "bf16 ulp: excess {:.3g}".format(key, gaps["excess"]))
+
+    timings = {}
+    for name, batch, frames, cout, cin, taps in DGRAD_SHAPES:
+        grad, weight = dgrad_case(rng, batch, frames, cout, cin, taps, device)
+        pad_low = (taps - 1) // 2
+        padded = torch.nn.functional.pad(
+            torch.zeros((batch, cin, frames), dtype=torch.bfloat16, device=device),
+            (pad_low, taps - 1 - pad_low))
+        flops = 2.0 * batch * frames * cout * cin * taps
+        nbytes = 2.0 * (batch * cout * frames + cout * cin * taps + batch * cin * frames)
+        bound_ms = max(flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = cuda_ms(lambda: conv_dgrad.conv_dgrad(grad, weight, pad_low), 20)
+        layout_ms = cuda_ms(lambda: conv_dgrad.weight_layout(weight), 20)  # of ms
+        library_ms = cuda_ms(lambda: cudnn(grad, padded, weight), 10)
+        plain_ms = cuda_ms(lambda: plain(grad, weight, pad_low), 2)
+        timings[name] = {"shape": [batch, frames, cout, cin, taps], "ms": ms,
+                         "layout_ms": layout_ms, "bound_ms": bound_ms,
+                         "bound_by": "operations",
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "tflops": flops / ms / 1e9, "library_tflops": flops / library_ms / 1e9}
+        print("phase L {} ({}): kernel {:.4f} ms ({:.1f} TFLOP/s; W's layout {:.4f} of "
+              "it), bound {:.4f} ms, plain {:.2f} ms, cuDNN {:.4f} ms ({:.1f} "
+              "TFLOP/s)".format(name, card, ms, flops / ms / 1e9, layout_ms, bound_ms,
+                                plain_ms, library_ms, flops / library_ms / 1e9), flush=True)
+        del grad, weight, padded
+    torch.cuda.empty_cache()
+    steps = resident_step_launches(device)
+    wall = time.perf_counter() - start
+    print("phase L ({}): {:.1f} s".format(card, wall))
+    return {"gaps": results, "timings": timings, "steps": steps, "wall_s": wall}
+
+
+def resident_step_launches(device) -> dict:
+    """`make_device_epoch_step` at the training cell's batch (64 rows of 3,072 frames,
+    bf16) on a 256-row resident corpus: the kernel's launches in one call of
+    DGRAD_STEPS steps and the trace counters ``conv.dgrad_kernel`` and
+    ``conv.dgrad_cudnn`` under a profiler, for the full step and for freeze 8 (no data
+    gradient below big_conv_1: no launch); then the full step's ms, CUDA events."""
+    import torch
+
+    from speechless_tpu_torch.data.device_dataset import DeviceDataset
+    from speechless_tpu_torch.models import wav2letter as w2l
+    from speechless_tpu_torch.ops import conv_dgrad
+    from speechless_tpu_torch.train import trainer
+    from speechless_tpu_torch.utils import trace
+
+    rows, frames, labels = 256, USER_FRAMES, USER_LABELS
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    lengths = torch.randint(frames // 3, frames + 1, (rows,), generator=generator,
+                            device=device, dtype=torch.int32)
+    inputs = torch.randn((rows, frames, 128), generator=generator, device=device,
+                         dtype=torch.float16)
+    inputs.masked_fill_(torch.arange(frames, device=device)[None, :, None]
+                        >= lengths[:, None, None], 0.0)
+    label_lengths = (lengths // 8).to(torch.int32)
+    label_rows = torch.randint(0, 28, (rows, labels), generator=generator, device=device,
+                               dtype=torch.int32)
+    label_rows.masked_fill_(torch.arange(labels, device=device)[None]
+                            >= label_lengths[:, None], -1)
+    dataset = DeviceDataset(inputs, lengths, label_rows, label_lengths)
+    numbers = {}
+    for name, frozen in (("full", 0), ("freeze 8", TRANSFER_FREEZE)):
+        config = w2l.Wav2LetterConfig(128, 29, compute_dtype=torch.bfloat16)
+        optimizer = trainer.make_optimizer(
+            1e-4, trainable=w2l.trainable_mask(config, frozen) if frozen else None)
+        state = trainer.init_train_state(config, optimizer,
+                                         params=w2l.init_params(config, SEED),
+                                         device=device)
+        epoch = trainer.make_device_epoch_step(config, optimizer, USER_BATCH, DGRAD_STEPS)
+        state, _ = epoch(state, dataset, generator)  # warm-up: cuDNN's plans
+        torch.cuda.synchronize()
+        before = conv_dgrad.conv_dgrad.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            state, metrics = epoch(state, dataset, generator)
+            torch.cuda.synchronize()
+        counters = trace.snapshot()["counters"]
+        launches = conv_dgrad.conv_dgrad.launches - before
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        state, metrics = epoch(state, dataset, generator)
+        events[1].record()
+        torch.cuda.synchronize()
+        losses = metrics["step_losses"].cpu().numpy()
+        check(np.isfinite(losses).all(), "{}: non-finite step loss".format(name))
+        numbers[name] = {"launches": launches,
+                         "dgrad_kernel": counters.get("conv.dgrad_kernel", 0),
+                         "dgrad_cudnn": counters.get("conv.dgrad_cudnn", 0),
+                         "ms_per_step": events[0].elapsed_time(events[1]) / DGRAD_STEPS}
+        print("phase L make_device_epoch_step {} ({} x {} frames, {} steps a call): kernel "
+              "launches {}, counters conv.dgrad_kernel {} conv.dgrad_cudnn {}; {:.2f} ms a "
+              "step".format(name, USER_BATCH, frames, DGRAD_STEPS, launches,
+                            numbers[name]["dgrad_kernel"], numbers[name]["dgrad_cudnn"],
+                            numbers[name]["ms_per_step"]), flush=True)
+        del state, epoch
+    inner = 7 if conv_dgrad.KERNEL_MIN_TAPS <= 7 else 0  # the inner convs' route
+    check(numbers["full"]["launches"] == DGRAD_STEPS * (1 + inner)
+          and numbers["full"]["dgrad_kernel"] == numbers["full"]["launches"]
+          and numbers["full"]["dgrad_cudnn"] == DGRAD_STEPS * (7 - inner),
+          "the full step's data gradients took the wrong route: {}".format(numbers["full"]))
+    check(numbers["freeze 8"]["launches"] == 0 and numbers["freeze 8"]["dgrad_kernel"] == 0
+          and numbers["freeze 8"]["dgrad_cudnn"] == 0,
+          "freeze 8 computed a data gradient: {}".format(numbers["freeze 8"]))
+    del dataset, inputs, label_rows
+    torch.cuda.empty_cache()
+    return numbers
+
+
 def main() -> None:
     import argparse
 
@@ -4790,6 +5018,9 @@ def main() -> None:
     parser.add_argument("--parallel-only", action="store_true",
                         help="build the kernels and run phase B, phase F's corpus staging "
                              "and phase K alone; prints no result line")
+    parser.add_argument("--dgrad-only", action="store_true",
+                        help="build the kernels and run phase L (the conv data-gradient "
+                             "kernel) alone; prints no result line")
     parser.add_argument("--k2-worker", nargs=4, metavar=("RANK", "PORT", "DIR", "DEVICE"),
                         help=argparse.SUPPRESS)  # one rank of phase K2, started by it
     args = parser.parse_args()
@@ -4828,9 +5059,14 @@ def main() -> None:
         print("  speechless_tpu_torch/csrc/{}.cu in {:.2f} s -> {}".format(
             name, build["seconds"], Path(build["path"]).name))
         for line in build["log"].splitlines():
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
+            if any(word in line for word in ("registers", "Compiling entry", "spill",
+                                             "wgmma", "setmaxnreg", "arning")):
                 print("    ptxas: " + line.strip())
 
+    if args.dgrad_only:
+        phase_l(device, card)
+        print("chip_smoke --dgrad-only: phase L passed; no result line")
+        return
     if args.facade_only:
         with tempfile.TemporaryDirectory() as directory:
             facade = phase_f(device, card, None, Path(directory))
@@ -4873,6 +5109,7 @@ def main() -> None:
         routes = phase_h(device, card, transcriber, batch, Path(lm_directory), batch_s)
         bundles = phase_j(device, card, transcriber, batch, Path(lm_directory))
     train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
+    dgrad = phase_l(device, card)
     with tempfile.TemporaryDirectory() as directory:
         facade = phase_f(device, card, train["train"], Path(directory))
         model_variants = phase_i(device, card, train["train"], Path(directory))
@@ -4961,7 +5198,17 @@ def main() -> None:
         "max_abs_err": max(case["max_abs_err"] for case in offline["cases"].values()),
         "ms": offline["cases"]["a"]["ms"], "plain_ms": offline["cases"]["a"]["plain_ms"],
         "bound_ms": offline["cases"]["a"]["bound_ms"],
-        "bound_by": offline["cases"]["a"]["bound_by"], "library_ms": None}]}))
+        "bound_by": offline["cases"]["a"]["bound_by"], "library_ms": None}, {
+        "name": "conv_dgrad", "route": "cuda",
+        "source": "speechless_tpu_torch/csrc/conv_dgrad.cu",
+        "replaces": "none (cuDNN's data gradients of big_conv_1 and the inner convs)",
+        "launches": dgrad["steps"]["full"]["launches"],
+        "max_abs_err": max(gaps["max_abs"] for gaps in dgrad["gaps"].values()),
+        "ms": dgrad["timings"]["big_conv_1 cell"]["ms"],
+        "plain_ms": dgrad["timings"]["big_conv_1 cell"]["plain_ms"],
+        "bound_ms": dgrad["timings"]["big_conv_1 cell"]["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": dgrad["timings"]["big_conv_1 cell"]["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

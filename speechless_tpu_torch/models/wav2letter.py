@@ -12,7 +12,9 @@ TF32 off itself (`precision.ieee_fp32`). With ``compute_dtype=bfloat16`` (the tr
 path on the card) the parameters stay fp32 and are cast inside the forward, so
 gradients reach the fp32 parameters; each conv runs in bf16 and adds its bias in bf16
 after the conv, as `jax.lax.conv_general_dilated` and the JAX ``x + b`` do, and the
-logits come back in fp32.
+logits come back in fp32. A bf16 stride-1 conv with more than one tap runs as
+`ops/conv_dgrad.py::same_conv1d`, whose data gradient takes the hand-written kernel
+where the conv's shape asks for it (big_conv_1 and the inner convs).
 
 The public layout stays the JAX one — ``(batch, time, channels)`` in and out — and the
 weight bridge (`params_from_jax` / `params_to_jax`) moves the JAX package's
@@ -60,6 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.conv_dgrad import same_conv1d
 from ..parallel.mesh import (ModelSplit, all_gather, copy_to_model_group, param_specs,
                              reduce_from_model_group, split_axis)
 from ..precision import ieee_fp32
@@ -399,7 +402,15 @@ class Wav2Letter(nn.Module):
                         + conv.bias.to(dtype)[:, None]
                     x = _activate(x, spec.activation)
                     continue
-                x = F.pad(x, same_padding(x.shape[2], spec.kernel_size, spec.stride))
+                padding = same_padding(x.shape[2], spec.kernel_size, spec.stride)
+                if dtype != torch.float32 and spec.stride == 1 and spec.kernel_size > 1:
+                    # The data gradient on the hand-written kernel where its shape rule
+                    # takes it (`ops/conv_dgrad.py`).
+                    x = same_conv1d(x, conv.weight.to(dtype), padding) \
+                        + conv.bias.to(dtype)[:, None]
+                    x = _activate(x, spec.activation)
+                    continue
+                x = F.pad(x, padding)
                 if split is not None and spec.name == "big_conv_2":
                     # Row-parallel: the partial products summed over the model group,
                     # then the (replicated) bias once.

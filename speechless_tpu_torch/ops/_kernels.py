@@ -33,6 +33,7 @@ SIGNATURES = {
     "ctc_alpha": [_P] * 7 + [_I] * 4 + [_P],
     "ctc_beta_grad": [_P] * 10 + [_I] * 4 + [_P],
     "stream_stitch": [_P] * 9 + [_I] * 4 + [_P],
+    "conv_dgrad": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
