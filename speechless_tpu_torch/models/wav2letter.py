@@ -135,6 +135,13 @@ class Wav2LetterConfig:
             ratio *= spec.stride
         return ratio
 
+    def init_params(self, seed: int) -> Params:
+        return init_params(self, seed)
+
+    def build_model(self, params: Params, *, device) -> "Wav2Letter":
+        """`build_model`, replicated: the trainer's way to build any model family."""
+        return build_model(self, params, device=device)
+
     def layer_input_shapes(self, batch: int, frames: int) -> List[Tuple[int, int, int]]:
         """Each layer's input shape ``(batch, frames, channels)`` (JAX's layout) for an
         input of ``frames`` frames: the shapes of the dropout masks."""
@@ -355,11 +362,17 @@ class Wav2Letter(nn.Module):
             layers.append([(self.asg.initials, False), (self.asg.transitions, False)])
         return layers
 
+    def prediction_lengths(self, input_lengths: torch.Tensor) -> torch.Tensor:
+        return prediction_lengths(self.config, input_lengths)
+
     def forward(self, inputs: torch.Tensor, train: bool = False,
                 dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                input_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``train=True`` applies dropout (masks given, else drawn from ``generator``)
-        and remat, as the config asks; otherwise the forward is the inference one."""
+        and remat, as the config asks; otherwise the forward is the inference one.
+        ``input_lengths`` are not read: every conv sees the zero-padded frames, and the
+        lengths matter only to the loss."""
         config = self.config
         x = inputs.to(config.compute_dtype).transpose(1, 2)
         masks = [None] * len(config.layers)

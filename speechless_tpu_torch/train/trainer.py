@@ -34,6 +34,11 @@ tensors' squares over the model group and counts the replicated ones once. The C
 kernels run on each rank's rows, as JAX's ``ctc_pallas_sharded`` ran them per data
 shard.
 
+The model is either family the port trains: `models/wav2letter.py` (every option above)
+or `models/conformer.py` (Conformer-CTC; CTC or ASG, dropout, no mesh, and no JAX
+layout for its parameters or optimizer leaves). The trainer reaches a model only through
+`Model` and builds it through its config's ``init_params`` and ``build_model``.
+
 PyTorch runs eagerly, so a "step" is a Python function over a mutable `TrainState`: it
 updates the model and optimizer in place and returns the same state, where the JAX step
 returns a new one. Every step runs with TF32 off (`precision.ieee_fp32`): fp32 training
@@ -41,12 +46,14 @@ is IEEE fp32 in the forward and the backward, and bf16 training is bf16 either w
 """
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, NamedTuple, Optional, Protocol, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from ..features.spectrogram import features_batch
+from ..models import conformer
 from ..models import wav2letter as w2l
 from ..ops.asg import asg_loss, log_tables_on
 from ..ops.ctc_kernels import ctc_loss_from_logits
@@ -56,6 +63,28 @@ from ..utils import trace
 
 DEFAULT_DEVICE = "cuda:0"
 CRITERIA = ("ctc", "asg", "asg_trainable")
+
+
+ModelConfig = Union[w2l.Wav2LetterConfig, conformer.ConformerConfig]
+
+
+class Model(Protocol):
+    """What the trainer asks of a model (`w2l.Wav2Letter`, `conformer.Conformer`): logits
+    ``(B, T', classes)`` in fp32 from padded inputs and their lengths, each row's valid
+    output frames, its parameters by layer (the freezing mask's unit) and the
+    tensor-parallel split of each (empty unless split); ``asg`` holds a trainable-ASG
+    run's tables, or None."""
+    asg: Optional[w2l.AsgTables]
+
+    def __call__(self, inputs: torch.Tensor, train: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 input_lengths: Optional[torch.Tensor] = None) -> torch.Tensor: ...
+
+    def prediction_lengths(self, input_lengths: torch.Tensor) -> torch.Tensor: ...
+
+    def parameter_layers(self) -> List[List[Tuple[torch.Tensor, bool]]]: ...
+
+    def split_axes(self) -> Dict[torch.nn.Parameter, int]: ...
 
 
 class Batch(NamedTuple):
@@ -137,7 +166,7 @@ class Optimizer:
     gradient_clip_norm: Optional[float] = None
     accumulate_steps: int = 1
 
-    def init(self, model: w2l.Wav2Letter, data_group=None) -> "OptimizerState":
+    def init(self, model: Model, data_group=None) -> "OptimizerState":
         return OptimizerState(self, model, data_group)
 
 
@@ -160,26 +189,29 @@ class OptimizerState:
     """The optimizer bound to one model: a `torch.optim.Adam` over the trainable
     layers' parameters, the update count, and the accumulation buffers.
 
-    The layers are those of the JAX layout (`Wav2Letter.parameter_layers`): the convs,
-    whose ``trainable`` flags the optimizer holds, then a trainable-ASG model's table
-    pseudo-layer, which is always trainable (freezing applies to the convs only, as in
-    the JAX facade). `step` consumes the ``.grad`` of the trainable parameters (frozen
-    layers get ``requires_grad=False``, so the backward computes no gradient for them).
+    The layers are the model's `Model.parameter_layers` (wav2letter's: those of the JAX
+    layout, the convs), whose ``trainable`` flags the optimizer holds, then a
+    trainable-ASG model's table pseudo-layer, which is always trainable (freezing
+    applies to the convs only, as in the JAX facade). `step` consumes the ``.grad`` of
+    the trainable parameters (frozen layers get ``requires_grad=False``, so the backward
+    computes no gradient for them).
     `leaves` and `load_leaves` give the state as the leaves of the JAX package's optax
     state, in ``jax.tree_util.tree_leaves`` order, so either package resumes the
-    other's run; a tensor-parallel model's leaves are gathered whole and loaded split.
-    With a ``data_group``, `all_reduce` averages the gradients over it.
+    other's run; a tensor-parallel model's leaves are gathered whole and loaded split
+    (wav2letter's alone). With a ``data_group``, `all_reduce` averages the gradients over
+    it.
     """
 
-    def __init__(self, spec: Optimizer, model: w2l.Wav2Letter, data_group=None):
+    def __init__(self, spec: Optimizer, model: Model, data_group=None):
         self.spec = spec
         self.model = model
         self.data_group = data_group
         self.layers = model.parameter_layers()
-        self.trainable = list(spec.trainable or [True] * len(model.layers))
-        if len(self.trainable) != len(model.layers):
+        layer_count = len(self.layers) - (model.asg is not None)
+        self.trainable = list(spec.trainable or [True] * layer_count)
+        if len(self.trainable) != layer_count:
             raise ValueError("trainable has {} flags for {} layers".format(
-                len(self.trainable), len(model.layers)))
+                len(self.trainable), layer_count))
         if model.asg is not None:
             self.trainable.append(True)
         for layer, flag in zip(self.layers, self.trainable):
@@ -367,30 +399,34 @@ class TrainState:
     """The model (fp32 parameters on the device), its optimizer state, the step, and the
     generator on the model's device that SpecAugment and dropout draw from."""
     step: int
-    model: w2l.Wav2Letter
+    model: Model
     opt_state: OptimizerState
     generator: torch.Generator
 
     @property
     def params(self) -> w2l.Params:
-        """The parameters in the JAX package's layout (numpy), whole (a collective
-        over the model group when the model is tensor-parallel)."""
+        """A wav2letter model's parameters in the JAX package's layout (numpy), whole (a
+        collective over the model group when the model is tensor-parallel)."""
         return w2l.params_to_jax(self.model)
 
 
-def init_train_state(config: w2l.Wav2LetterConfig, optimizer: Optimizer, seed: int = 0,
-                     params: Optional[w2l.Params] = None,
-                     device=DEFAULT_DEVICE, mesh=None) -> TrainState:
-    """A fresh state on ``device``: ``params`` (JAX layout) or `w2l.init_params(seed)`,
-    and a generator on ``device`` seeded with ``seed``. Under a ``mesh`` (a
-    `parallel.mesh.make_mesh` `DeviceMesh`), ``params`` are the full host parameters,
-    the same on every rank: the model keeps this rank's tensor-parallel shards, and the
-    optimizer averages gradients over the data group. Every rank draws the same
-    SpecAugment and dropout masks (the model ranks of one data rank must)."""
+def init_train_state(config: ModelConfig, optimizer: Optimizer, seed: int = 0,
+                     params=None, device=DEFAULT_DEVICE, mesh=None) -> TrainState:
+    """A fresh state on ``device``: ``params`` (the model family's layout: wav2letter's
+    JAX list, a Conformer's state dict) or ``config.init_params(seed)``, and a generator
+    on ``device`` seeded with ``seed``. Under a ``mesh`` (a `parallel.mesh.make_mesh`
+    `DeviceMesh`; wav2letter only), ``params`` are the full host parameters, the same on
+    every rank: the model keeps this rank's tensor-parallel shards, and the optimizer
+    averages gradients over the data group. Every rank draws the same SpecAugment and
+    dropout masks (the model ranks of one data rank must)."""
     if params is None:
-        params = w2l.init_params(config, seed)
-    split, data_group = None, None
-    if mesh is not None:
+        params = config.init_params(seed)
+    data_group = None
+    if mesh is None:
+        model = config.build_model(params, device=device)
+    else:
+        if not isinstance(config, w2l.Wav2LetterConfig):
+            raise ValueError("only wav2letter trains under a mesh")
         from ..parallel import mesh as pmesh
 
         split = pmesh.model_split(mesh)
@@ -398,7 +434,8 @@ def init_train_state(config: w2l.Wav2LetterConfig, optimizer: Optimizer, seed: i
             params = pmesh.shard_params(params, pmesh.param_specs(config.layer_names),
                                         split.rank, split.size)
         data_group = pmesh.axis_group(mesh, pmesh.DATA_AXIS)
-    model = w2l.build_model(config, params, device=device, tensor_parallel=split).train()
+        model = w2l.build_model(config, params, device=device, tensor_parallel=split)
+    model.train()
     generator = torch.Generator(device=torch.device(device)).manual_seed(seed)
     return TrainState(step=0, model=model, opt_state=optimizer.init(model, data_group),
                       generator=generator)
@@ -413,7 +450,7 @@ def _check_criterion(criterion: str) -> None:
         raise ValueError("Unknown criterion: {}".format(criterion))
 
 
-def _fixed_asg_tables(config: w2l.Wav2LetterConfig, criterion: str, asg_transitions,
+def _fixed_asg_tables(config: ModelConfig, criterion: str, asg_transitions,
                       asg_initials, device="cpu"):
     """The ``"asg"`` criterion's (transition, initial) log-score tensors on ``device``,
     converted from the probability tables once, when the step is built; None for the
@@ -428,7 +465,7 @@ def _tables_to(tables, device):
     return None if tables is None else tuple(t.to(device) for t in tables)
 
 
-def _per_example_loss(config: w2l.Wav2LetterConfig, model: w2l.Wav2Letter, criterion: str,
+def _per_example_loss(config: ModelConfig, model: Model, criterion: str,
                       logits: torch.Tensor, logit_lengths: torch.Tensor, batch: Batch,
                       asg_tables) -> torch.Tensor:
     """The criterion's per-example losses: CTC on the logits, or ASG on the per-frame
@@ -449,7 +486,7 @@ def _per_example_loss(config: w2l.Wav2LetterConfig, model: w2l.Wav2Letter, crite
                     initial_log_scores=initials)
 
 
-def loss_fn(config: w2l.Wav2LetterConfig, model: w2l.Wav2Letter, batch: Batch,
+def loss_fn(config: ModelConfig, model: Model, batch: Batch,
             criterion: str = "ctc", train: bool = True,
             generator: Optional[torch.Generator] = None,
             dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
@@ -460,11 +497,13 @@ def loss_fn(config: w2l.Wav2LetterConfig, model: w2l.Wav2Letter, batch: Batch,
     no alignment and score 0, as in the JAX package; ASG's own guard zeroes empty and
     too-long labels. ``asg_tables`` are the ``"asg"`` criterion's log-score tables on the
     batch's device (default: the reference's random tables). ``train`` runs the model's
-    dropout (masks given, or drawn from ``generator``) and remat."""
+    training forward: its dropout (masks given, wav2letter's alone, or drawn from
+    ``generator``), wav2letter's remat, a Conformer's batch statistics."""
     _check_criterion(criterion)
-    logits = model(batch.inputs, train=train, dropout_masks=dropout_masks,
-                   generator=generator)
-    logit_lengths = w2l.prediction_lengths(config, batch.input_lengths).to(torch.int32)
+    masks = {} if dropout_masks is None else {"dropout_masks": dropout_masks}
+    logits = model(batch.inputs, train=train, generator=generator,
+                   input_lengths=batch.input_lengths, **masks)
+    logit_lengths = model.prediction_lengths(batch.input_lengths).to(torch.int32)
     per_example = _per_example_loss(config, model, criterion, logits, logit_lengths, batch,
                                     asg_tables)
     if criterion == "ctc":
@@ -495,7 +534,7 @@ def _wav_features(batch: WavBatch) -> Batch:
     return Batch(features, frame_counts, batch.labels, batch.label_lengths)
 
 
-def make_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+def make_train_step(config: ModelConfig, optimizer: Optimizer,
                     criterion: str = "ctc", device=DEFAULT_DEVICE,
                     spec_augment: Optional[SpecAugment] = None,
                     asg_transitions=None, asg_initials=None):
@@ -515,7 +554,7 @@ def make_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
     return train_step
 
 
-def make_wav_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+def make_wav_train_step(config: ModelConfig, optimizer: Optimizer,
                         criterion: str = "ctc", device=DEFAULT_DEVICE,
                         spec_augment: Optional[SpecAugment] = None,
                         asg_transitions=None, asg_initials=None):
@@ -533,7 +572,7 @@ def make_wav_train_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
     return train_step
 
 
-def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+def make_multi_wav_step(config: ModelConfig, optimizer: Optimizer,
                         criterion: str = "ctc", device=DEFAULT_DEVICE,
                         spec_augment: Optional[SpecAugment] = None,
                         asg_transitions=None, asg_initials=None):
@@ -557,7 +596,7 @@ def make_multi_wav_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
     return multi_step
 
 
-def make_multi_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+def make_multi_step(config: ModelConfig, optimizer: Optimizer,
                     criterion: str = "ctc", device=DEFAULT_DEVICE,
                     spec_augment: Optional[SpecAugment] = None,
                     asg_transitions=None, asg_initials=None):
@@ -589,7 +628,7 @@ def sample_indices(example_count: int, batch_size: int, steps: int,
                         for _ in range(steps)])
 
 
-def make_device_epoch_step(config: w2l.Wav2LetterConfig, optimizer: Optimizer,
+def make_device_epoch_step(config: ModelConfig, optimizer: Optimizer,
                            batch_size: int, steps: int, criterion: str = "ctc",
                            spec_augment: Optional[SpecAugment] = None,
                            asg_transitions=None, asg_initials=None, mesh=None):
@@ -650,18 +689,17 @@ def _gathered(dataset, rows: torch.Tensor, local_rows: slice) -> Batch:
     return batch
 
 
-def make_eval_step(config: w2l.Wav2LetterConfig, criterion: str = "ctc",
+def make_eval_step(config: ModelConfig, criterion: str = "ctc",
                    asg_transitions=None, asg_initials=None):
     """``(model, Batch) -> (log_probs, logit_lengths, per_example_loss)`` with no
     gradient, on the device the model and batch lie on. Unlike training, the CTC losses
     carry no feasibility guard, as in the JAX package."""
     tables = _fixed_asg_tables(config, criterion, asg_transitions, asg_initials)
 
-    def eval_step(model: w2l.Wav2Letter, batch: Batch):
+    def eval_step(model: Model, batch: Batch):
         with torch.no_grad(), ieee_fp32():
-            logits = model(batch.inputs)
-            logit_lengths = w2l.prediction_lengths(config, batch.input_lengths).to(
-                torch.int32)
+            logits = model(batch.inputs, input_lengths=batch.input_lengths)
+            logit_lengths = model.prediction_lengths(batch.input_lengths).to(torch.int32)
             per_example = _per_example_loss(config, model, criterion, logits, logit_lengths,
                                             batch, _tables_to(tables, logits.device))
             return torch.log_softmax(logits, dim=-1), logit_lengths, per_example
