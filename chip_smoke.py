@@ -6,7 +6,7 @@ warm-up), the model variants (ASG, the raw-wave model, the activations), export
 bundles and parallelism (a data-parallel world of one, two processes sharing the card).
 
     python3 chip_smoke.py [--profile | --facade-only | --bundle-only | --parallel-only |
-                           --dgrad-only]
+                           --dgrad-only | --attention-only]
 
 Builds every kernel of ``speechless_tpu_torch/csrc/`` with nvcc for sm_90a (one nvcc per
 source, all started together) and prints ptxas's registers and spills, then:
@@ -216,7 +216,17 @@ source, all started together) and prints ptxas's registers and spills, then:
   kernel's launches and the `conv.dgrad_*` trace counters in `make_device_epoch_step`
   at the training cell's batch (eight launches a step, big_conv_1 and the inner convs;
   none with 8 layers frozen).
+* phase M (after phase L): the Conformer's relative-position attention kernel pair
+  (`ops/rel_attention.py`, ``csrc/rel_attention.cu``) against its plain version
+  `rel_attention_reference`, at the edges and at the training cell's shape: O, the LSE
+  and every gradient, each within a fixed limit set by the kernel's own bf16 roundings
+  (ATTN_LIMITS; the library route it replaced is printed beside it); its ms beside its
+  bound, the library route's and the plain version's; the tiles run, the largest tensor
+  the block's attention allocates and the device kernels it runs; the kernel's launches
+  (2 a block) and tile counters in the Conformer's resident training call
+  (`make_device_epoch_step` at the cell's batch and padded length).
 * with ``--dgrad-only``: the kernel builds and phase L alone, and no result line;
+  with ``--attention-only``: the kernel builds and phase M alone, and no result line;
   with ``--facade-only``: the kernel builds and phases F, I and G alone, and no result;
   with ``--bundle-only``: the kernel builds and phases B and J alone, and no result;
   with ``--parallel-only``: the kernel builds, phase B, phase F's corpus staging and
@@ -4998,6 +5008,347 @@ def resident_step_launches(device) -> dict:
     return numbers
 
 
+# ---- phase M: the Conformer's relative-position attention kernel pair ---------------
+ATTN_HEADS, ATTN_FRAMES, ATTN_BATCH = 8, 616, 32   # the Conformer training cell's shape
+ATTN_TRAFFIC = ROOT / "benchmark" / "traffic" / "train-clean-100-resident-10ms.json"
+# (T', lengths) of the edge cases: lengths 1, 63, 64, 65 and T' in a T' that is not a
+# multiple of the 64-frame tile; a short T' of two tiles.
+ATTN_EDGES = ((ATTN_FRAMES, (1, 63, 64, 65, ATTN_FRAMES, 300)), (70, (70, 1, 64, 65, 6)))
+# The kernel's largest gap from the plain version (fp32, TF32 off, on the same bf16
+# inputs, with qu, qv and the position term rounded to bf16 as the kernel rounds them),
+# as a share of the plain version's largest |value|, by output. O, dk and dv are stored
+# in bf16 (2^-9 of a value) from fp32 sums of products whose bf16 factors (P, dS) were
+# rounded once (2^-9 each, averaging out over the sum): 4 x 2^-9. dq, dp and the
+# gradients of u and v are sums of dS over keys or rows, where dP - D nearly cancels
+# before dS is rounded to bf16, so that rounding weighs more against their largest
+# value: 2 %. A fault (a wrong tile, skew, mask or sum) moves an output by its own size.
+ATTN_LIMITS = {"O": 2.0 ** -7, "dk": 2.0 ** -7, "dv": 2.0 ** -7,
+               "dq": 0.02, "dp": 0.02, "du": 0.02, "dv_bias": 0.02}
+ATTN_LSE_ATOL = 1e-3  # fp32 on both sides from the same rounded qu, qv: sums in another order
+ATTN_STEPS = 2  # steps of the Conformer's resident call in phase M
+
+
+def attention_input_frames(count: int) -> list:
+    """Input frames of ``count`` rows at the quantiles (i + 0.5) / count of the training
+    cell's utterance lengths (its traffic file: seconds at a 160-sample hop)."""
+    import statistics
+
+    mix = json.loads(ATTN_TRAFFIC.read_text())
+    spec, normal = mix["lengths"], statistics.NormalDist()
+    frames = []
+    for i in range(count):
+        seconds = spec["mean_s"] + spec["sd_s"] * normal.inv_cdf((i + 0.5) / count)
+        seconds = min(max(seconds, spec["min_s"]), spec["max_s"])
+        frames.append(1 + int(round(seconds * 16000)) // mix["hop_samples"])
+    return frames
+
+
+def attention_lengths(count: int) -> list:
+    """T' of `attention_input_frames`' rows (the Conformer's 4x subsampling)."""
+    return [((frames - 1) // 2 + 1 - 1) // 2 + 1 for frames in attention_input_frames(count)]
+
+
+def attention_case(rng, lengths, frames, device):
+    """bf16 q, k, v (B, T', 8, 64) and p (the projected sinusoids of a Glorot W_pos), fp32
+    u and v in U(-0.5, 0.5) (the cell's draw), int32 lengths."""
+    import torch
+
+    from speechless_tpu_torch.models import conformer
+
+    d = ATTN_HEADS * 64
+    shape = (len(lengths), frames, ATTN_HEADS, 64)
+    q, k, v = (torch.tensor(rng.normal(size=shape), dtype=torch.bfloat16, device=device)
+               for _ in range(3))
+    u, vb = (torch.tensor(rng.uniform(-0.5, 0.5, (ATTN_HEADS, 64)), dtype=torch.float32,
+                          device=device) for _ in range(2))
+    limit = math.sqrt(6.0 / (2 * d))
+    weight = torch.tensor(rng.uniform(-limit, limit, (d, d)), dtype=torch.float32,
+                          device=device)
+    p = (conformer.relative_positions(frames, d, device) @ weight.T).to(torch.bfloat16)
+    return (q, k, v, u, vb, p.view(2 * frames - 1, ATTN_HEADS, 64).contiguous(),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+def library_attention_call(q, k, v, u, vb, p, lengths):
+    """The library route the kernel replaced (`conformer.library_attention`) in bf16."""
+    import torch
+
+    from speechless_tpu_torch.models import conformer
+
+    valid = torch.arange(q.shape[1], device=q.device)[None, :] < lengths[:, None]
+    return conformer.library_attention(q, k, v, u, vb, p,
+                                       ~(valid[:, None, :, None] & valid[:, None, None, :]),
+                                       ~valid[:, None, :, None], torch.bfloat16)
+
+
+def attention_gaps(rng, lengths, frames, device) -> dict:
+    """The kernel against the plain version (fp32, TF32 off, qu, qv and the position term
+    rounded to bf16 as the kernel rounds them) on the same bf16 inputs: for O and each
+    gradient the largest difference, absolute (``kernel_abs``) and over the plain
+    version's largest |value| (``kernel``, held to ATTN_LIMITS); the library route's
+    share beside it, for comparison only; the LSE's largest absolute difference; whether
+    rows past a length are exactly 0."""
+    import torch
+
+    from speechless_tpu_torch.ops import rel_attention
+    from speechless_tpu_torch.precision import ieee_fp32
+
+    inputs = attention_case(rng, lengths, frames, device)
+    q, k, v, u, vb, p, lens = inputs
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, u, vb, p)]
+    grad = torch.tensor(rng.normal(size=q.shape), dtype=torch.bfloat16, device=device)
+    names = ("O", "dq", "dk", "dv", "du", "dv_bias", "dp")
+
+    def plain(*args, with_lse=False):
+        return rel_attention.rel_attention_reference(*args, rounding=torch.bfloat16,
+                                                     with_lse=with_lse)
+
+    def run(fn, cast):
+        args = [leaf.detach().to(cast(leaf)).requires_grad_(True) for leaf in leaves]
+        out = fn(*args, lens)
+        grads = torch.autograd.grad(out, args, grad.to(out.dtype))
+        return [t.detach().float() for t in (out, *grads)]
+
+    with ieee_fp32():
+        want = run(plain, lambda leaf: torch.float32)
+    got = run(rel_attention.rel_attention, lambda leaf: leaf.dtype)
+    library = run(library_attention_call, lambda leaf: leaf.dtype)
+    torch.cuda.synchronize()
+    gaps = {}
+    for name, g, l, w in zip(names, got, library, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        gaps[name] = {"kernel": float((g - w).abs().max()) / scale,
+                      "kernel_abs": float((g - w).abs().max()),
+                      "library": float((l - w).abs().max()) / scale}
+    o = torch.empty_like(q)
+    o32 = torch.empty(q.shape, dtype=torch.float32, device=device)
+    lse = torch.empty((len(lengths), ATTN_HEADS, frames), dtype=torch.float32, device=device)
+    rel_attention._launch(q, k, v, u, vb, p, lens, o, o32, lse)
+    with ieee_fp32(), torch.no_grad():
+        _, want_lse = plain(*(t.float() for t in (q, k, v, u, vb, p)), lens, with_lse=True)
+        gaps["LSE"] = {"kernel_abs": float((lse - want_lse).abs().max())}
+    zero_rows = all(bool((got[0][row, own:] == 0).all()) for row, own in enumerate(lengths))
+    gaps["zero_rows_past_length"] = zero_rows
+    return gaps
+
+
+def check_attention_gaps(name: str, gaps: dict) -> None:
+    for tensor, gap in gaps.items():
+        if tensor == "LSE":
+            check(gap["kernel_abs"] <= ATTN_LSE_ATOL, "rel_attention {}: LSE off by {:.3g}"
+                  .format(name, gap["kernel_abs"]))
+        elif tensor == "zero_rows_past_length":
+            check(gap, "rel_attention {}: a row past its length is not 0".format(name))
+        else:
+            check(gap["kernel"] <= ATTN_LIMITS[tensor],
+                  "rel_attention {} {}: kernel {:.3g} of the largest value from the plain "
+                  "version, limit {:.3g} (the library route: {:.3g})".format(
+                      name, tensor, gap["kernel"], ATTN_LIMITS[tensor], gap["library"]))
+
+
+def conformer_step_launches(device) -> dict:
+    """The Conformer's resident training call (`make_device_epoch_step`, ATTN_STEPS steps)
+    at the training cell's shape: 32 rows a step from a 64-row resident corpus of 2,464
+    padded input frames (616 after subsampling) at the traffic's length quantiles, bf16
+    compute. After a warm-up call, the kernel entry's launches in one call (the count
+    set to 0 just before it), under a profiler the ``conformer.attn_tiles*`` counters,
+    and the call's ms by CUDA events."""
+    import torch
+
+    from speechless_tpu_torch.data.device_dataset import DeviceDataset
+    from speechless_tpu_torch.models import conformer
+    from speechless_tpu_torch.ops import rel_attention
+    from speechless_tpu_torch.train import trainer
+    from speechless_tpu_torch.utils import trace
+
+    config = conformer.ConformerConfig(compute_dtype=torch.bfloat16)
+    rows, padded = 2 * ATTN_BATCH, 4 * ATTN_FRAMES
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    lengths = torch.tensor(attention_input_frames(rows), dtype=torch.int32, device=device)
+    inputs = torch.randn((rows, padded, config.feat_in), generator=generator, device=device,
+                         dtype=torch.float16)
+    inputs.masked_fill_(torch.arange(padded, device=device)[None, :, None]
+                        >= lengths[:, None, None], 0.0)
+    label_lengths = (lengths // 10).to(torch.int32)  # 15 a second at 100 frames a second
+    label_width = -(-int(label_lengths.max()) // 64) * 64
+    label_rows = torch.randint(0, config.grapheme_set_size - 1, (rows, label_width),
+                               generator=generator, device=device, dtype=torch.int32)
+    label_rows.masked_fill_(torch.arange(label_width, device=device)[None]
+                            >= label_lengths[:, None], -1)
+    dataset = DeviceDataset(inputs, lengths, label_rows, label_lengths)
+    optimizer = trainer.make_optimizer(1e-4)
+    state = trainer.init_train_state(config, optimizer,
+                                     params=conformer.init_params(config, SEED),
+                                     device=device)
+    epoch = trainer.make_device_epoch_step(config, optimizer, ATTN_BATCH, ATTN_STEPS)
+    state, _ = epoch(state, dataset, generator)  # warm-up: cuDNN's plans
+    torch.cuda.synchronize()
+    rel_attention.rel_attention.launches = 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        state, metrics = epoch(state, dataset, generator)
+        torch.cuda.synchronize()
+        counters = trace.snapshot()["counters"]
+    launches = rel_attention.rel_attention.launches
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    state, metrics = epoch(state, dataset, generator)
+    events[1].record()
+    torch.cuda.synchronize()
+    losses = metrics["step_losses"].cpu().numpy()
+    check(np.isfinite(losses).all(), "the Conformer's resident step: non-finite loss")
+    numbers = {"launches": launches, "expected": 2 * config.n_layers * ATTN_STEPS,
+               "attn_tiles": counters.get("conformer.attn_tiles", 0),
+               "attn_tiles_run": counters.get("conformer.attn_tiles_run", 0),
+               "ms_per_step": events[0].elapsed_time(events[1]) / ATTN_STEPS}
+    print("phase M make_device_epoch_step Conformer-CTC Large ({} x {} frames, {} steps a "
+          "call): kernel launches {} (expected {}: forward and backward in each of {} "
+          "blocks), counters conformer.attn_tiles {} conformer.attn_tiles_run {}; {:.2f} ms "
+          "a step".format(ATTN_BATCH, padded, ATTN_STEPS, launches, numbers["expected"],
+                          config.n_layers, numbers["attn_tiles"], numbers["attn_tiles_run"],
+                          numbers["ms_per_step"]), flush=True)
+    check(launches == numbers["expected"],
+          "the Conformer's step launched the attention kernel {} times, expected {}".format(
+              launches, numbers["expected"]))
+    check(0 < numbers["attn_tiles_run"] < numbers["attn_tiles"],
+          "the Conformer's step counted tiles {}".format(numbers))
+    del state, epoch, dataset, inputs
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def phase_m(device, card: str) -> dict:
+    """Phase M: the Conformer's relative-position attention kernel pair
+    (`ops/rel_attention.py`, ``csrc/rel_attention.cu``). At the edges (ATTN_EDGES) and at
+    the training cell's shape (32 rows of T' = 616 at the traffic's length quantiles, 8
+    heads of 64), O, the LSE and every gradient (q, k, v, u, v, p) against the plain
+    version (fp32, TF32 off) on the same bf16 inputs: each output within its limit of
+    ATTN_LIMITS (the kernel's own bf16 roundings; the library route's gap is printed
+    beside it, for comparison only), the LSE within ATTN_LSE_ATOL, rows past a length
+    exactly 0. Then at the cell's shape: the forward + backward ms of the kernel pair, of
+    the library route (`library_ms`) and of the plain version, the bound (the own pairs'
+    operations over 989 TFLOP/s bf16 or the tensors' bytes over 3.35 TB/s), the tiles
+    run, the largest tensor the block's attention allocates on each route, the device
+    kernels of one forward + backward of the block's attention (no ``fmha``), and the
+    kernel's launches and tile counters in the Conformer's resident training call
+    (`conformer_step_launches`). The limits are checked last, after every number is
+    printed."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from speechless_tpu_torch.models import conformer
+    from speechless_tpu_torch.ops import rel_attention
+    from speechless_tpu_torch.precision import ieee_fp32
+
+    start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    cell_lengths = attention_lengths(ATTN_BATCH)
+    cases = [("edge T'={}".format(frames), frames, lengths) for frames, lengths in ATTN_EDGES]
+    cases.append(("cell", ATTN_FRAMES, cell_lengths))
+    results = {}
+    for name, frames, lengths in cases:
+        gaps = attention_gaps(rng, lengths, frames, device)
+        results[name] = gaps
+        print("phase M {} (lengths {}): {}".format(
+            name, lengths if len(lengths) < 8 else "{}..{}".format(min(lengths), max(lengths)),
+            json.dumps(gaps)), flush=True)
+        torch.cuda.empty_cache()
+
+    q, k, v, u, vb, p, lens = attention_case(rng, cell_lengths, ATTN_FRAMES, device)
+    grad = torch.tensor(rng.normal(size=q.shape), dtype=torch.bfloat16, device=device)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, u, vb, p)]
+    fp32_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+
+    def forward_backward(fn, args, dtype=torch.bfloat16):
+        out = fn(*args, lens)
+        return torch.autograd.grad(out, args, grad.to(dtype))
+
+    def plain():
+        with ieee_fp32():
+            return forward_backward(lambda *a: rel_attention.rel_attention_reference(
+                *a, rounding=torch.bfloat16), fp32_leaves, torch.float32)
+
+    # device times: each call queued behind a device sleep, so the host's issue is hidden
+    ms = device_ms(lambda: forward_backward(rel_attention.rel_attention, leaves), 20)
+    forward_ms = device_ms(lambda: rel_attention.rel_attention(*leaves, lens), 20)
+    library_ms = device_ms(lambda: forward_backward(library_attention_call, leaves), 10)
+    plain_ms = cuda_ms(plain, 2)
+    own = sum(length * length for length in cell_lengths) * ATTN_HEADS
+    # per own pair: the forward's content, position and value products; the backward's
+    # recomputed content and position, dV, dP, dK, dq's two parts and d(band): 11 x 2 x 64
+    flops = own * 11 * 2 * 64
+    tensor_bytes = ATTN_BATCH * ATTN_FRAMES * ATTN_HEADS * 64 * 2
+    # q, k, v, O, dO, dq, dk, dv (bf16), p and dp, LSE
+    nbytes = 8 * tensor_bytes + 2 * (2 * ATTN_FRAMES - 1) * ATTN_HEADS * 64 * 2 \
+        + ATTN_BATCH * ATTN_HEADS * ATTN_FRAMES * 4
+    bound_ms = max(flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    tiles, tiles_run = rel_attention.tile_counts(lens, ATTN_FRAMES)
+    timing = {"ms": ms, "forward_ms": forward_ms, "library_ms": library_ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": "operations" if flops / BF16_OPS_PER_S > nbytes / HBM_BYTES_PER_S
+              else "bytes", "own_pair_tflops": flops / ms / 1e9,
+              "tiles": tiles, "tiles_run": int(tiles_run),
+              "tile_share": 100.0 * int(tiles_run) / tiles}
+    print("phase M cell ({}): kernel pair forward + backward {:.4f} ms (forward {:.4f}; "
+          "{:.1f} TFLOP/s on the own pairs' work), bound {:.4f} ms ({}), library route "
+          "{:.4f} ms, plain {:.2f} ms; tiles run {} of {} ({:.2f} %)".format(
+              card, ms, forward_ms, timing["own_pair_tflops"], bound_ms, timing["bound_by"],
+              library_ms, plain_ms, timing["tiles_run"], tiles, timing["tile_share"]),
+          flush=True)
+
+    class LargestTensor(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for tensor in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(tensor, torch.Tensor):
+                    self.numel = max(self.numel, tensor.numel())
+            return out
+
+    config = conformer.ConformerConfig(compute_dtype=torch.bfloat16)
+    block = conformer.RelPositionAttention(config, device=device)
+    x = torch.randn((ATTN_BATCH, ATTN_FRAMES, config.d_model), device=device,
+                    requires_grad=True)
+    positions = conformer.relative_positions(ATTN_FRAMES, config.d_model, device)
+    valid = torch.arange(ATTN_FRAMES, device=device)[None, :] < lens[:, None]
+    routes = {"kernel": conformer.attention_core(True, valid, torch.bfloat16),
+              "library": conformer.attention_core(False, valid, torch.bfloat16)}
+    largest, kernels = {}, {}
+    for route, attend in routes.items():
+        watch = LargestTensor()
+        with watch:
+            block(x, positions, attend, torch.bfloat16).float().square().mean().backward()
+        largest[route] = watch.numel
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            block(x, positions, attend, torch.bfloat16).float().square().mean().backward()
+            torch.cuda.synchronize()
+        kernels[route] = sorted({event.name for event in prof.events()
+                                 if event.device_type == torch.autograd.DeviceType.CUDA})
+    scores = ATTN_BATCH * ATTN_HEADS * ATTN_FRAMES * ATTN_FRAMES
+    print("phase M the block's attention, forward + backward: largest tensor {} elements on "
+          "the kernel's route, {} on the library route (B H T'^2 = {}); the kernel route's "
+          "device kernels: {}".format(largest["kernel"], largest["library"], scores,
+                                      kernels["kernel"]), flush=True)
+    del block, x, leaves, fp32_leaves, routes
+    torch.cuda.empty_cache()
+    step = conformer_step_launches(device)
+
+    for name, gaps in results.items():
+        check_attention_gaps(name, gaps)
+    check(largest["kernel"] < scores, "the kernel's route allocated a score-sized tensor")
+    check(not any("fmha" in name for name in kernels["kernel"])
+          and any("rel_attention_fwd_kernel" in name for name in kernels["kernel"])
+          and any("rel_attention_bwd_kernel" in name for name in kernels["kernel"]),
+          "the kernel's route ran {}".format(kernels["kernel"]))
+    wall = time.perf_counter() - start
+    print("phase M ({}): {:.1f} s".format(card, wall))
+    return {"gaps": results, "timing": timing, "largest": largest, "step": step,
+            "wall_s": wall}
+
+
 def main() -> None:
     import argparse
 
@@ -5021,6 +5372,10 @@ def main() -> None:
     parser.add_argument("--dgrad-only", action="store_true",
                         help="build the kernels and run phase L (the conv data-gradient "
                              "kernel) alone; prints no result line")
+    parser.add_argument("--attention-only", action="store_true",
+                        help="build the kernels and run phase M (the Conformer's "
+                             "relative-position attention kernel pair) alone; prints no "
+                             "result line")
     parser.add_argument("--k2-worker", nargs=4, metavar=("RANK", "PORT", "DIR", "DEVICE"),
                         help=argparse.SUPPRESS)  # one rank of phase K2, started by it
     args = parser.parse_args()
@@ -5067,6 +5422,10 @@ def main() -> None:
         phase_l(device, card)
         print("chip_smoke --dgrad-only: phase L passed; no result line")
         return
+    if args.attention_only:
+        phase_m(device, card)
+        print("chip_smoke --attention-only: phase M passed; no result line")
+        return
     if args.facade_only:
         with tempfile.TemporaryDirectory() as directory:
             facade = phase_f(device, card, None, Path(directory))
@@ -5110,6 +5469,7 @@ def main() -> None:
         bundles = phase_j(device, card, transcriber, batch, Path(lm_directory))
     train = phase_c(device, args.profile, ROOT / "chiprun_out" / "profile_train.json")
     dgrad = phase_l(device, card)
+    attention = phase_m(device, card)
     with tempfile.TemporaryDirectory() as directory:
         facade = phase_f(device, card, train["train"], Path(directory))
         model_variants = phase_i(device, card, train["train"], Path(directory))
@@ -5208,7 +5568,19 @@ def main() -> None:
         "plain_ms": dgrad["timings"]["big_conv_1 cell"]["plain_ms"],
         "bound_ms": dgrad["timings"]["big_conv_1 cell"]["bound_ms"],
         "bound_by": "operations",
-        "library_ms": dgrad["timings"]["big_conv_1 cell"]["library_ms"]}]}))
+        "library_ms": dgrad["timings"]["big_conv_1 cell"]["library_ms"]}, {
+        "name": "rel_attention", "route": "cuda",
+        "source": "speechless_tpu_torch/csrc/rel_attention.cu",
+        "replaces": "none (rel_shift, the pair mask and SDPA's memory-efficient kernels)",
+        "launches": attention["step"]["launches"],
+        "max_abs_err": max(gap["kernel_abs"] for gaps in attention["gaps"].values()
+                           for gap in gaps.values() if isinstance(gap, dict)),
+        "max_rel_err": max(gap["kernel"] for gaps in attention["gaps"].values()
+                           for gap in gaps.values() if isinstance(gap, dict) and "kernel" in gap),
+        "ms": attention["timing"]["ms"], "plain_ms": attention["timing"]["plain_ms"],
+        "bound_ms": attention["timing"]["bound_ms"],
+        "bound_by": attention["timing"]["bound_by"],
+        "library_ms": attention["timing"]["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -15,13 +15,18 @@ config: 18 blocks of width 512, 8 heads, 121.5 M parameters).
   and v: ``s_ij = ((q_i + u) . k_j + (q_i + v) . p_(i-j)) / sqrt(d_k)``, where
   ``p_r = W_pos sinusoid(r)`` for ``r`` from ``T' - 1`` down to ``-(T' - 1)`` (sin on the
   even channels, cos on the odd, frequencies ``10000^(-2i/d)``; W_pos has no bias). The
-  p term is one matmul over all ``2T' - 1`` offsets (scaled through ``q + v``), aligned by
-  NeMo's `rel_shift`, and filled with -10000 wherever the query or the key lies past its
-  row's length. The attention core is one ``F.scaled_dot_product_attention`` call with
-  ``q + u`` as its query and that term as its additive float mask (NeMo's
-  ``use_pytorch_sdpa`` route), pinned to a backend that takes a float mask and returns
-  its gradient: the memory-efficient (CUTLASS) kernels on the card, the math route on
-  the CPU. Rows past a row's length are zeroed after it, then the output projection.
+  attention core has two routes (`ops/rel_attention.py::takes_kernel`). On the card in
+  bf16 with d_k 64 it is the hand-written kernel pair ``csrc/rel_attention.cu``
+  (`ops/rel_attention.py`), which computes the position term tile by tile from the
+  projected sinusoids, skips the tiles past each row's length and writes no score
+  tensor. Otherwise it is the library route `library_attention`: the p term is one
+  matmul over all ``2T' - 1`` offsets (scaled through ``q + v``), aligned by NeMo's
+  `rel_shift`, and filled with -10000 wherever the query or the key lies past its row's
+  length; then one ``F.scaled_dot_product_attention`` call with ``q + u`` as its query
+  and that term as its additive float mask (NeMo's ``use_pytorch_sdpa`` route), pinned
+  to a backend that takes a float mask and returns its gradient (the memory-efficient
+  kernels on the card, the math route on the CPU). Either way rows past a row's length
+  leave the core as zeros, then the output projection.
 * The convolution module: pointwise 1 x 1 conv d -> 2d (a Linear over ``(B, T, C)``),
   GLU over the channels, padded frames set to 0, depthwise conv (K taps, SAME), BatchNorm
   over all ``B x T'`` positions, padding included (batch statistics and a running-average
@@ -44,24 +49,28 @@ dropout is not ported.
 While a profiler records (`utils/trace.py`) the forward keeps the spans
 ``conformer.subsample``, ``conformer.attention`` and ``conformer.conv`` (each block's)
 and counts ``conformer.attn_pairs`` (rows x T'^2, the query-key pairs the attention
-computes) and ``conformer.attn_pairs_own`` (the sum of each row's own T'^2, on the card).
+computes) and ``conformer.attn_pairs_own`` (the sum of each row's own T'^2, on the card);
+on the kernel's route also ``conformer.attn_tiles`` (rows x the padded grid's 64 x 64
+tiles) and ``conformer.attn_tiles_run`` (the sum of each row's ceil(len / 64)^2, the
+tiles the kernel runs, on the card).
 
 Parameters are a state dict (`init_params`, `build_model`): ``pre_encode.*``,
 ``layers.<i>.*`` and ``decoder.*``, every tensor in torch's layout.
 """
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import rel_attention
 from ..utils import trace
 
 Params = Dict[str, torch.Tensor]
 
-MASK_FILL = -10000.0  # NeMo's INF_VAL: the score of a masked query-key pair
+MASK_FILL = rel_attention.MASK_FILL  # the score of a masked query-key pair
 BATCH_NORM_MOMENTUM = 0.1
 BATCH_NORM_EPS = 1e-5
 LAYER_NORM_EPS = 1e-5
@@ -213,31 +222,56 @@ class RelPositionAttention(nn.Module):
         self.pos_bias_u = nn.Parameter(torch.zeros(heads, d // heads, device=device))
         self.pos_bias_v = nn.Parameter(torch.zeros(heads, d // heads, device=device))
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, pair_masked: torch.Tensor,
-                row_masked: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """``x`` ``(B, T, d)``; ``positions`` the `relative_positions` table;
-        ``pair_masked`` ``(B, 1, T, T)`` True where the query or the key is padding;
-        ``row_masked`` ``(B, 1, T, 1)`` True where the query is."""
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, attend: Callable,
+                dtype: torch.dtype) -> torch.Tensor:
+        """``x`` ``(B, T, d)``; ``positions`` the `relative_positions` table; ``attend``
+        the forward's attention core, ``(q, k, v, u, v, p) -> (B, T, H, d_k)``
+        (`attention_core`)."""
         b, t, d = x.shape
         heads, d_k = self.heads, d // self.heads
         q = _linear(x, self.linear_q, dtype).view(b, t, heads, d_k)
-        k = _linear(x, self.linear_k, dtype).view(b, t, heads, d_k).transpose(1, 2)
-        v = _linear(x, self.linear_v, dtype).view(b, t, heads, d_k).transpose(1, 2)
+        k = _linear(x, self.linear_k, dtype).view(b, t, heads, d_k)
+        v = _linear(x, self.linear_v, dtype).view(b, t, heads, d_k)
         p = _linear(positions, self.linear_pos, dtype).view(2 * t - 1, heads, d_k)
-        # A zero offset row in front of p makes the matmul write the zero column NeMo's
-        # rel_shift pads in, at an aligned width of 2T and with no copy.
-        p = F.pad(p, (0, 0, 0, 0, 1, 0))
-        q_u = (q + self.pos_bias_u).to(dtype).transpose(1, 2)
-        # The scale folded into q + v: one rounding, where NeMo rounds the scores again.
-        q_v = ((q + self.pos_bias_v) * (1.0 / math.sqrt(d_k))).to(dtype).transpose(1, 2)
-        position_term = torch.where(pair_masked, MASK_FILL,
-                                    rel_shift(torch.matmul(q_v, p.permute(1, 2, 0))))
-        from torch.nn.attention import sdpa_kernel
+        out = attend(q, k, v, self.pos_bias_u, self.pos_bias_v, p)
+        return _linear(out.reshape(b, t, d), self.linear_out, dtype)
 
-        with sdpa_kernel(_attention_backends(x.device)):
-            out = F.scaled_dot_product_attention(q_u, k, v, attn_mask=position_term)
-        out = out.masked_fill(row_masked, 0.0).transpose(1, 2).reshape(b, t, d)
-        return _linear(out, self.linear_out, dtype)
+
+def attention_core(fused: bool, valid: torch.Tensor, dtype: torch.dtype) -> Callable:
+    """One forward's attention core, ``(q, k, v, u, v, p) -> (B, T, H, d_k)``, for rows
+    whose frames are ``valid`` ``(B, T)``: the kernel pair (`rel_attention.rel_attention`)
+    where ``fused``, which reads each row's length, else `library_attention` over the
+    masks of the padded pairs and rows."""
+    if fused:
+        lengths = valid.sum(1, dtype=torch.int32)
+        return lambda *tensors: rel_attention.rel_attention(*tensors, lengths)
+    pair_masked = ~(valid[:, None, :, None] & valid[:, None, None, :])
+    row_masked = ~valid[:, None, :, None]
+    return lambda *tensors: library_attention(*tensors, pair_masked, row_masked, dtype)
+
+
+def library_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pos_bias_u: torch.Tensor, pos_bias_v: torch.Tensor, p: torch.Tensor,
+                      pair_masked: torch.Tensor, row_masked: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The attention core off the kernel's route: ``q``, ``k``, ``v`` ``(B, T, H, d_k)``,
+    ``p`` ``(2T - 1, H, d_k)`` -> ``(B, T, H, d_k)`` through `rel_shift`, the -10000 mask
+    and SDPA (see the module docstring)."""
+    d_k = q.shape[3]
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    # A zero offset row in front of p makes the matmul write the zero column NeMo's
+    # rel_shift pads in, at an aligned width of 2T and with no copy.
+    p = F.pad(p, (0, 0, 0, 0, 1, 0))
+    q_u = (q + pos_bias_u).to(dtype).transpose(1, 2)
+    # The scale folded into q + v: one rounding, where NeMo rounds the scores again.
+    q_v = ((q + pos_bias_v) * (1.0 / math.sqrt(d_k))).to(dtype).transpose(1, 2)
+    position_term = torch.where(pair_masked, MASK_FILL,
+                                rel_shift(torch.matmul(q_v, p.permute(1, 2, 0))))
+    from torch.nn.attention import sdpa_kernel
+
+    with sdpa_kernel(_attention_backends(q.device)):
+        out = F.scaled_dot_product_attention(q_u, k, v, attn_mask=position_term)
+    return out.masked_fill(row_masked, 0.0).transpose(1, 2)
 
 
 class ConvModule(nn.Module):
@@ -283,12 +317,12 @@ class ConformerBlock(nn.Module):
         self.feed_forward2 = FeedForward(config, device=device)
         self.norm_out = norm()
 
-    def forward(self, x: torch.Tensor, positions, masks: Tuple[torch.Tensor, ...],
-                dtype: torch.dtype, train: bool, dropout: float,
+    def forward(self, x: torch.Tensor, positions, attend: Callable,
+                frame_masked: torch.Tensor, dtype: torch.dtype, train: bool, dropout: float,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
-        """``x`` ``(B, T, d)`` fp32 -> the block's output, fp32. ``dropout`` is the rate
-        in force (0 outside training)."""
-        pair_masked, row_masked, frame_masked = masks
+        """``x`` ``(B, T, d)`` fp32 -> the block's output, fp32. ``frame_masked`` ``(B, T,
+        1)`` is True on padding; ``attend`` the attention core (`attention_core`);
+        ``dropout`` is the rate in force (0 outside training)."""
 
         def branch(h):
             return _dropout(h, dropout, generator) if dropout else h
@@ -296,8 +330,7 @@ class ConformerBlock(nn.Module):
         r = x + 0.5 * branch(self.feed_forward1(_layer_norm(x, self.norm_feed_forward1),
                                                 dtype, dropout, generator))
         with trace.span("conformer.attention"):
-            h = self.self_attn(_layer_norm(r, self.norm_self_att), positions, pair_masked,
-                               row_masked, dtype)
+            h = self.self_attn(_layer_norm(r, self.norm_self_att), positions, attend, dtype)
         r = r + branch(h)
         with trace.span("conformer.conv"):
             h = self.conv(_layer_norm(r, self.norm_conv), frame_masked, dtype, train)
@@ -351,14 +384,19 @@ class Conformer(nn.Module):
         t = x.shape[1]
         lengths = prediction_lengths(input_lengths)
         valid = torch.arange(t, device=x.device)[None, :] < lengths[:, None]   # (B, T')
-        masks = (~(valid[:, None, :, None] & valid[:, None, None, :]),
-                 ~valid[:, None, :, None], ~valid[:, :, None])
+        fused = rel_attention.takes_kernel(x.device, dtype, config.d_model // config.n_heads)
+        attend = attention_core(fused, valid, dtype)
         if trace.recording():
             trace.count("conformer.attn_pairs", batch * t * t)
             trace.count("conformer.attn_pairs_own", (lengths.to(torch.int64) ** 2).sum())
+            if fused:
+                tiles, tiles_run = rel_attention.tile_counts(lengths, t)
+                trace.count("conformer.attn_tiles", tiles)
+                trace.count("conformer.attn_tiles_run", tiles_run)
         positions = relative_positions(t, config.d_model, x.device)
+        frame_masked = ~valid[:, :, None]
         for block in self.layers:
-            x = block(x, positions, masks, dtype, train, dropout, generator)
+            x = block(x, positions, attend, frame_masked, dtype, train, dropout, generator)
         return _linear(x, self.decoder, dtype).float()
 
 

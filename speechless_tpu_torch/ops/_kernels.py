@@ -34,6 +34,7 @@ SIGNATURES = {
     "ctc_beta_grad": [_P] * 10 + [_I] * 4 + [_P],
     "stream_stitch": [_P] * 9 + [_I] * 4 + [_P],
     "conv_dgrad": [_P] * 4 + [_I] * 7 + [_P],
+    "rel_attention": [_P] * 20 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
