@@ -1680,8 +1680,7 @@ def phase_d_http(transcriber, make_audio, label, device_streams=False,
             if mode == "greedy_final" or resident:
                 continue  # resident blocks are recorded in the dispatch, below
             # Record the rows each advance consumes (the beam_advance_fn seam).
-            session = pool._sessions[sid]
-            stream = getattr(session, "stream", session)  # host pool: the transcriber
+            stream = pool._sessions[sid]  # a `StreamSession` on either pool
             log = consumed.setdefault(sid, [])
             seam = "_beam_submit" if mode == "beam_pipelined" else "_beam_advance"
             original = getattr(stream, seam)

@@ -1,9 +1,10 @@
 """Device-resident streaming: every session's audio window lives on the transcriber's
 device (port of `speechless_tpu/serving_device_stream.py`, for live transcribers).
 
-The host pool (`serving_streaming.py`) sends each session's whole window (seconds of
-audio) to the device on every feed and stacks each beam session's carry on the host.
-Here the pooled state stays on the device between feeds:
+The host pool (`serving_streaming.py`, whose session core this pool shares) sends each
+session's whole window (seconds of audio) to the device on every feed and stacks each
+beam session's carry on the host. Here the pooled state stays on the device between
+feeds:
 
 * all sessions' windows are rows of one tensor, ``(max_sessions+1, window)`` fp32, with
   their valid lengths ``(max_sessions+1,)`` int32; the spare row ``max_sessions`` is the
@@ -34,9 +35,6 @@ a dispatch runs them alone too (the JAX pool pads to ``max_batch``). Such a pool
 beam partials in the posterior mode only. One batcher thread owns the pooled tensors.
 """
 import functools
-import threading
-import time
-import uuid
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,9 +42,8 @@ import torch
 
 from .features.spectrogram import features_batch, frame_count
 from .models import wav2letter as w2l
-from .serving_streaming import (BeamAdvanceBatcher, UnknownSessionError, WordAssembler,
-                                _check_window, _DeferredAdvance, beam_decoder_for,
-                                collapse_new_frames, offline_final_pass)
+from .serving_streaming import (BEAM_MODES, SessionPool, StreamSession, _check_window,
+                                beam_decoder_for)
 from .utils.microbatch import MicroBatcher, PendingItem
 from .utils.tools import log
 
@@ -290,23 +287,26 @@ class _DeviceFeedBatcher(MicroBatcher):
             self._pool._dispatch(group)
 
 
-class DeviceStreamingSession:
-    """Host-side mirror of one device-resident streaming window. Same surface as
-    `serving_streaming.StreamingTranscriber`: ``feed() -> newly final text``,
-    ``finish() -> remaining text``, ``.text``."""
+class DeviceStreamingSession(StreamSession):
+    """Host-side mirror of one device-resident streaming window: a
+    `serving_streaming.StreamSession` whose chunks go through the pool's fused dispatch
+    (`_dispatch`) and whose emissions come from the token rows it returns (`_emit`).
+    Its row goes back to the pool when the session ends."""
+
+    _lost_message = _POISONED_MESSAGE
 
     def __init__(self, pool: "DeviceStreamingPool", row: int,
                  final_decode: bool = False, partial_beam: bool = False,
                  beam_pipelined: bool = False):
+        super().__init__(pool._transcriber, pool.spf, 16000, final_decode,
+                         "beam_pipelined" if beam_pipelined
+                         else "beam" if partial_beam else "greedy")
         self._pool = pool
         self._row = row
-        self._spf = pool.spf
-        self._blank = pool.blank_index
-        self._codec = pool.codec
-        self._final_decode = final_decode
-        self._partial_beam = partial_beam
-        self._beam_pipelined = beam_pipelined
-        self._beam_resident = partial_beam and pool.beam_mode == "resident"
+        self._beam_resident = self._partial_beam and pool.beam_mode == "resident"
+        # Posterior blocks / resident beam: each dispatch finalizes at most one block.
+        self._beam_blocks = self._partial_beam and (self._beam_resident
+                                                    or pool.post_rows is not None)
         if self._beam_resident:
             # The carry lives in the pool's device state and advances inside the feed
             # dispatch; the host keeps the committed prefix (tokens rolled out when the
@@ -317,191 +317,52 @@ class DeviceStreamingSession:
             self._live_tokens = np.zeros(0, np.int32)
             self._live_score = 0.0
             self._pending_beam_reset = True  # a reused row starts from a fresh carry
-            self._beam_tokens = np.zeros(0, np.int32)
-        elif partial_beam:
+        elif self._partial_beam:
             # The pool's decoder, per-session state, advances coalesced through the
-            # pool's BeamAdvanceBatcher (as on the host pool). The batcher's `started`
-            # flag is read per advance, so a session created before `pool.start()`
-            # takes the batched path once the pool starts.
-            self._beam_batcher = pool._get_beam_batcher()
-            self._beam_decoder = self._beam_batcher.decoder
-            if beam_pipelined:
-                self._beam_inflight = None
-                self._beam_pending = []
-            self._beam_state = self._beam_decoder.init_state()
-            self._beam_tokens = np.zeros(0, np.int32)
-        self._audio_parts: List[np.ndarray] = []
+            # pool's BeamAdvanceBatcher, as on the host pool.
+            self._use_beam_decoder(pool._get_beam_batcher().decoder, pool._beam_feed,
+                                   pool._beam_feed_nowait)
+        self._start_stream()
         self._pending_reset = True
-        self._total = 0     # absolute samples fed
         self._length = 0    # mirror of the device row's valid length
-        self._emit_sample = 0
-        self._carry = -1
-        self._parts: List[str] = []
-        self._words = WordAssembler(pool.codec, pool.spf)
-        self._finished = False
-        self._poisoned = False
-        # The session owns its lock and idle stamp (feeds serialize here whether they
-        # arrive through the pool or this object); the pool's reaper reads both.
-        self.lock = threading.Lock()
-        self.last_used = time.time()
 
-    @property
-    def text(self) -> str:
-        """Live transcript: the emitted greedy parts, or the incremental beam's current
-        best (beam sessions: replace semantics, later audio can re-rank it)."""
-        if self._partial_beam:
-            return self._codec.decode_graphemes(self._beam_tokens.tolist(),
-                                                merge_repeated=False)
-        return "".join(self._parts)
+    def _release(self) -> None:
+        with self._pool._lock:
+            self._pool._free.append(self._row)
 
-    @property
-    def greedy_text(self) -> str:
-        """The append-only greedy transcript (`.text` in greedy mode; beam sessions
-        still accumulate it, it drives the word timestamps)."""
-        return "".join(self._parts)
-
-    @property
-    def final_up_to_s(self) -> float:
-        """Absolute stream time (seconds) up to which the transcript is final (16 kHz).
-        Beam sessions report 0.0 while live and the stream's duration after
-        `finish()`."""
-        if self._partial_beam:
-            return self._total / 16000.0 if self._finished else 0.0
-        return self._emit_sample / 16000.0
-
-    @property
-    def greedy_final_up_to_s(self) -> float:
-        """The greedy emission horizon (seconds): it bounds the word timestamps."""
-        return self._emit_sample / 16000.0
-
-    def feed(self, chunk: np.ndarray) -> str:
-        """Append ``chunk`` to the device window and return newly finalized text.
-        Chunks longer than the pool's ``chunk_cap`` split into several dispatches."""
-        with self.lock:
-            try:
-                return self._feed_locked(chunk)
-            finally:
-                self.last_used = time.time()
-
-    def feed_with_text(self, chunk: np.ndarray) -> Tuple[str, str, float]:
-        """``(newly_finalized, full_text_so_far, final_up_to_s)``."""
-        state = self.feed_with_state(chunk)
-        return state["partial"], state["text"], state["final_up_to_s"]
-
-    def feed_with_state(self, chunk: np.ndarray) -> dict:
-        """``{"partial", "text", "final_up_to_s", "words"}`` from one locked call
-        (``words``: the word timestamps this feed finalized)."""
-        with self.lock:
-            try:
-                partial = self._feed_locked(chunk)
-                return {"partial": partial, "text": self.text,
-                        "final_up_to_s": self.final_up_to_s,
-                        "words": self._words.pop_new_words()}
-            finally:
-                self.last_used = time.time()
-
-    def _feed_locked(self, chunk: np.ndarray) -> str:
-        self._check_usable()
-        chunk = np.asarray(chunk, np.float32).ravel()
-        if self._final_decode:
-            self._audio_parts.append(chunk)
-        emitted: List[str] = []
+    def _feed_chunk(self, chunk: np.ndarray) -> str:
+        """Chunks longer than the pool's ``chunk_cap`` split into several dispatches."""
+        out = ""
         cap = self._pool.chunk_cap
-        if self._partial_beam and (self._beam_resident
-                                   or self._pool.post_rows is not None):
-            # Posterior blocks / resident beam: pieces fit the per-dispatch block, so a
-            # dispatch's newly finalized rows always fit it (the emission cap in
-            # `_emit` is then a safety net at steady state).
+        if self._beam_blocks:
+            # Pieces fit the per-dispatch block, so a dispatch's newly finalized rows
+            # always fit it (the emission cap in `_emit` is then a safety net at
+            # steady state).
             cap = min(cap, self._pool.beam_piece_cap)
         for start in range(0, max(len(chunk), 1), cap):
             piece = chunk[start:start + cap]
             if len(chunk) and not len(piece):
                 break
-            tokens, count, log_probs, post_start = self._dispatch(piece)
-            emitted.append(self._emit(tokens, count, flush=False,
-                                      log_probs=log_probs, post_start=post_start))
-        if self._partial_beam:
-            return self.text  # beam partials replace rather than append
-        return "".join(emitted)
+            out += self._emit(*self._dispatch(piece), flush=False)
+        return out
 
-    def finish(self) -> str:
-        """Flush (decode the final margin too), free the device row, and return the
-        newly finalized text."""
-        with self.lock:
-            try:
-                return self._finish_locked()
-            finally:
-                self.last_used = time.time()
-
-    def finish_with_live_text(self) -> Tuple[str, str]:
-        """Flush and free the row; ``(final_text, live_text)``: the offline second pass
-        and the live transcript (the same for single-pass sessions)."""
-        state = self.finish_with_state()
-        return state["text"], state["live_text"]
-
-    def finish_with_state(self) -> dict:
-        """Flush and free the row; ``{"text", "live_text", "words"}``."""
-        with self.lock:
-            self._finish_locked()
-            live = self.text
-            full = self._finalize_inner() if self._final_decode else live
-            return {"text": full, "live_text": live,
-                    "words": self._words.pop_new_words()}
-
-    def _finish_locked(self) -> str:
-        if self._poisoned:
-            raise RuntimeError(_POISONED_MESSAGE)
-        if self._finished:
-            return ""
+    def _flush(self) -> str:
         out = ""
         if self._total:
             while True:
                 before = self._emit_sample
-                tokens, count, log_probs, post_start = self._dispatch(
-                    np.zeros(0, np.float32), flush=True)
-                out += self._emit(tokens, count, flush=True, log_probs=log_probs,
-                                  post_start=post_start)
-                if not (self._partial_beam
-                        and (self._beam_resident or self._pool.post_rows is not None)):
+                dispatched = self._dispatch(np.zeros(0, np.float32), flush=True)
+                out += self._emit(*dispatched, flush=True)
+                self._drain_beam()  # each block's advance completes before the next
+                if not self._beam_blocks:
                     break
-                # Posterior blocks / resident beam: one flush dispatch drains at most
-                # one block of the withheld margin, so dispatch empty pieces until the
-                # emission horizon reaches the model's frame horizon.
-                horizon = (self._total - self._length) + count * self._spf
+                # One flush dispatch drains at most one block of the withheld margin,
+                # so dispatch empty pieces until the emission horizon reaches the
+                # model's frame horizon.
+                horizon = (self._total - self._length) + dispatched[1] * self._spf
                 if self._emit_sample <= before or self._emit_sample >= horizon:
                     break
-        self._words.flush()
-        self._finished = True
-        self._pool._release(self._row)
-        if self._partial_beam:
-            return self.text  # the final re-ranked best (replace semantics)
         return out
-
-    def finalize(self) -> str:
-        """Two-pass final transcript: offline decode of the complete accumulated stream
-        (same contract as `StreamingTranscriber.finalize`)."""
-        with self.lock:
-            return self._finalize_inner()
-
-    def _finalize_inner(self) -> str:
-        if not self._final_decode:
-            raise ValueError("session was not created with final_decode=True")
-        return offline_final_pass(self._pool._transcriber, self._audio_parts)
-
-    def transcribe_stream(self, audio: np.ndarray, chunk_samples: int = 8000) -> str:
-        """Feed ``audio`` in fixed-size chunks and finish; returns the complete
-        transcript (`.text` after the flush: in beam modes `finish` returns the full
-        best, so appending it to earlier text would double the transcript)."""
-        for start in range(0, len(audio), chunk_samples):
-            self.feed(audio[start:start + chunk_samples])
-        self.finish()
-        return self.text
-
-    def _check_usable(self) -> None:
-        if self._poisoned:
-            raise RuntimeError(_POISONED_MESSAGE)
-        if self._finished:
-            raise RuntimeError("session is finished")
 
     def _beam_limit(self, buffer_start: int, emit_limit: int) -> int:
         """The emission limit capped at the end of this dispatch's advance block."""
@@ -509,6 +370,7 @@ class DeviceStreamingSession:
         return min(emit_limit, buffer_start + (f_lo + self._pool._beam_cf) * self._spf)
 
     def _dispatch(self, piece: np.ndarray, flush: bool = False):
+        """The pool's fused dispatch of ``piece``: `_emit`'s arguments."""
         mirrored, _ = mirror_append(self._length, len(piece), self._pool.window,
                                     self._spf)
         post_start = 0
@@ -543,8 +405,8 @@ class DeviceStreamingSession:
                                  .format(self._length, mirrored))
         return np.asarray(tokens), int(count), extra, post_start
 
-    def _emit(self, tokens: np.ndarray, count: int, flush: bool,
-              log_probs=None, post_start: int = 0) -> str:
+    def _emit(self, tokens: np.ndarray, count: int, log_probs, post_start: int,
+              flush: bool) -> str:
         buffer_start = self._total - self._length  # spf-aligned by construction
         emit_limit = self._total + self._spf if flush else self._total - self._pool.margin
         if self._beam_resident:
@@ -556,10 +418,7 @@ class DeviceStreamingSession:
             # consume rows it has.
             emit_limit = min(emit_limit, buffer_start
                              + (post_start + self._pool.post_rows) * self._spf)
-        finalized_from = self._emit_sample
-        emissions, self._emit_sample, self._carry = collapse_new_frames(
-            tokens, count, buffer_start, self._spf, self._emit_sample, self._carry,
-            emit_limit, self._blank)
+        finalized_from, part = self._emit_frames(tokens, count, buffer_start, emit_limit)
         if self._beam_resident:
             # The advance ran inside the dispatch. Lockstep check: the range the
             # dispatch advanced over must end where host emission just ended.
@@ -590,92 +449,19 @@ class DeviceStreamingSession:
                     self._pending_beam_reset = True
             self._beam_tokens = (np.concatenate([self._committed, self._live_tokens])
                                  if self._committed.size else self._live_tokens)
-        elif self._partial_beam and self._emit_sample > finalized_from:
-            # Advance the carried beam over exactly the rows the greedy rule just
-            # finalized, as the host pool does; they lie inside the trailing device
-            # window (window > margin by construction). max(0, .): should a degenerate
-            # configuration shift unemitted audio out, the beam consumes the rows that
-            # are left rather than mis-sliced ones.
-            row_from = max(0, (finalized_from - buffer_start) // self._spf)
-            row_to = (self._emit_sample - buffer_start) // self._spf
-            rows = log_probs[row_from - post_start:row_to - post_start]
-            if self._beam_pipelined:
-                # Queue the rows and pump without blocking (see
-                # `StreamingTranscriber._pump_beam`).
-                if len(rows):
-                    self._beam_pending.append(rows)
-                self._pump_beam(block=False)
-            else:
-                self._beam_state, result = self._beam_advance(self._beam_state, rows)
-                self._beam_tokens = result.tokens
-        if flush and self._partial_beam and self._beam_pipelined:
-            self._drain_beam()  # the flush returns the complete transcript
-        if not emissions:
-            return ""
-        for token, start in emissions:
-            self._words.push(token, start)
-        part = self._codec.decode_graphemes([t for t, _ in emissions],
-                                            merge_repeated=False)
-        self._parts.append(part)
+        elif self._partial_beam:
+            # As the host pool does, on the rows of the fetched posterior block, which
+            # lie inside the trailing device window (window > margin by construction).
+            self._advance_finalized(log_probs, finalized_from, buffer_start, post_start)
         return part
 
-    def _beam_advance(self, state, rows):
-        """Batched advance when the pool's beam batcher runs, direct otherwise (read
-        per call, so sessions created before `pool.start()` adopt the batcher)."""
-        if self._beam_batcher.started:
-            return self._beam_batcher.submit(state, rows)
-        return self._beam_decoder.feed(state, rows)
 
-    def _beam_submit(self, state, rows):
-        """Pipelined submit (a handle with ``.wait()``), deferred to collection time
-        when no batcher thread serves advances yet."""
-        if self._beam_batcher.started:
-            return self._beam_batcher.submit_nowait(state, rows)
-        return _DeferredAdvance(self._beam_decoder.feed, state, rows)
-
-    def _pump_beam(self, block: bool) -> None:
-        """Collect the in-flight advance when done (or in any case with ``block``),
-        then submit one advance over every queued block of finalized rows."""
-        if self._beam_inflight is not None:
-            if not block and not getattr(self._beam_inflight, "ready", True):
-                return
-            self._collect_beam()
-        if self._beam_pending:
-            rows = (self._beam_pending[0] if len(self._beam_pending) == 1
-                    else np.concatenate(self._beam_pending))
-            self._beam_pending = []
-            self._beam_inflight = self._beam_submit(self._beam_state, rows)
-
-    def _drain_beam(self) -> None:
-        while self._beam_inflight is not None or self._beam_pending:
-            self._pump_beam(block=True)
-
-    def _collect_beam(self) -> None:
-        """Adopt the in-flight advance's state and best. A failed advance poisons the
-        session (the greedy horizon has moved past its rows, so resuming from the stale
-        carry would drop that audio) and releases its row at once, so that failures
-        cannot exhaust ``max_sessions`` before the reaper runs."""
-        if getattr(self, "_beam_inflight", None) is not None:
-            inflight, self._beam_inflight = self._beam_inflight, None
-            try:
-                self._beam_state, result = inflight.wait()
-            except BaseException:
-                self._poisoned = True
-                if not self._finished:
-                    self._finished = True
-                    self._pool._release(self._row)
-                raise
-            self._beam_tokens = result.tokens
-
-
-class DeviceStreamingPool:
-    """Many concurrent streaming sessions whose windows live in pooled device rows.
-
-    The surface of `serving_streaming.StreamingSessionPool` (create, feed,
-    feed_with_text, feed_with_state, text, finish, close, session_count, start, stop,
-    ``.batcher`` metrics): `serving_http.TranscriptionServer(device_streams=True)`
-    serves it over the same HTTP routes. A feed sends its chunk to the device and reads
-    back one token row; the window stays there.
+class DeviceStreamingPool(SessionPool):
+    """Many concurrent streaming sessions whose windows live in pooled device rows: a
+    `serving_streaming.SessionPool` (its sessions' rules and surface, which
+    `serving_http.TranscriptionServer(device_streams=True)` serves over the same HTTP
+    routes) whose sessions each hold one row. A feed sends its chunk to the device and
+    reads back one token row; the window stays there.
     """
 
     def __init__(self, transcriber, window_s: float = 8.0, margin_s: float = 2.0,
@@ -712,7 +498,8 @@ class DeviceStreamingPool:
                 "device-resident streaming needs a live serving.Transcriber or a "
                 "bundle exported with device_streaming=... (this backend has neither a "
                 "model config nor an exported feed program)")
-        self._transcriber = transcriber
+        super().__init__(transcriber, idle_timeout_s, max_sessions, beam_engine,
+                         beam_opts)
         self.codec = transcriber.codec
         self.blank_index = transcriber.blank_index
         spf = transcriber.samples_per_frame
@@ -755,7 +542,6 @@ class DeviceStreamingPool:
         else:
             self.beam_partials = True if beam_partials is None else beam_partials
             self.window, self.chunk_cap = quantize_pool_dims(spf, window_s, chunk_cap_s)
-            self.max_sessions = max_sessions
             self.window_frames = _window_frames(transcriber.config, self.window)
             self._prediction_ratio = transcriber.config.input_to_prediction_length_ratio
             if beam_mode == "resident":
@@ -794,16 +580,8 @@ class DeviceStreamingPool:
             # The window must outrun the margin by a few frames, or a fast feeder could
             # shift unemitted (pre-margin) audio out of the buffer.
             raise ValueError("window too small for margin at this frame rate")
-        self._idle_timeout_s = idle_timeout_s
         self._reset_device_state()
         self._free = list(range(self.max_sessions))
-        self._sessions: Dict[str, DeviceStreamingSession] = {}
-        self._lock = threading.Lock()
-        self._beam_decoder = None
-        self._beam_batcher = None
-        self._beam_engine = beam_engine
-        self._beam_opts = beam_opts
-        self._beam_decoder_lock = threading.Lock()
         self.batcher = _DeviceFeedBatcher(self, max_batch=max_batch,
                                           max_wait_ms=max_wait_ms)
 
@@ -818,22 +596,12 @@ class DeviceStreamingPool:
 
     # -- lifecycle -------------------------------------------------------------------
 
-    def start(self) -> None:
-        self.batcher.start()
-        with self._beam_decoder_lock:
-            if self._beam_batcher is not None and not self._beam_batcher.started:
-                self._beam_batcher.start()
-
-    def stop(self) -> None:
-        self.batcher.stop()
-        with self._beam_decoder_lock:
-            if self._beam_batcher is not None:
-                self._beam_batcher.stop()
-        with self._lock:
-            for session in self._sessions.values():
-                session._poisoned = session._finished = True
-            self._sessions.clear()
-            self._free = list(range(self.max_sessions))
+    def _close_all_locked(self) -> None:
+        """Retire every session ("stream lost") and free every row."""
+        for session in self._sessions.values():
+            session._lost, session._finished = _POISONED_MESSAGE, True
+        self._sessions.clear()
+        self._free = list(range(self.max_sessions))
 
     def warm_up(self) -> None:
         """One feed of the sink row before traffic (the first dispatch of a shape
@@ -855,127 +623,42 @@ class DeviceStreamingPool:
                                 device=self.device), np.zeros(1, np.int64))
 
     def warm_up_beam(self) -> None:
-        """Build the beam decoder's kernels before beam traffic (the resident mode's
-        advance runs in the feed: `warm_up`)."""
+        """`SessionPool.warm_up_beam`; a resident pool's advance runs in `warm_up`."""
         if self.beam_mode == "resident":
             self.warm_up()
             return
         if not self.beam_partials:
             raise ValueError("this pool was constructed with beam_partials=False: its "
                              "feed returns no posteriors")
-        decoder = self._get_beam_decoder()
-        decoder.feed(decoder.init_state(), np.zeros((0, self.blank_index + 1), np.float32))
+        super().warm_up_beam()
 
-    # -- session surface (as StreamingSessionPool's) --------------------------------
+    # -- sessions --------------------------------------------------------------------
 
-    def create(self, final_decode: bool = False,
-               partial_decode: str = "greedy") -> str:
-        """``final_decode``: two-pass session: `finish` also re-decodes the complete
-        audio through the offline path and returns that as the transcript.
-
-        ``partial_decode``: ``"beam"`` serves live partials from the incremental prefix
-        beam (each feed's text replaces the previous one); ``"beam_pipelined"``
-        (posterior mode only) overlaps the advances with the client's next chunks."""
-        if partial_decode not in ("greedy", "beam", "beam_pipelined"):
-            raise ValueError("partial_decode must be 'greedy', 'beam', or "
-                             "'beam_pipelined', got {!r}".format(partial_decode))
+    def _check_mode(self, partial_decode: str) -> None:
         if partial_decode == "beam_pipelined" and self.beam_mode == "resident":
             raise ValueError(
                 "beam_mode='resident' pools have no separate advance to pipeline: the "
                 "beam rides the feed dispatch itself; use partial_decode='beam' "
                 "(partials are already lag-free)")
-        beam = partial_decode in ("beam", "beam_pipelined")
-        if beam and not self.beam_partials:
+        if partial_decode in BEAM_MODES and not self.beam_partials:
             raise ValueError("beam partials disabled: this pool was constructed with "
                              "beam_partials=False (its feed returns no posteriors)")
-        with self._lock:
-            self._reap_locked()
-            if not self._free:
-                raise RuntimeError("session limit reached ({})".format(
-                    self.max_sessions))
-            row = self._free.pop()
-            session_id = uuid.uuid4().hex[:16]
-            self._sessions[session_id] = DeviceStreamingSession(
-                self, row, final_decode=final_decode, partial_beam=beam,
-                beam_pipelined=partial_decode == "beam_pipelined")
-            return session_id
+
+    def _full_locked(self) -> bool:
+        return not self._free
+
+    def _open_locked(self, final_decode: bool,
+                     partial_decode: str) -> DeviceStreamingSession:
+        return DeviceStreamingSession(
+            self, self._free.pop(), final_decode=final_decode,
+            partial_beam=partial_decode in BEAM_MODES,
+            beam_pipelined=partial_decode == "beam_pipelined")
 
     def create_stream(self, final_decode: bool = False,
                       partial_decode: str = "greedy") -> DeviceStreamingSession:
         """Library-facing variant: returns the session object itself."""
         return self._get(self.create(final_decode=final_decode,
                                      partial_decode=partial_decode))
-
-    def _get_beam_decoder(self):
-        """The pool-wide decoder of posterior-mode beam sessions (per-session state
-        lives on the session), built at the first beam session. Its own lock: callers
-        may hold the pool lock (session construction inside `create`)."""
-        with self._beam_decoder_lock:
-            if self._beam_decoder is None:
-                self._beam_decoder = beam_decoder_for(self._transcriber,
-                                                      engine=self._beam_engine,
-                                                      **(self._beam_opts or {}))
-            return self._beam_decoder
-
-    def _get_beam_batcher(self) -> BeamAdvanceBatcher:
-        """The pool-wide `BeamAdvanceBatcher` over `_get_beam_decoder()`: advances of
-        concurrent beam sessions run as one `feed_batch`. Started with the pool."""
-        decoder = self._get_beam_decoder()
-        with self._beam_decoder_lock:
-            if self._beam_batcher is None:
-                self._beam_batcher = BeamAdvanceBatcher(
-                    decoder, max_batch=self.batcher.max_batch,
-                    max_wait_ms=self.batcher.max_wait_ms)
-                if self.batcher.started:
-                    self._beam_batcher.start()
-            return self._beam_batcher
-
-    def feed(self, session_id: str, chunk: np.ndarray) -> str:
-        return self.feed_with_text(session_id, chunk)[0]
-
-    def feed_with_text(self, session_id: str,
-                       chunk: np.ndarray) -> Tuple[str, str, float]:
-        return self._get(session_id).feed_with_text(chunk)
-
-    def feed_with_state(self, session_id: str, chunk: np.ndarray) -> dict:
-        return self._get(session_id).feed_with_state(chunk)
-
-    def text(self, session_id: str) -> str:
-        return self._get(session_id).text
-
-    def finish(self, session_id: str) -> str:
-        return self.finish_with_live_text(session_id)[0]
-
-    def finish_with_live_text(self, session_id: str) -> Tuple[str, str]:
-        """``(final_text, live_text)``, the same for single-pass sessions."""
-        state = self.finish_with_state(session_id)
-        return state["text"], state["live_text"]
-
-    def finish_with_state(self, session_id: str) -> dict:
-        """Flush and close; ``{"text", "live_text", "words"}``."""
-        session = self._get(session_id)
-        state = session.finish_with_state()
-        with self._lock:
-            self._sessions.pop(session_id, None)
-        return state
-
-    def close(self, session_id: str) -> None:
-        with self._lock:
-            session = self._sessions.pop(session_id, None)
-        if session is None:
-            return
-        # Under the session lock, so that a close racing a feed or finish cannot free
-        # the row while that call's dispatch is queued (a new session would get it and
-        # receive the old session's audio).
-        with session.lock:
-            if not session._finished:
-                session._finished = True
-                self._release(session._row)
-
-    @property
-    def session_count(self) -> int:
-        with self._lock:
-            return len(self._sessions)
 
     @property
     def beam_piece_cap(self) -> int:
@@ -989,29 +672,6 @@ class DeviceStreamingPool:
 
     # -- internals -------------------------------------------------------------------
 
-    def _get(self, session_id: str) -> DeviceStreamingSession:
-        with self._lock:
-            self._reap_locked()
-            session = self._sessions.get(session_id)
-        if session is None:
-            raise UnknownSessionError(
-                "unknown or expired session {!r}".format(session_id))
-        return session
-
-    def _reap_locked(self) -> None:
-        cutoff = time.time() - self._idle_timeout_s
-        for stale in [sid for sid, s in self._sessions.items()
-                      if s.last_used < cutoff and not s.lock.locked()]:
-            # A held lock means a feed or finish is running: never reap a live stream.
-            session = self._sessions.pop(stale)
-            if not session._finished:
-                session._finished = True
-                self._free.append(session._row)  # the caller holds self._lock
-
-    def _release(self, row: int) -> None:
-        with self._lock:
-            self._free.append(row)
-
     def _recover_after_failed_dispatch(self) -> None:
         """Fresh pooled tensors, and every live session retired: a failed dispatch may
         have written some rows and not others. The failed batch's waiters see the
@@ -1019,10 +679,7 @@ class DeviceStreamingPool:
         clean. Runs on the batcher thread."""
         self._reset_device_state()
         with self._lock:
-            for session in self._sessions.values():
-                session._poisoned = session._finished = True
-            self._sessions.clear()
-            self._free = list(range(self.max_sessions))
+            self._close_all_locked()
 
     def _frame_counts(self, new_lens: np.ndarray) -> np.ndarray:
         """Host mirror of the feed's valid logits frames for windows of ``new_lens``

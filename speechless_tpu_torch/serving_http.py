@@ -28,8 +28,9 @@ comes with ``timestamps``, and 501 on an export bundle (`serving_export.
 ExportedTranscriber`), which holds 1-best programs only. A bundle without batched
 programs serves a batch of requests one by one. Streaming sessions run on
 `serving_streaming.StreamingSessionPool` (or, with ``device_streams``,
-`serving_device_stream.DeviceStreamingPool`): 400 for a bad body or mode, 404 for an
-unknown session, 501 for a mode the backend cannot serve.
+`serving_device_stream.DeviceStreamingPool`); both pools answer the same routes with the
+same replies through the shared session core (`serving_streaming.SessionPool`): 400 for
+a bad body or mode, 404 for an unknown session, 501 for a mode the backend cannot serve.
 """
 import inspect
 import json

@@ -24,19 +24,20 @@ greedy rule finalized, with the transcriber's word LM when it has one. Beam part
 replace rather than append. ``"beam_pipelined"`` runs the same beam with the advances
 overlapping the client's next chunks.
 
-Multi-stream serving: `StreamingSessionPool` runs many concurrent sessions over one
-transcriber. Their window dispatches are micro-batched (`StreamingFrameBatcher`) and
-their beam advances run as one batched advance (`BeamAdvanceBatcher`), each on its own
-batcher thread. Exposed over HTTP as ``POST /v1/stream``, ``/v1/stream/<id>`` and
-``/v1/stream/<id>/finish``.
-
 Two-pass mode (``final_decode=True``): live greedy partials flow unchanged, and
 `finish` re-decodes the complete audio through the offline path (full-utterance z-norm
 and the word-LM beam when the transcriber has one).
 
-`serving_device_stream.DeviceStreamingPool` is the same surface with every session's
-window, and in its resident mode every beam carry, kept on the device.
+The session core serves both session pools over the same HTTP routes (``POST
+/v1/stream``, ``/v1/stream/<id>`` and ``/v1/stream/<id>/finish``): `StreamSession`
+holds one session's contract and `SessionPool` the pool's rules. `StreamingSessionPool`
+runs its sessions over one transcriber, their window dispatches micro-batched
+(`StreamingFrameBatcher`) and their beam advances run as one batched advance
+(`BeamAdvanceBatcher`), each on its own batcher thread;
+`serving_device_stream.DeviceStreamingPool` keeps every session's window, and in its
+resident mode every beam carry, on the device.
 """
+import contextlib
 import threading
 import time
 import uuid
@@ -119,21 +120,21 @@ class WordAssembler:
             self._chars = []
 
 
-def offline_final_pass(transcriber, audio_parts: List[np.ndarray]) -> str:
-    """The two-pass final transcript: offline decode of the whole accumulated audio
-    (full-utterance z-norm, silence segmentation, the LM beam when the transcriber has
-    one)."""
-    if not audio_parts:
-        return ""
-    return transcriber.transcribe_long_audio(np.concatenate(audio_parts))
-
-
 def _serves_posteriors(backend) -> bool:
     """Whether ``backend`` serves per-frame posteriors (beam partials): it has
     `frame_log_probs` and its `supports_posteriors` predicate, where it has one, is
     true."""
     return (hasattr(backend, "frame_log_probs")
             and getattr(backend, "supports_posteriors", True))
+
+
+BEAM_MODES = ("beam", "beam_pipelined")
+
+
+def _check_partial_decode(partial_decode: str) -> None:
+    if partial_decode not in ("greedy",) + BEAM_MODES:
+        raise ValueError("partial_decode must be 'greedy', 'beam', or "
+                         "'beam_pipelined', got {!r}".format(partial_decode))
 
 
 def _check_window(window_s: float, margin_s: float) -> None:
@@ -213,100 +214,75 @@ class _DeferredAdvance:
         return self._fn(self._state, self._rows)
 
 
-class StreamingTranscriber:
-    def __init__(self, transcriber, window_s: float = 8.0, margin_s: float = 2.0,
-                 sample_rate: int = 16000, frame_fn=None,
-                 final_decode: bool = False, partial_decode: str = "greedy",
-                 beam_chunk_frames: int = 32, beam_max_decoded_length: int = 512,
-                 beam_decoder=None, beam_advance_fn=None,
-                 beam_advance_nowait_fn=None):
-        """``frame_fn``: the per-frame window call (default ``transcriber.frame_tokens``,
-        or ``transcriber.frame_log_probs`` in beam mode); a `StreamingFrameBatcher.submit`
-        lets many streams share batched dispatches.
+class StreamSession:
+    """One streaming session's contract, shared by the host stream
+    (`StreamingTranscriber`) and the device session
+    (`serving_device_stream.DeviceStreamingSession`): the live text, the replies of
+    feed and finish under the session's lock, and the pipelined beam advance. A
+    subclass implements `_feed_chunk(chunk) -> newly finalized text` and `_flush()`,
+    both run under the lock, and emits through `_emit_frames` and `_advance_finalized`.
 
-        ``beam_decoder`` / ``beam_advance_fn``: share one decoder (and a batched
-        advance, e.g. `BeamAdvanceBatcher.submit`) across many beam-partial streams;
-        the per-stream state rides in each stream's `BeamStreamState`. Defaults: a
-        private decoder, advanced directly.
+    A finished stream takes no more audio. A failed advance loses the stream for good:
+    the greedy horizon has already moved past its rows, so resuming from the stale beam
+    would silently drop that audio."""
 
-        ``final_decode``: two-pass mode; the stream also keeps every fed chunk on the
-        host (3.84 MB per minute of 16 kHz float32) and `finalize()` re-decodes the whole
-        audio through `transcribe_long_audio`.
+    _lost_message = ("beam stream lost: a previous pipelined advance failed "
+                     "mid-stream; reset() or open a new session")
 
-        ``partial_decode``: ``"greedy"`` (live partials are the append-only collapsed
-        argmax), ``"beam"`` (live partials come from the incremental prefix beam, with
-        the transcriber's word LM; `feed` returns the full current best, which replaces
-        earlier partials, and the greedy text and word timestamps stay available as
-        `.greedy_text` / `pop_new_words`) or ``"beam_pipelined"`` (the same beam,
-        advanced while the client gathers its next chunk: partials lag one feed or
-        more, the transcript after `finish` is the same as ``"beam"``'s)."""
-        _check_window(window_s, margin_s)
-        if partial_decode not in ("greedy", "beam", "beam_pipelined"):
-            raise ValueError("partial_decode must be 'greedy', 'beam', or "
-                             "'beam_pipelined', got {!r}".format(partial_decode))
+    def __init__(self, transcriber, samples_per_frame: int, sample_rate: int,
+                 final_decode: bool, partial_decode: str):
+        _check_partial_decode(partial_decode)
         self._transcriber = transcriber
-        self._final_decode = final_decode
-        self._partial_beam = partial_decode in ("beam", "beam_pipelined")
-        self._beam_pipelined = partial_decode == "beam_pipelined"
-        if self._partial_beam:
-            if frame_fn is None and not _serves_posteriors(transcriber):
-                raise ValueError("partial_decode='beam' needs per-frame posteriors; this "
-                                 "backend has no frame_log_probs")
-            self._beam_decoder = (beam_decoder if beam_decoder is not None
-                                  else beam_decoder_for(transcriber, beam_chunk_frames,
-                                                        beam_max_decoded_length))
-            self._beam_advance = (beam_advance_fn if beam_advance_fn is not None
-                                  else self._beam_decoder.feed)
-            if self._beam_pipelined:
-                # `beam_advance_nowait_fn(state, rows)` returns a handle whose `.wait()`
-                # yields `(new_state, BeamStreamResult)`: the pools pass
-                # `BeamAdvanceBatcher.submit_nowait`; standalone streams defer.
-                self._beam_submit = (
-                    beam_advance_nowait_fn if beam_advance_nowait_fn is not None
-                    else lambda s, r: _DeferredAdvance(self._beam_advance, s, r))
-            default_fn = transcriber.frame_log_probs
-        else:
-            self._beam_decoder = None
-            default_fn = transcriber.frame_tokens
-        self._frame_fn = frame_fn if frame_fn is not None else default_fn
-        spf = transcriber.samples_per_frame
-        # Window and margin aligned to the output frame grid, so the absolute
-        # frame-to-sample mapping survives buffer drops.
-        self._window = int(window_s * sample_rate) // spf * spf
-        self._margin = int(margin_s * sample_rate) // spf * spf
-        self._spf = spf
+        self._codec = transcriber.codec
+        self._blank = transcriber.blank_index
+        self._spf = samples_per_frame
         self._sample_rate = sample_rate
-        self.reset()
+        self._final_decode = final_decode
+        self._partial_beam = partial_decode in BEAM_MODES
+        self._beam_pipelined = partial_decode == "beam_pipelined"
+        self._beam_decoder = None
+        self.lock = threading.Lock()
+        self.last_used = time.time()
 
-    def reset(self) -> None:
-        self._buffer = np.zeros(0, dtype=np.float32)
+    def _use_beam_decoder(self, decoder, advance_fn=None, submit_fn=None) -> None:
+        """Advance through ``advance_fn(state, rows) -> (state, BeamStreamResult)``
+        (default ``decoder.feed``); pipelined, through ``submit_fn``, whose handle's
+        ``.wait()`` yields that pair (default: the advance, run at collection)."""
+        self._beam_decoder = decoder
+        self._beam_advance = advance_fn if advance_fn is not None else decoder.feed
+        self._beam_submit = (submit_fn if submit_fn is not None else
+                             lambda state, rows: _DeferredAdvance(self._beam_advance,
+                                                                  state, rows))
+
+    def _start_stream(self) -> None:
+        """Fresh per-stream state: nothing fed, emitted or advanced."""
         self._finished = False
-        self._buffer_start = 0   # absolute sample index of buffer[0]
+        self._lost: Optional[str] = None
+        self._total = 0          # absolute samples fed
         self._emit_sample = 0    # everything before this absolute sample is final
         self._carry = -1         # last processed frame token (-1 = stream start)
         self._parts: List[str] = []
         self._audio_parts: List[np.ndarray] = []
-        self._words = WordAssembler(self._transcriber.codec, self._spf,
-                                    self._sample_rate)
-        if self._partial_beam:
+        self._words = WordAssembler(self._codec, self._spf, self._sample_rate)
+        self._beam_tokens = np.zeros(0, np.int32)
+        self._beam_inflight = None  # pipelined mode's uncollected advance
+        self._beam_pending = []     # finalized rows queued behind it
+        if self._beam_decoder is not None:
             self._beam_state = self._beam_decoder.init_state()
-            self._beam_tokens = np.zeros(0, np.int32)
-            self._beam_inflight = None  # pipelined mode's uncollected advance
-            self._beam_pending = []     # finalized rows queued behind it
-            self._beam_broken = False   # a failed pipelined advance breaks the stream
 
     @property
     def text(self) -> str:
         """The live transcript: everything emitted so far (greedy mode), or the
         incremental beam's current best (beam modes: a replacement, not an append)."""
         if self._partial_beam:
-            return self._transcriber.codec.decode_graphemes(
-                self._beam_tokens.tolist(), merge_repeated=False)
+            return self._codec.decode_graphemes(self._beam_tokens.tolist(),
+                                                merge_repeated=False)
         return "".join(self._parts)
 
     @property
     def greedy_text(self) -> str:
-        """The append-only greedy transcript (`.text` in greedy mode)."""
+        """The append-only greedy transcript (`.text` in greedy mode; beam modes still
+        accumulate it, and it drives the word timestamps)."""
         return "".join(self._parts)
 
     @property
@@ -317,9 +293,7 @@ class StreamingTranscriber:
         arbitrarily far back, and the full stream duration after `finish()`. The greedy
         horizon stays available as `greedy_final_up_to_s`."""
         if self._partial_beam:
-            if self._finished:
-                return (self._buffer_start + len(self._buffer)) / self._sample_rate
-            return 0.0
+            return self._total / self._sample_rate if self._finished else 0.0
         return self._emit_sample / self._sample_rate
 
     @property
@@ -328,110 +302,162 @@ class StreamingTranscriber:
         never change before this instant, in every mode."""
         return self._emit_sample / self._sample_rate
 
-    def feed(self, chunk: np.ndarray) -> str:
-        """Append audio; returns newly finalized text (possibly empty). In beam modes
-        the return is the full current best transcript."""
-        chunk = np.asarray(chunk, np.float32)
-        if self._partial_beam and self._beam_broken:
-            self._collect_beam()  # raises the broken-stream error
-        if self._final_decode:
-            self._audio_parts.append(chunk)
-        self._buffer = np.concatenate([self._buffer, chunk])
-        return self._drain(flush=False)
-
-    def finish(self) -> str:
-        """Flush the stream: decode everything pending with no right margin and return
-        the newly finalized text. The stream can be reused after `reset()`."""
-        out = self._drain(flush=True)
-        self._words.flush()
-        self._finished = True
-        return out
-
     def pop_new_words(self) -> List[dict]:
         """Word timestamps finalized since the last pop (absolute stream seconds)."""
         return self._words.pop_new_words()
 
+    @contextlib.contextmanager
+    def _held(self):
+        """The session's lock, stamping ``last_used`` on exit: a call that waits long
+        (a first kernel build) must not look idle and be reaped mid-call."""
+        with self.lock:
+            try:
+                yield
+            finally:
+                self.last_used = time.time()
+
+    def feed(self, chunk: np.ndarray) -> str:
+        """Append audio; returns newly finalized text (possibly empty). In beam modes
+        the return is the full current best transcript."""
+        with self._held():
+            return self._feed_locked(chunk)
+
+    def feed_with_text(self, chunk: np.ndarray) -> Tuple[str, str, float]:
+        """``(newly_finalized, full_text_so_far, final_up_to_s)``."""
+        state = self.feed_with_state(chunk)
+        return state["partial"], state["text"], state["final_up_to_s"]
+
+    def feed_with_state(self, chunk: np.ndarray) -> dict:
+        """Feed one chunk; returns ``{"partial", "text", "final_up_to_s", "words"}``
+        (``words``: timestamps finalized by this feed) from one locked call, so that a
+        concurrent finish or reap cannot lose the result."""
+        with self._held():
+            partial = self._feed_locked(chunk)
+            return {"partial": partial, "text": self.text,
+                    "final_up_to_s": self.final_up_to_s,
+                    "words": self._words.pop_new_words()}
+
+    def finish(self) -> str:
+        """Flush the stream: decode everything pending with no right margin and return
+        the newly finalized text (in beam modes the full best)."""
+        with self._held():
+            return self._finish_locked()
+
+    def finish_with_live_text(self) -> Tuple[str, str]:
+        """``(final_text, live_text)``, the same for single-pass sessions."""
+        state = self.finish_with_state()
+        return state["text"], state["live_text"]
+
+    def finish_with_state(self) -> dict:
+        """Flush; ``{"text", "live_text", "words", "final_up_to_s"}``: the offline
+        second pass for ``final_decode`` sessions (else the live text), the live text,
+        the words the flush finalized, and the stream's duration."""
+        with self._held():
+            self._finish_locked()
+            live = self.text
+            full = self._finalize_locked() if self._final_decode else live
+            return {"text": full, "live_text": live,
+                    "words": self._words.pop_new_words(),
+                    "final_up_to_s": round(self.final_up_to_s, 3)}
+
     def finalize(self) -> str:
-        """Two-pass final transcript: offline decode of the whole accumulated stream.
-        Requires ``final_decode=True``; the live transcript stays available as
-        `.text`."""
-        if not self._final_decode:
-            raise ValueError("stream was not created with final_decode=True")
-        return offline_final_pass(self._transcriber, self._audio_parts)
+        """Two-pass final transcript: offline decode of the whole accumulated stream
+        (full-utterance z-norm, the LM beam when the transcriber has one). Requires
+        ``final_decode=True``; the live transcript stays available as `.text`."""
+        with self.lock:
+            return self._finalize_locked()
 
     def transcribe_stream(self, audio: np.ndarray, chunk_samples: int = 8000) -> str:
-        """Reset, feed ``audio`` in fixed-size chunks, flush; returns the complete
-        streamed transcript (`.text` after the flush, in every mode)."""
-        self.reset()
+        """Feed ``audio`` in fixed-size chunks (a host stream resets first) and flush;
+        returns `.text` after the flush, the complete transcript in every mode."""
+        self._restart()
         for start in range(0, len(audio), chunk_samples):
             self.feed(audio[start:start + chunk_samples])
         self.finish()
         return self.text
 
-    def _drain(self, flush: bool) -> str:
-        emitted_before = len(self._parts)
-        blank = self._transcriber.blank_index
-        codec = self._transcriber.codec
-        while True:
-            available = len(self._buffer)
-            window_len = min(available, self._window)
-            window_end = self._buffer_start + window_len
-            last_window = window_len == available
-            # Frames whose receptive field may still grow are not final, except at the
-            # flush of the last window, where the (possibly partial) last frame is
-            # emitted too.
-            emit_limit = (window_end + self._spf if flush and last_window
-                          else window_end - self._margin)
-            if emit_limit > self._emit_sample:
-                window_out = self._frame_fn(self._buffer[:window_len])
-                if self._partial_beam:
-                    # Beam modes get per-frame posteriors; the greedy machinery
-                    # (emission boundary, words, greedy_text) runs on their argmax.
-                    log_probs = np.asarray(window_out)
-                    frames = log_probs.argmax(-1)
-                else:
-                    frames = window_out
-                finalized_from = self._emit_sample
-                emissions, self._emit_sample, self._carry = collapse_new_frames(
-                    frames, len(frames), self._buffer_start, self._spf,
-                    self._emit_sample, self._carry, emit_limit, blank)
-                if self._partial_beam and self._emit_sample > finalized_from:
-                    # Advance the beam over exactly the rows the greedy rule just
-                    # finalized: [finalized_from, emit_sample) on the absolute axis.
-                    row_from = (finalized_from - self._buffer_start) // self._spf
-                    row_to = (self._emit_sample - self._buffer_start) // self._spf
-                    rows = log_probs[row_from:row_to]
-                    if self._beam_pipelined:
-                        # Queue the rows and pump without blocking: a finished advance
-                        # seeds one coalesced advance over everything queued since; one
-                        # still in flight leaves the rows for the next pump.
-                        if len(rows):
-                            self._beam_pending.append(rows)
-                        self._pump_beam(block=False)
-                    else:
-                        self._beam_state, result = self._beam_advance(
-                            self._beam_state, rows)
-                        self._beam_tokens = result.tokens
-                if emissions:
-                    self._parts.append(codec.decode_graphemes(
-                        [t for t, _ in emissions], merge_repeated=False))
-                    for token, start in emissions:
-                        self._words.push(token, start)
-            if last_window:
-                break
-            # More audio waits beyond this window: slide forward, dropping finalized
-            # samples but keeping margin_s of left context. This runs even when the
-            # window emitted nothing, so the buffer stays bounded on silent streams.
-            new_start = max(self._buffer_start, self._emit_sample - self._margin)
-            if new_start == self._buffer_start:
-                break  # no progress without more audio (margin-bound)
-            self._buffer = self._buffer[new_start - self._buffer_start:]
-            self._buffer_start = new_start
-        if self._partial_beam:
-            if flush:
-                self._drain_beam()  # the flush hands back the complete transcript
-            return self.text
-        return "".join(self._parts[emitted_before:])
+    def _restart(self) -> None:
+        """`StreamingTranscriber.reset`; a device session streams once."""
+
+    def _finalize_locked(self) -> str:
+        if not self._final_decode:
+            raise ValueError("stream was not created with final_decode=True")
+        if not self._audio_parts:
+            return ""
+        return self._transcriber.transcribe_long_audio(np.concatenate(self._audio_parts))
+
+    def _feed_locked(self, chunk: np.ndarray) -> str:
+        self._check_usable()
+        chunk = np.asarray(chunk, np.float32).ravel()
+        if self._final_decode:
+            self._audio_parts.append(chunk)
+        out = self._feed_chunk(chunk)
+        return self.text if self._partial_beam else out  # beam partials replace
+
+    def _finish_locked(self) -> str:
+        if self._finished and self._lost is None:
+            return ""  # flushed already
+        self._check_usable()
+        out = self._flush()
+        self._drain_beam()  # the flush hands back the complete transcript
+        self._words.flush()
+        self._end()
+        return self.text if self._partial_beam else out
+
+    def _check_usable(self) -> None:
+        if self._lost is not None:
+            raise RuntimeError(self._lost)
+        if self._finished:
+            raise RuntimeError("session is finished")
+
+    def _end(self) -> None:
+        """Mark the stream finished, freeing what it holds once (`_release`)."""
+        if not self._finished:
+            self._finished = True
+            self._release()
+
+    def _release(self) -> None:
+        """Free what the stream holds when it ends: the device session's row."""
+
+    def _emit_frames(self, frames, count: int, buffer_start: int,
+                     emit_limit: int) -> Tuple[int, str]:
+        """`collapse_new_frames` into the greedy text and the words; returns the
+        horizon before this step and the new text."""
+        finalized_from = self._emit_sample
+        emissions, self._emit_sample, self._carry = collapse_new_frames(
+            frames, count, buffer_start, self._spf, self._emit_sample, self._carry,
+            emit_limit, self._blank)
+        if not emissions:
+            return finalized_from, ""
+        for token, start in emissions:
+            self._words.push(token, start)
+        part = self._codec.decode_graphemes([t for t, _ in emissions],
+                                            merge_repeated=False)
+        self._parts.append(part)
+        return finalized_from, part
+
+    def _advance_finalized(self, log_probs, finalized_from: int, buffer_start: int,
+                           first_row: int = 0) -> None:
+        """Advance the beam over exactly the rows the greedy rule just finalized,
+        ``[finalized_from, _emit_sample)`` on the absolute axis, of ``log_probs`` (a
+        window starting at ``buffer_start``, from its frame ``first_row`` on). max(0,
+        .): should a degenerate configuration shift unemitted audio out of the window,
+        the beam consumes the rows that are left rather than mis-sliced ones."""
+        if self._emit_sample <= finalized_from:
+            return
+        row_from = max(0, (finalized_from - buffer_start) // self._spf)
+        row_to = (self._emit_sample - buffer_start) // self._spf
+        rows = log_probs[row_from - first_row:row_to - first_row]
+        if self._beam_pipelined:
+            # Queue the rows and pump without blocking: a finished advance seeds one
+            # coalesced advance over everything queued since; one still in flight
+            # leaves the rows for the next pump.
+            if len(rows):
+                self._beam_pending.append(rows)
+            self._pump_beam(block=False)
+        else:
+            self._beam_state, result = self._beam_advance(self._beam_state, rows)
+            self._beam_tokens = result.tokens
 
     def _pump_beam(self, block: bool) -> None:
         """Pipelined-advance pump: collect the in-flight advance when it is done (or
@@ -456,20 +482,122 @@ class StreamingTranscriber:
 
     def _collect_beam(self) -> None:
         """Wait for the in-flight advance (if any) and adopt its state and best. A
-        failed advance surfaces here and breaks the stream: the greedy horizon has
-        already moved past its rows, so resuming from the stale beam would silently
-        drop that audio. `reset()` (or a new session) recovers."""
-        if self._beam_broken:
-            raise RuntimeError("beam stream lost: a previous pipelined advance failed "
-                               "mid-stream; reset() or open a new session")
+        failed advance surfaces here and loses the stream."""
         if self._beam_inflight is not None:
             inflight, self._beam_inflight = self._beam_inflight, None
             try:
                 self._beam_state, result = inflight.wait()
             except BaseException:
-                self._beam_broken = True
+                self._lost = self._lost_message  # what every later feed or finish raises
+                self._end()
                 raise
             self._beam_tokens = result.tokens
+
+
+class StreamingTranscriber(StreamSession):
+    def __init__(self, transcriber, window_s: float = 8.0, margin_s: float = 2.0,
+                 sample_rate: int = 16000, frame_fn=None,
+                 final_decode: bool = False, partial_decode: str = "greedy",
+                 beam_chunk_frames: int = 32, beam_max_decoded_length: int = 512,
+                 beam_decoder=None, beam_advance_fn=None,
+                 beam_advance_nowait_fn=None):
+        """``frame_fn``: the per-frame window call (default ``transcriber.frame_tokens``,
+        or ``transcriber.frame_log_probs`` in beam mode); a `StreamingFrameBatcher.submit`
+        lets many streams share batched dispatches.
+
+        ``beam_decoder`` / ``beam_advance_fn``: share one decoder (and a batched
+        advance, e.g. `BeamAdvanceBatcher.submit`) across many beam-partial streams;
+        the per-stream state rides in each stream's `BeamStreamState`. Defaults: a
+        private decoder, advanced directly. ``beam_advance_nowait_fn``: the pipelined
+        submit (`StreamSession._use_beam_decoder`).
+
+        ``final_decode``: two-pass mode; the stream also keeps every fed chunk on the
+        host (3.84 MB per minute of 16 kHz float32) and `finalize()` re-decodes the whole
+        audio through `transcribe_long_audio`.
+
+        ``partial_decode``: ``"greedy"`` (live partials are the append-only collapsed
+        argmax), ``"beam"`` (live partials come from the incremental prefix beam, with
+        the transcriber's word LM; `feed` returns the full current best, which replaces
+        earlier partials, and the greedy text and word timestamps stay available as
+        `.greedy_text` / `pop_new_words`) or ``"beam_pipelined"`` (the same beam,
+        advanced while the client gathers its next chunk: partials lag one feed or
+        more, the transcript after `finish` is the same as ``"beam"``'s)."""
+        _check_window(window_s, margin_s)
+        super().__init__(transcriber, transcriber.samples_per_frame, sample_rate,
+                         final_decode, partial_decode)
+        if self._partial_beam:
+            if frame_fn is None and not _serves_posteriors(transcriber):
+                raise ValueError("partial_decode='beam' needs per-frame posteriors; this "
+                                 "backend has no frame_log_probs")
+            self._use_beam_decoder(
+                beam_decoder if beam_decoder is not None
+                else beam_decoder_for(transcriber, beam_chunk_frames,
+                                      beam_max_decoded_length),
+                beam_advance_fn, beam_advance_nowait_fn)
+            default_fn = transcriber.frame_log_probs
+        else:
+            default_fn = transcriber.frame_tokens
+        self._frame_fn = frame_fn if frame_fn is not None else default_fn
+        # Window and margin aligned to the output frame grid, so the absolute
+        # frame-to-sample mapping survives buffer drops.
+        self._window = int(window_s * sample_rate) // self._spf * self._spf
+        self._margin = int(margin_s * sample_rate) // self._spf * self._spf
+        self.reset()
+
+    def reset(self) -> None:
+        """Start the stream afresh: after `finish`, or after a failed advance lost
+        it."""
+        self._start_stream()
+        self._buffer = np.zeros(0, dtype=np.float32)
+        self._buffer_start = 0   # absolute sample index of buffer[0]
+
+    _restart = reset
+
+    def _feed_chunk(self, chunk: np.ndarray) -> str:
+        self._buffer = np.concatenate([self._buffer, chunk])
+        self._total += len(chunk)
+        return self._drain(flush=False)
+
+    def _flush(self) -> str:
+        return self._drain(flush=True)
+
+    def _drain(self, flush: bool) -> str:
+        out = ""
+        while True:
+            available = len(self._buffer)
+            window_len = min(available, self._window)
+            window_end = self._buffer_start + window_len
+            last_window = window_len == available
+            # Frames whose receptive field may still grow are not final, except at the
+            # flush of the last window, where the (possibly partial) last frame is
+            # emitted too.
+            emit_limit = (window_end + self._spf if flush and last_window
+                          else window_end - self._margin)
+            if emit_limit > self._emit_sample:
+                window_out = self._frame_fn(self._buffer[:window_len])
+                if self._partial_beam:
+                    # Beam modes get per-frame posteriors; the greedy machinery
+                    # (emission boundary, words, greedy_text) runs on their argmax.
+                    log_probs = np.asarray(window_out)
+                    frames = log_probs.argmax(-1)
+                else:
+                    frames = window_out
+                finalized_from, part = self._emit_frames(frames, len(frames),
+                                                         self._buffer_start, emit_limit)
+                out += part
+                if self._partial_beam:
+                    self._advance_finalized(log_probs, finalized_from, self._buffer_start)
+            if last_window:
+                break
+            # More audio waits beyond this window: slide forward, dropping finalized
+            # samples but keeping margin_s of left context. This runs even when the
+            # window emitted nothing, so the buffer stays bounded on silent streams.
+            new_start = max(self._buffer_start, self._emit_sample - self._margin)
+            if new_start == self._buffer_start:
+                break  # no progress without more audio (margin-bound)
+            self._buffer = self._buffer[new_start - self._buffer_start:]
+            self._buffer_start = new_start
+        return out
 
 
 class StreamingFrameBatcher(MicroBatcher):
@@ -555,78 +683,48 @@ class BeamAdvanceBatcher(MicroBatcher):
             pending.result = result
 
 
-class _Session:
-    __slots__ = ("stream", "lock", "last_used")
+class SessionPool:
+    """Many concurrent streaming sessions, shared by the host pool
+    (`StreamingSessionPool`) and the device pool
+    (`serving_device_stream.DeviceStreamingPool`)::
 
-    def __init__(self, stream: StreamingTranscriber):
-        self.stream = stream
-        self.lock = threading.Lock()
-        self.last_used = time.time()
-
-
-class StreamingSessionPool:
-    """Many concurrent streaming sessions over one transcriber, their window dispatches
-    and beam advances micro-batched::
-
-        pool = StreamingSessionPool(transcriber)
         sid = pool.create()
         partial = pool.feed(sid, chunk)      # newly finalized text
         final = pool.finish(sid)             # flush + close
 
     Sessions idle beyond ``idle_timeout_s`` are reaped (their text is lost; clients
     that want it must `finish`). Feeds to one session serialize on its lock; different
-    sessions proceed concurrently and share batches.
-    """
+    sessions proceed concurrently and share batches, and beam sessions one decoder. A
+    subclass owns ``batcher`` and implements `_open_locked` and `_check_mode`."""
 
-    def __init__(self, transcriber, window_s: float = 8.0, margin_s: float = 2.0,
-                 max_batch: int = 16, max_wait_ms: float = 20.0,
-                 idle_timeout_s: float = 300.0, max_sessions: int = 256,
-                 beam_engine: str = "auto"):
-        """``beam_engine``: the beam sessions' decoder (`beam_decoder_for`)."""
-        # Fail at construction: a bad window/margin pair would otherwise surface as a
-        # misleading error on every create().
-        _check_window(window_s, margin_s)
+    def __init__(self, transcriber, idle_timeout_s: float, max_sessions: int,
+                 beam_engine: str = "auto", beam_opts: Optional[dict] = None):
         self._transcriber = transcriber
-        self._window_s = window_s
-        self._margin_s = margin_s
         self._idle_timeout_s = idle_timeout_s
-        self._max_sessions = max_sessions
-        self._sessions: Dict[str, _Session] = {}
-        self._lock = threading.Lock()
-        self.batcher = StreamingFrameBatcher(transcriber, max_batch=max_batch,
-                                             max_wait_ms=max_wait_ms)
-        # Beam-partial sessions run another window call (posteriors), so they batch
-        # among themselves on a second thread; without posteriors they are refused.
-        self.posterior_batcher = (
-            StreamingFrameBatcher(transcriber, max_batch=max_batch,
-                                  max_wait_ms=max_wait_ms, log_probs=True)
-            if _serves_posteriors(transcriber) else None)
-        # Beam sessions share one decoder and batch their advances; built on the first
-        # beam create(), so greedy-only pools never pay for it.
+        self.max_sessions = max_sessions
+        self._sessions: Dict[str, StreamSession] = {}
+        # Re-entrant: a reap under it ends sessions, and the end of a device session
+        # hands its row back under it.
+        self._lock = threading.RLock()
         self.beam_batcher: Optional[BeamAdvanceBatcher] = None
         self._beam_engine = beam_engine
-        self._max_batch = max_batch
-        self._max_wait_ms = max_wait_ms
-        self._started = False
+        self._beam_opts = beam_opts or {}
 
     def start(self) -> None:
         self.batcher.start()
-        if self.posterior_batcher is not None:
-            self.posterior_batcher.start()
         with self._lock:
-            self._started = True
             if self.beam_batcher is not None and not self.beam_batcher.started:
                 self.beam_batcher.start()
 
     def stop(self) -> None:
         self.batcher.stop()
-        if self.posterior_batcher is not None:
-            self.posterior_batcher.stop()
         if self.beam_batcher is not None:
             self.beam_batcher.stop()
         with self._lock:
-            self._started = False
-            self._sessions.clear()
+            self._close_all_locked()
+
+    def _close_all_locked(self) -> None:
+        self._sessions.clear()
 
     def create(self, final_decode: bool = False,
                partial_decode: str = "greedy") -> str:
@@ -637,82 +735,67 @@ class StreamingSessionPool:
         (each feed's text replaces the previous one); ``"beam_pipelined"`` is the same
         beam with advances that overlap the client's next chunks (partials lag; the
         finish transcript equals ``"beam"``'s)."""
-        beam = partial_decode in ("beam", "beam_pipelined")
-        if beam and self.posterior_batcher is None:
-            raise ValueError("partial_decode='{}' needs per-frame posteriors; this "
-                             "backend has no frame_log_probs".format(partial_decode))
+        _check_partial_decode(partial_decode)
+        self._check_mode(partial_decode)
         with self._lock:
             self._reap_locked()
-            if len(self._sessions) >= self._max_sessions:
+            if self._full_locked():
                 raise RuntimeError("session limit reached ({})".format(
-                    self._max_sessions))
+                    self.max_sessions))
             session_id = uuid.uuid4().hex[:16]
-            beam_kwargs = {}
-            if beam:
-                batcher = self._ensure_beam_batcher_locked()
-                beam_kwargs = dict(beam_decoder=batcher.decoder,
-                                   beam_advance_fn=batcher.submit,
-                                   beam_advance_nowait_fn=batcher.submit_nowait)
-            frame_fn = self.posterior_batcher.submit if beam else self.batcher.submit
-            stream = StreamingTranscriber(self._transcriber, window_s=self._window_s,
-                                          margin_s=self._margin_s, frame_fn=frame_fn,
-                                          final_decode=final_decode,
-                                          partial_decode=partial_decode, **beam_kwargs)
-            self._sessions[session_id] = _Session(stream)
+            self._sessions[session_id] = self._open_locked(final_decode, partial_decode)
             return session_id
 
-    def _ensure_beam_batcher_locked(self) -> BeamAdvanceBatcher:
-        """Build (and start, if the pool runs) the shared beam-advance batcher. The
-        caller holds `self._lock`."""
-        if self.beam_batcher is None:
-            self.beam_batcher = BeamAdvanceBatcher(
-                beam_decoder_for(self._transcriber, engine=self._beam_engine),
-                max_batch=self._max_batch, max_wait_ms=self._max_wait_ms)
-            if self._started:
-                self.beam_batcher.start()
-        return self.beam_batcher
+    def _full_locked(self) -> bool:
+        return len(self._sessions) >= self.max_sessions
+
+    def _get_beam_batcher(self) -> BeamAdvanceBatcher:
+        """The shared beam decoder in its `BeamAdvanceBatcher`, built at the first beam
+        session, so that greedy-only pools never pay for it."""
+        with self._lock:
+            if self.beam_batcher is None:
+                self.beam_batcher = BeamAdvanceBatcher(
+                    beam_decoder_for(self._transcriber, engine=self._beam_engine,
+                                     **self._beam_opts),
+                    max_batch=self.batcher.max_batch,
+                    max_wait_ms=self.batcher.max_wait_ms)
+                if self.batcher.started:
+                    self.beam_batcher.start()
+            return self.beam_batcher
+
+    def _beam_feed(self, state, rows):
+        """A session's advance: batched while the beam batcher runs, direct otherwise
+        (read per call, so sessions created before `start` adopt the batcher)."""
+        batcher = self.beam_batcher
+        if batcher.started:
+            return batcher.submit(state, rows)
+        return batcher.decoder.feed(state, rows)
+
+    def _beam_feed_nowait(self, state, rows):
+        """A session's pipelined submit, deferred to collection before `start`."""
+        batcher = self.beam_batcher
+        if batcher.started:
+            return batcher.submit_nowait(state, rows)
+        return _DeferredAdvance(batcher.decoder.feed, state, rows)
 
     def warm_up_beam(self) -> None:
         """Load the shared beam decoder's kernels (`BeamAdvanceBatcher.warm_up`) before
-        beam traffic arrives, so that no live feed builds or loads one: with an empty
-        build directory the first feed would otherwise run nvcc. Pools that never serve
-        beam sessions skip this. Raises like ``create(partial_decode='beam')`` when the
-        backend has no posteriors."""
-        if self.posterior_batcher is None:
-            raise ValueError("beam partials need per-frame posteriors; this "
-                             "backend has no frame_log_probs program")
-        with self._lock:
-            batcher = self._ensure_beam_batcher_locked()
-        batcher.warm_up(self._transcriber.blank_index + 1)
+        beam traffic arrives, so that no live feed builds or loads one (with an empty
+        build directory, it would run nvcc)."""
+        self._get_beam_batcher().warm_up(self._transcriber.blank_index + 1)
 
     def feed(self, session_id: str, chunk: np.ndarray) -> str:
         return self.feed_with_text(session_id, chunk)[0]
 
     def feed_with_text(self, session_id: str,
                        chunk: np.ndarray) -> Tuple[str, str, float]:
-        """``(newly_finalized, full_text_so_far, final_up_to_s)``; see
-        `feed_with_state`."""
-        state = self.feed_with_state(session_id, chunk)
-        return state["partial"], state["text"], state["final_up_to_s"]
+        return self._get(session_id).feed_with_text(chunk)
 
     def feed_with_state(self, session_id: str, chunk: np.ndarray) -> dict:
-        """Feed one chunk; returns ``{"partial", "text", "final_up_to_s", "words"}``
-        (``words``: timestamps finalized by this feed) from one locked call, so that a
-        concurrent finish or reap cannot lose the result."""
-        session = self._get(session_id)
-        with session.lock:
-            try:
-                partial = session.stream.feed(chunk)
-                return {"partial": partial, "text": session.stream.text,
-                        "final_up_to_s": session.stream.final_up_to_s,
-                        "words": session.stream.pop_new_words()}
-            finally:
-                # Stamped on exit: a feed that waits long (a first kernel build) must
-                # not look idle and be reaped mid-feed.
-                session.last_used = time.time()
+        return self._get(session_id).feed_with_state(chunk)
 
     def text(self, session_id: str) -> str:
-        return self._get(session_id).stream.text
+        return self._get(session_id).text
 
     def finish(self, session_id: str) -> str:
         """Flush and close; returns the complete transcript (the offline second pass for
@@ -725,31 +808,29 @@ class StreamingSessionPool:
         return state["text"], state["live_text"]
 
     def finish_with_state(self, session_id: str) -> dict:
-        """Flush and close; ``{"text", "live_text", "words", "final_up_to_s"}``:
-        ``words`` are the timestamps the flush finalized, ``final_up_to_s`` the full
-        stream duration."""
-        session = self._get(session_id)
-        with session.lock:
-            session.stream.finish()
-            live = session.stream.text
-            full = session.stream.finalize() if session.stream._final_decode else live
-            words = session.stream.pop_new_words()
-            final_up_to = session.stream.final_up_to_s
+        """Flush and close (`StreamSession.finish_with_state`)."""
+        state = self._get(session_id).finish_with_state()
         with self._lock:
             self._sessions.pop(session_id, None)
-        return {"text": full, "live_text": live, "words": words,
-                "final_up_to_s": round(final_up_to, 3)}
+        return state
 
     def close(self, session_id: str) -> None:
         with self._lock:
-            self._sessions.pop(session_id, None)
+            session = self._sessions.pop(session_id, None)
+        if session is None:
+            return
+        # Under the session lock, so that a close racing a feed or finish cannot free
+        # what that call still uses (a device row while its dispatch is queued: a new
+        # session would get it and receive the old session's audio).
+        with session.lock:
+            session._end()
 
     @property
     def session_count(self) -> int:
         with self._lock:
             return len(self._sessions)
 
-    def _get(self, session_id: str) -> _Session:
+    def _get(self, session_id: str) -> StreamSession:
         with self._lock:
             self._reap_locked()
             session = self._sessions.get(session_id)
@@ -762,4 +843,65 @@ class StreamingSessionPool:
         for stale in [sid for sid, s in self._sessions.items()
                       if s.last_used < cutoff and not s.lock.locked()]:
             # A held lock means a feed or finish is running: never reap a live stream.
-            del self._sessions[stale]
+            self._sessions.pop(stale)._end()
+
+
+class StreamingSessionPool(SessionPool):
+    """A `SessionPool` over one transcriber: each session is a `StreamingTranscriber`
+    whose window dispatches are micro-batched (`StreamingFrameBatcher`)."""
+
+    def __init__(self, transcriber, window_s: float = 8.0, margin_s: float = 2.0,
+                 max_batch: int = 16, max_wait_ms: float = 20.0,
+                 idle_timeout_s: float = 300.0, max_sessions: int = 256,
+                 beam_engine: str = "auto"):
+        """``beam_engine``: the beam sessions' decoder (`beam_decoder_for`)."""
+        # Fail at construction: a bad window/margin pair would otherwise surface as a
+        # misleading error on every create().
+        _check_window(window_s, margin_s)
+        super().__init__(transcriber, idle_timeout_s, max_sessions, beam_engine)
+        self._window_s = window_s
+        self._margin_s = margin_s
+        self.batcher = StreamingFrameBatcher(transcriber, max_batch=max_batch,
+                                             max_wait_ms=max_wait_ms)
+        # Beam-partial sessions run another window call (posteriors), so they batch
+        # among themselves on a second thread; without posteriors they are refused.
+        self.posterior_batcher = (
+            StreamingFrameBatcher(transcriber, max_batch=max_batch,
+                                  max_wait_ms=max_wait_ms, log_probs=True)
+            if _serves_posteriors(transcriber) else None)
+
+    def start(self) -> None:
+        if self.posterior_batcher is not None:
+            self.posterior_batcher.start()
+        super().start()
+
+    def stop(self) -> None:
+        if self.posterior_batcher is not None:
+            self.posterior_batcher.stop()
+        super().stop()
+
+    def _check_mode(self, partial_decode: str) -> None:
+        if partial_decode in BEAM_MODES and self.posterior_batcher is None:
+            raise ValueError("partial_decode='{}' needs per-frame posteriors; this "
+                             "backend has no frame_log_probs".format(partial_decode))
+
+    def _open_locked(self, final_decode: bool,
+                     partial_decode: str) -> StreamingTranscriber:
+        beam = partial_decode in BEAM_MODES
+        beam_kwargs = {}
+        if beam:
+            beam_kwargs = dict(beam_decoder=self._get_beam_batcher().decoder,
+                               beam_advance_fn=self._beam_feed,
+                               beam_advance_nowait_fn=self._beam_feed_nowait)
+        frame_fn = self.posterior_batcher.submit if beam else self.batcher.submit
+        return StreamingTranscriber(self._transcriber, window_s=self._window_s,
+                                    margin_s=self._margin_s, frame_fn=frame_fn,
+                                    final_decode=final_decode,
+                                    partial_decode=partial_decode, **beam_kwargs)
+
+    def warm_up_beam(self) -> None:
+        """`SessionPool.warm_up_beam`, for a backend with posteriors."""
+        if self.posterior_batcher is None:
+            raise ValueError("beam partials need per-frame posteriors; this "
+                             "backend has no frame_log_probs program")
+        super().warm_up_beam()
